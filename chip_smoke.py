@@ -8,19 +8,32 @@ non-zero and never prints its last line):
   1. device: torch/CUDA versions, the card's name and power limit; TF32 off
      for the parity phases.
   2. build: compile csrc/*.cu with nvcc (seconds and ptxas resource lines).
-  3. kernels vs their plain PyTorch twins at the serving shapes: NMS at
-     (8, 2048) -> 300 @ 0.7 and (16, 300) -> 100 @ 0.6 must keep identical
-     lanes; RoI align at features (8, 32, 60, 1024) x 300 rois within
-     1e-5 * max|F| (float32) and 1e-2 * max|F| (bfloat16, rounded output).
-     Results are compared with the twins on CPU copies; times (CUDA events)
-     with the twins on the card.
-  4. the whole slice at res101, float32, one 256x320 frame: card (kernels)
+  3. kernels vs their plain PyTorch twins at the shapes of both paths: NMS
+     at (8, 2048) -> 300 @ 0.7, (16, 300) -> 100 @ 0.6 (serving) and
+     (8, 4096) -> 2000 @ 0.7 (training) must keep identical lanes; RoI
+     align at features (8, 32, 60, 1024) x 300 rois within 1e-5 * max|F|
+     (float32) and 1e-2 * max|F| (bfloat16, rounded output); the RoI-align
+     backward at the same features x 256 rois within 1e-5 * max|dF| (float32)
+     and 1e-2 * max|dF| (bfloat16) of the twin's autograd gradient (float32
+     atomics add in a different order on every run).  Forward results are
+     compared with the twins on CPU copies, the backward with the twin on
+     the card; times (CUDA events) with the twins on the card.
+  4. the serving slice at res101, float32, one 256x320 frame: card (kernels)
      against CPU (twins).
   5. the serving path: bench.image_config's res101 at test settings,
      compute dtype bfloat16, SyntheticDataset 512x960, batch 8, one warm-up
      batch then 3 batches through inference.evaluate.  Outputs must be
-     finite, every frame must have proposals, and both kernels must have
-     launched.
+     finite, every frame must have proposals, and NMS and RoI align must
+     have launched.
+  6. the training slice at res101, float32, one 256x320 frame, ROI_BATCH_SIZE
+     64, NMS_PRE_TRAIN 1024 -> 256: card against CPU on the same random
+     draws, the card's second stage pinned to the CPU's proposal lanes.
+     Equal anchor and RoI samples, the four losses within rtol 1e-3, the
+     gradients of six trainable leaves within 1e-3 * max|g| of each leaf.
+  7. the training path: bench.image_config (res101, bf16), SyntheticDataset
+     512x960 through the BatchLoader, batch 8, one warm-up step then 10
+     steps of training.solver.train.  Every loss finite at every step; NMS,
+     RoI align and its backward must have launched.
 Then one JSON line describing the kernels, the nvidia-smi name/power line,
 and the result line {"ok": true, "device": {...}}.
 
@@ -40,8 +53,10 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 PKG = "faster_rcnn_pytorch_multimodal_tpu_torch"
 B, H_FEAT, W_FEAT, C_FEAT, R = 8, 32, 60, 1024, 300
-FRAME_HW = (512, 960)  # the serving frame: 32 x 60 C4 cells at stride 16
+R_TRAIN = 256  # TRAIN.ROI_BATCH_SIZE: RoIs pooled per training frame
+FRAME_HW = (512, 960)  # the serving and training frame: 32 x 60 C4 cells at stride 16
 SLICE_HW = (256, 320)
+TRAIN_STEPS = 10
 
 
 def phase(name: str) -> None:
@@ -157,6 +172,44 @@ def check_roi_align(rng):
               f"{tuple(dr.shape)}: max abs err {err} (bound {tol} * max|F| = {tol * fmax}); "
               f"kernel {ms} ms, plain twin on the card {plain_ms} ms")
         results[dtype] = (err, ms, plain_ms)
+    return results
+
+
+def check_roi_align_backward(rng):
+    """The backward kernel against the twin's autograd gradient, both on the
+    card, at the training shapes; times of the backward alone."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
+        _roi_align_bwd_cuda,
+        roi_align_batched,
+        roi_align_batched_plain,
+    )
+
+    feats = rng.normal(size=(B, H_FEAT, W_FEAT, C_FEAT)).astype(np.float32)
+    rois = torch.from_numpy(serving_rois(rng, B, R_TRAIN)).cuda()
+    grad_out = rng.normal(size=(B, R_TRAIN, 7, 7, C_FEAT)).astype(np.float32)
+    results = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        f = torch.from_numpy(feats).to(dtype).cuda().requires_grad_(True)
+        g = torch.from_numpy(grad_out).to(dtype).cuda()
+        (got,) = torch.autograd.grad(roi_align_batched(f, rois, 1.0 / 16), f, g)
+        plain_out = roi_align_batched_plain(f, rois, 1.0 / 16)
+        (want,) = torch.autograd.grad(plain_out, f, g, retain_graph=True)
+        torch.cuda.synchronize()
+        want = want.float()
+        gmax = float(want.abs().max())
+        err = float((got.float() - want).abs().max())
+        if got.dtype != dtype or not err <= tol * gmax:
+            raise AssertionError(f"roi_align backward {dtype}: max err {err} > {tol} * {gmax}")
+        shape, fd = tuple(f.shape), f.dtype
+        ms = cuda_ms(lambda: _roi_align_bwd_cuda(g, rois, shape, fd, 1.0 / 16, 7, 2, False), 10)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, f, g, retain_graph=True), 3)
+        print(f"roi_align backward {str(dtype).split('.')[-1]} dOut {tuple(g.shape)} -> dF "
+              f"{shape}: max abs err {err} (bound {tol} * max|dF| = {tol * gmax}); kernel "
+              f"{ms} ms, plain twin's autograd backward on the card {plain_ms} ms")
+        results[dtype] = (err, ms, plain_ms)
+        del plain_out
     return results
 
 
@@ -290,8 +343,128 @@ def run_serving(cfg, smi):
         raise AssertionError("serving: non-finite outputs")
     if not res["min_proposals"] or res["min_proposals"] <= 0:
         raise AssertionError("serving: a frame has no valid proposal")
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in ("nms", "roi_align")):
         raise AssertionError(f"serving: a kernel never launched: {launches}")
+    return launches
+
+
+TRAIN_LEAVES = (
+    "rpn.rpn_cls_score_net.weight", "rpn.rpn_bbox_pred_net.weight",
+    "predictors.cls_score_net.weight", "predictors.bbox_pred_net.weight",
+    "tail.layer4.0.conv1.weight",
+)
+LOSSES = ("rpn_cross_entropy", "rpn_loss_box", "cross_entropy", "loss_box")
+
+
+def check_train_slice(cfg_base):
+    """res101 float32 training forward and backward on one 256x320 frame:
+    card against CPU, on the same draws; the card's second stage pinned to
+    the CPU's proposal lanes (its boxes still come from the card's deltas)."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu.config import cfg_from_list
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import TrainDraws
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import (
+        create_train_state,
+        draw_train_keys,
+    )
+
+    cfg = cfg_from_list(cfg_base, (
+        "COMPUTE_DTYPE", "float32", "TRAIN.ROI_BATCH_SIZE", "64",
+        "STATIC.NMS_PRE_TRAIN", "1024", "TRAIN.RPN_POST_NMS_TOP_N", "256",
+    ))
+    cpu, _ = create_train_state(cfg, 2, "cpu", seed=1)
+    gpu, _ = create_train_state(cfg, 2, "cuda", seed=1)
+    scale_terminators(cpu), scale_terminators(gpu)
+    rng = np.random.RandomState(3)
+    h, w = SLICE_HW
+    x = torch.from_numpy(rng.randint(0, 256, (1, h, w, 3)).astype(np.uint8))
+    win = torch.tensor([[0.0, float(w), 0.0, float(h)]])
+    # GT: jittered copies of some CPU proposals, so proposals are sampled as fg
+    with torch.no_grad():
+        feat = cpu.features(x)
+        anchors = cpu.anchors(feat.shape[1], feat.shape[2], "cpu", "train")
+        rois, _scores, valid, _src = cpu._propose_batch(cpu.rpn_scores(feat), anchors, win, "train")
+    props = rois[0][valid[0]][::9][:6]
+    n = len(props)
+    gt = torch.zeros((1, cfg.static.max_gt, 5))
+    gt[0, :n, :4] = props + torch.from_numpy(rng.uniform(-2, 2, (n, 4)).astype(np.float32))
+    gt[0, :n, 4] = 1
+    mask = torch.zeros((1, cfg.static.max_gt), dtype=torch.bool)
+    mask[0, :n] = True
+    batch = {"data": x, "gt_boxes": gt, "gt_mask": mask, "window": win}
+    draws = draw_train_keys(cpu, batch, torch.Generator().manual_seed(4))
+    c_losses, c_aux = cpu.forward_train(x, gt, mask, win, draws)
+    c_losses["total_loss"].backward()
+    pin = (c_aux.proposal_src.cuda(), c_aux.proposal_valid.cuda())
+    g_draws = TrainDraws(*(None if t is None else t.cuda() for t in draws))
+    g_losses, g_aux = gpu.forward_train(x.cuda(), gt.cuda(), mask.cuda(), win.cuda(), g_draws,
+                                        proposals=pin)
+    g_losses["total_loss"].backward()
+    torch.cuda.synchronize()
+
+    checks = {
+        "anchor samples": torch.equal(g_aux.anchor_targets.sel.cpu(), c_aux.anchor_targets.sel)
+        and torch.equal(g_aux.anchor_targets.labels.cpu(), c_aux.anchor_targets.labels),
+        "roi labels": torch.equal(g_aux.proposal_targets.labels.cpu(), c_aux.proposal_targets.labels),
+    }
+    loss_err = {}
+    for k in LOSSES:
+        c, g = float(c_losses[k].detach()), float(g_losses[k].detach())
+        loss_err[k] = abs(g - c) / max(abs(c), 1e-12)
+        checks[f"loss {k}"] = loss_err[k] <= 1e-3 and np.isfinite(g)
+    grad_err = {}
+    c_params, g_params = dict(cpu.named_parameters()), dict(gpu.named_parameters())
+    last_layer3 = f"backbone.layer3.{len(cpu.backbone.layer3) - 1}.conv3.weight"
+    for name in TRAIN_LEAVES + (last_layer3,):
+        cg, gg = c_params[name].grad, g_params[name].grad
+        scale = float(cg.abs().max())
+        grad_err[name] = float((gg.cpu() - cg).abs().max()) / scale
+        checks[f"grad {name}"] = scale > 0 and grad_err[name] <= 1e-3
+    labels = c_aux.proposal_targets.labels
+    print(f"train slice {cfg.net_variant} fp32 {h}x{w}: losses cpu "
+          f"{ {k: float(c_losses[k].detach()) for k in LOSSES} }, relative errors {loss_err} "
+          f"(rpn losses unpinned, second stage pinned); sampled RoIs fg {int((labels > 0).sum())} "
+          f"bg {int((labels == 0).sum())}; gradient error / max|g| per leaf {grad_err}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train slice card vs CPU out of tolerance: {failed}")
+
+
+def run_training(cfg, smi):
+    """The training path: warm-up step, then TRAIN_STEPS steps, counted."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu.data import BatchLoader, SyntheticDataset
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import create_train_state, train
+
+    db = SyntheticDataset(cfg, num_frames=4 * B, num_classes=2, image_hw=FRAME_HW, seed=0)
+    loader = BatchLoader(db, cfg, batch_size=B, seed=0)
+    model, optimizer = create_train_state(cfg, 2, "cuda", seed=0)
+    scale_terminators(model)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    warm = train(model, optimizer, loader, 1, generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = train(model, optimizer, loader, TRAIN_STEPS, generator)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    ms = np.asarray(res["ms"])
+    finite = all(np.isfinite(v) for losses in warm["losses"] + res["losses"] for v in losses.values())
+    print(f"training {cfg.net_variant} {cfg.compute_dtype} {FRAME_HW[0]}x{FRAME_HW[1]} batch {B} ({smi}): "
+          f"warm-up step {warm['ms'][0]} ms; ms/step {res['ms']}; mean {float(ms.mean())} ms, "
+          f"median {float(np.median(ms))} ms, {B / (float(ms.mean()) / 1e3)} frames/s, "
+          f"peak memory {peak / 2**30} GiB")
+    for i, losses in enumerate(res["losses"]):
+        print(f"  step {i + 1}: " + ", ".join(f"{k} {v}" for k, v in losses.items()))
+    print(f"training: losses finite {finite}, kernel launches {launches}")
+    if not finite:
+        raise AssertionError("training: a non-finite loss")
+    if not all(launches[k] > 0 for k in ("nms", "roi_align", "roi_align_bwd")):
+        raise AssertionError(f"training: a kernel never launched: {launches}")
     return launches
 
 
@@ -329,7 +502,9 @@ def main() -> int:
     rng = np.random.RandomState(0)
     nms_prop = check_nms("proposals", B, 2048, 0.7, 300, rng)
     nms_filter = check_nms("final filter", 2 * B, 300, 0.6, 100, rng)
+    nms_train = check_nms("train proposals", B, 4096, 0.7, 2000, rng)
     roi = check_roi_align(rng)
+    roi_bwd = check_roi_align_backward(rng)
 
     from bench import image_config  # jax-free: imports only the config module
     from faster_rcnn_pytorch_multimodal_tpu.config import cfg_from_list
@@ -343,22 +518,40 @@ def main() -> int:
     check_slice(cfg)
 
     phase("serving path")
-    launches = run_serving(cfg, smi)
+    serving = run_serving(cfg, smi)
+
+    phase("training slice: card vs CPU")
+    check_train_slice(image_config())
+
+    phase("training path")
+    training = run_training(image_config(), smi)
+
+    def by_path(name):
+        return {"serving": serving[name], "training": training[name]}
 
     err_bf16, ms_bf16, plain_bf16 = roi[torch.bfloat16]
+    berr_bf16, bms_bf16, bplain_bf16 = roi_bwd[torch.bfloat16]
     kernels = {"kernels": [
         {"name": "nms", "route": "cuda", "source": f"{PKG}/csrc/nms.cu",
          "replaces": "faster_rcnn_pytorch_multimodal_tpu/ops/nms.py:53",
-         "launches": launches["nms"], "max_abs_err": max(nms_prop[0], nms_filter[0]),
-         "ms": nms_prop[1], "plain_ms": nms_prop[2]},
+         "launches": training["nms"], "launches_by_path": by_path("nms"),
+         "max_abs_err": max(nms_prop[0], nms_filter[0], nms_train[0]),
+         "ms": nms_train[1], "plain_ms": nms_train[2]},
         {"name": "roi_align", "route": "cuda", "source": f"{PKG}/csrc/roi_align.cu",
          "replaces": "faster_rcnn_pytorch_multimodal_tpu/ops/roi_align.py:122",
-         "launches": launches["roi_align"], "max_abs_err": err_bf16,
-         "ms": ms_bf16, "plain_ms": plain_bf16},
+         "launches": training["roi_align"], "launches_by_path": by_path("roi_align"),
+         "max_abs_err": err_bf16, "ms": ms_bf16, "plain_ms": plain_bf16},
+        {"name": "roi_align_bwd", "route": "cuda", "source": f"{PKG}/csrc/roi_align.cu",
+         "replaces": "faster_rcnn_pytorch_multimodal_tpu/ops/roi_align.py:122 (VJP)",
+         "launches": training["roi_align_bwd"], "launches_by_path": by_path("roi_align_bwd"),
+         "max_abs_err": berr_bf16, "ms": bms_bf16, "plain_ms": bplain_bf16},
     ]}
-    print(f"nms final-filter shape: kernel {nms_filter[1]} ms, plain {nms_filter[2]} ms; "
+    print(f"nms serving shapes: (8, 2048) kernel {nms_prop[1]} ms, plain {nms_prop[2]} ms; "
+          f"(16, 300) kernel {nms_filter[1]} ms, plain {nms_filter[2]} ms; "
           f"roi_align fp32: err {roi[torch.float32][0]}, kernel {roi[torch.float32][1]} ms, "
-          f"plain {roi[torch.float32][2]} ms")
+          f"plain {roi[torch.float32][2]} ms; roi_align backward fp32: err "
+          f"{roi_bwd[torch.float32][0]}, kernel {roi_bwd[torch.float32][1]} ms, "
+          f"plain {roi_bwd[torch.float32][2]} ms")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,17 @@
-"""Faster R-CNN detector, image C4 serving path.
+"""Faster R-CNN detector, image C4: serving and training paths.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/models/detector.py for inference:
-`build_anchor_grid` (image branch), `feat_stride`, `propose_one` (with
-TEST.MODE 'top') and `FasterRCNN.features`, `rpn_scores`, `_anchors`,
-`_propose_batch`, `pool_rois`, `roi_head`, `pooled_head` and `forward_test`
-(the path without uncertainty).  The JAX package's vmaps over frames become
-a batch dimension written out.
+Port of faster_rcnn_pytorch_multimodal_tpu/models/detector.py without
+uncertainty: `build_anchor_grid` (image branch), `feat_stride`,
+`propose_one` (with TEST.MODE 'top') and `FasterRCNN.features`,
+`rpn_scores`, `_anchors` (test and train phase), `_propose_batch`,
+`pool_rois`, `roi_head`, `pooled_head`, `forward_test` and `forward_train`.
+The JAX package's vmaps over frames become a batch dimension written out.
+
+`forward_train` runs in two stages that tests can drive apart: the RPN stage
+(features, anchor targets, RPN losses) and the second stage, which takes the
+proposals as anchor lanes (`src`, `valid`) and rebuilds their boxes from the
+RPN deltas, so that pinning the lanes keeps the boxes' gradient path.  The
+random draws of a step come in as a `TrainDraws`.
 
 Layouts at the public methods are the JAX package's: NHWC images and
 features, per-anchor lanes (B, N, .) in (y, x, a) order.  Inside, the conv
@@ -22,7 +28,7 @@ outputs are cast to float32 before softmax and decode.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,8 +49,17 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.box_transform import (
     bbox_transform_inv,
     clip_boxes,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.losses import cross_entropy, smooth_l1_loss
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import nms
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import roi_align_batched
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.targets import (
+    AnchorTargets,
+    ProposalTargets,
+    anchor_target,
+    effective_rpn_overlaps,
+    gather_lanes,
+    proposal_target,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -67,12 +82,6 @@ def build_anchor_grid(cfg: Config, feat_h: int, feat_w: int, frame_scale: float)
         frame_scale=frame_scale,
     )
     return anchors
-
-
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Per-frame gather along dim 1: x (B, N, ...) at idx (B, K) -> (B, K, ...)."""
-    idx = idx.long()
-    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
 def propose(
@@ -98,23 +107,49 @@ def propose(
     Ties in score keep the lower lane first, as `jax.lax.top_k` does.
     """
     boxes = clip_boxes(bbox_transform_inv(anchors, deltas), window)
+    # stable: among equal scores the lower lane first, as jax.lax.top_k
     sorted_scores, order = torch.sort(fg_scores, dim=1, descending=True, stable=True)
     n = fg_scores.shape[1]
     if not use_nms:
         k = min(post_nms_top_n, n)
         order = order[:, :k]
         valid = torch.ones(order.shape, dtype=torch.bool, device=order.device)
-        return _take(boxes, order), sorted_scores[:, :k], valid, order
+        return gather_lanes(boxes, order), sorted_scores[:, :k], valid, order
     k = min(pre_nms_top_n, n)
     top_scores, order = sorted_scores[:, :k], order[:, :k]
-    top_boxes = _take(boxes, order)
+    top_boxes = gather_lanes(boxes, order)
     keep, keep_valid = nms(top_boxes, top_scores, nms_thresh, post_nms_top_n)
-    scores = torch.where(keep_valid, _take(top_scores, keep), torch.zeros((), device=keep.device))
-    return _take(top_boxes, keep), scores, keep_valid, _take(order, keep)
+    scores = torch.where(keep_valid, gather_lanes(top_scores, keep), torch.zeros((), device=keep.device))
+    return gather_lanes(top_boxes, keep), scores, keep_valid, gather_lanes(order, keep)
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise on configurations outside the ported serving path."""
+class TrainDraws(NamedTuple):
+    """The random numbers of one training step, drawn by the caller.
+
+    anchor_fg / anchor_bg (B, N): uniform keys ranking the fg and bg anchor
+    candidates (N anchors a frame).  roi_fg / roi_bg (B, R): uniform keys
+    ranking the fg and bg proposal candidates (R proposals a frame, with
+    the GT boxes when TRAIN.USE_GT).  gt_noise (B, G, 4): standard normals
+    jittering the appended GT boxes (TRAIN.USE_GT_NOISE), else None."""
+
+    anchor_fg: torch.Tensor
+    anchor_bg: torch.Tensor
+    roi_fg: torch.Tensor
+    roi_bg: torch.Tensor
+    gt_noise: Optional[torch.Tensor] = None
+
+
+class TrainAux(NamedTuple):
+    """What forward_train decided on the way to its losses."""
+
+    anchor_targets: AnchorTargets
+    proposal_src: Optional[torch.Tensor]  # (B, P) anchor lane of each proposal
+    proposal_valid: Optional[torch.Tensor]  # (B, P)
+    proposal_targets: Optional[ProposalTargets]
+
+
+def check_supported(cfg: Config, training: bool = False) -> None:
+    """Raise on configurations outside the ported paths."""
     uc = cfg.uc
     flags = (
         uc.en_rpn_bbox_aleatoric, uc.en_rpn_cls_aleatoric, uc.en_rpn_bbox_epistemic,
@@ -132,6 +167,8 @@ def check_supported(cfg: Config) -> None:
         problems.append("UC.* flags (no uncertainty yet)")
     if cfg.compute_dtype not in _DTYPES:
         problems.append(f"COMPUTE_DTYPE {cfg.compute_dtype!r}")
+    if training and cfg.resnet.fixed_blocks < 0:
+        problems.append("RESNET.FIXED_BLOCKS -1 (live BN) in training")
     if problems:
         raise NotImplementedError("not ported: " + ", ".join(problems))
 
@@ -186,24 +223,33 @@ class FasterRCNN(nn.Module):
         deltas = bbox.permute(0, 2, 3, 1).reshape(b, h * w * a, 4).float()
         return {"logits": logits, "fg_prob": fg_prob, "deltas": deltas}
 
-    def anchors(self, feat_h: int, feat_w: int, device: torch.device) -> torch.Tensor:
-        """Test-phase anchor grid on `device`, built once per feature size."""
-        scale = float(self.cfg.test.scales[0])
+    def anchors(
+        self, feat_h: int, feat_w: int, device: torch.device, phase: str = "test",
+        scale_idx: Optional[int] = None,
+    ) -> torch.Tensor:
+        """The anchor grid of `phase` on `device`, built once per feature
+        size.  Anchors scale with the frame scale: the phase's first scale,
+        or with a multi-scale TRAIN.SCALES the minibatch's `scale_idx`."""
+        scales = self.cfg.phase(phase).scales
+        i = 0 if scale_idx is None or len(scales) == 1 else int(scale_idx)
+        scale = float(scales[i])
         key = (feat_h, feat_w, scale, str(device))
         if key not in self._anchor_cache:
             grid = build_anchor_grid(self.cfg, feat_h, feat_w, scale)
             self._anchor_cache[key] = torch.from_numpy(grid).to(device)
         return self._anchor_cache[key]
 
-    def _propose_batch(self, rpn_out, anchors, window):
-        c = self.cfg.test
-        top_mode = c.mode == "top"
+    def _propose_batch(self, rpn_out, anchors, window, phase: str = "test"):
+        c = self.cfg.phase(phase)
+        static = self.cfg.static
+        pre_n = static.nms_pre_train if phase == "train" else static.nms_pre_test
+        top_mode = phase == "test" and c.mode == "top"
         return propose(
             rpn_out["fg_prob"],
             rpn_out["deltas"],
             anchors,
             window,
-            pre_nms_top_n=min(self.cfg.static.nms_pre_test, c.rpn_pre_nms_top_n),
+            pre_nms_top_n=min(pre_n, c.rpn_pre_nms_top_n),
             post_nms_top_n=c.rpn_top_n if top_mode else c.rpn_post_nms_top_n,
             nms_thresh=c.rpn_nms_thresh,
             use_nms=not top_mode,
@@ -246,6 +292,152 @@ class FasterRCNN(nn.Module):
 
         out["cls_prob"], out["bbox_pred"] = self.classify_rois(feat, rois, window)
         return out
+
+    # -- training -------------------------------------------------------------
+
+    def train_lane_counts(self, image_hw: Tuple[int, int], max_gt: int) -> Tuple[int, int]:
+        """(N anchors, R proposals) a frame for training frames of
+        `image_hw`: the sizes of TrainDraws' keys.  The C4 map is
+        ceil(H / 16) x ceil(W / 16); R counts the appended GT boxes when
+        TRAIN.USE_GT."""
+        stride = feat_stride(self.cfg)
+        n = -(-image_hw[0] // stride) * -(-image_hw[1] // stride) * self.cfg.num_anchors
+        c = self.cfg.train
+        r = min(self.cfg.static.nms_pre_train, c.rpn_pre_nms_top_n, n, c.rpn_post_nms_top_n)
+        return n, r + (max_gt if c.use_gt else 0)
+
+    def rpn_train(self, feat, gt_boxes, gt_mask, window, draws: TrainDraws, scale_idx=None):
+        """RPN stage: scores, train-phase anchors, anchor targets and the two
+        RPN losses, over the sampled anchor lanes only."""
+        c = self.cfg
+        rpn_out = self.rpn_scores(feat)
+        anchors = self.anchors(feat.shape[1], feat.shape[2], feat.device, "train", scale_idx)
+        if draws.anchor_fg.shape != rpn_out["fg_prob"].shape:
+            raise ValueError(
+                f"forward_train: anchor keys {tuple(draws.anchor_fg.shape)} for "
+                f"{tuple(rpn_out['fg_prob'].shape)} anchor lanes"
+            )
+        pos_ov, neg_ov = effective_rpn_overlaps(c)
+        at = anchor_target(
+            anchors, gt_boxes, gt_mask, window, draws.anchor_fg, draws.anchor_bg,
+            rpn_batchsize=c.train.rpn_batchsize, fg_fraction=c.train.rpn_fg_fraction,
+            positive_overlap=pos_ov, negative_overlap=neg_ov,
+            clobber_positives=c.train.rpn_clobber_positives,
+        )
+        active = (at.labels >= 0).float()
+        losses = {
+            "rpn_cross_entropy": cross_entropy(
+                gather_lanes(rpn_out["logits"], at.sel).reshape(-1, 2),
+                at.labels.clamp(min=0).long().reshape(-1),
+                weights=active.reshape(-1),
+            ),
+            "rpn_loss_box": smooth_l1_loss(
+                gather_lanes(rpn_out["deltas"], at.sel), at.bbox_targets,
+                at.bbox_inside_weights, at.bbox_outside_weights, sum_axes=(1, 2),
+            ),
+        }
+        return rpn_out, anchors, at, losses
+
+    def select_proposals(self, rpn_out, anchors, window) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Train-phase proposal lanes (B, P) and their validity: top
+        min(NMS_PRE_TRAIN, RPN_PRE_NMS_TOP_N) scores -> NMS ->
+        RPN_POST_NMS_TOP_N.  A choice, not a function of the boxes: no grad."""
+        with torch.no_grad():
+            _rois, _scores, valid, src = self._propose_batch(rpn_out, anchors, window, "train")
+        return src, valid
+
+    def second_stage_train(
+        self, feat, rpn_out, anchors, window, proposal_src, proposal_valid,
+        gt_boxes, gt_mask, gt_boxes_dc, dc_mask, draws: TrainDraws,
+    ) -> Tuple[Dict[str, torch.Tensor], ProposalTargets]:
+        """Second stage on given proposal lanes: their boxes, rebuilt from
+        the RPN deltas (the gradient path of the JAX package's proposals),
+        plus the GT boxes with TRAIN.USE_GT; RoI sampling and targets; the
+        RoI head; the classification and box losses."""
+        c = self.cfg
+        rois = clip_boxes(
+            bbox_transform_inv(anchors[proposal_src], gather_lanes(rpn_out["deltas"], proposal_src)),
+            window,
+        )
+        valid = proposal_valid
+        if c.train.use_gt:
+            gt4 = gt_boxes[..., :4]
+            if c.train.use_gt_noise:
+                gw = gt_boxes[..., 2] - gt_boxes[..., 0]
+                gh = gt_boxes[..., 3] - gt_boxes[..., 1]
+                gt4 = gt4 + draws.gt_noise * 0.03 * torch.stack([gw, gh, gw, gh], dim=-1)
+            rois = torch.cat([rois, gt4], dim=1)
+            valid = torch.cat([valid, gt_mask], dim=1)
+        if draws.roi_fg.shape != valid.shape:
+            raise ValueError(
+                f"forward_train: roi keys {tuple(draws.roi_fg.shape)} for "
+                f"{tuple(valid.shape)} proposals"
+            )
+        device = rois.device
+        pt = proposal_target(
+            rois, valid, gt_boxes, gt_mask, gt_boxes_dc, dc_mask, draws.roi_fg, draws.roi_bg,
+            torch.tensor(c.train.image_bbox_normalize_means, device=device),
+            torch.tensor(c.train.image_bbox_normalize_stds, device=device),
+            num_classes=self.num_classes, num_bbox_elem=c.num_bbox_elem,
+            roi_batch_size=c.train.roi_batch_size, fg_fraction=c.train.fg_fraction,
+            fg_thresh=c.train.fg_thresh, bg_thresh_hi=c.train.bg_thresh_hi,
+            bg_thresh_lo=c.train.bg_thresh_lo, ignore_dc=c.train.ignore_dc,
+            dc_thresh=c.train.dc_thresh,
+        )
+        det = self.roi_head(feat, pt.rois)
+        b, s = pt.labels.shape
+        losses = {
+            "cross_entropy": cross_entropy(det["cls_score"].reshape(b * s, -1), pt.labels.reshape(-1)),
+            "loss_box": smooth_l1_loss(
+                det["bbox_pred"], pt.bbox_targets, pt.bbox_inside_weights,
+                pt.bbox_outside_weights, sum_axes=(2,),
+            ),
+        }
+        return losses, pt
+
+    def forward_train(
+        self,
+        images: torch.Tensor,
+        gt_boxes: torch.Tensor,
+        gt_mask: torch.Tensor,
+        window: torch.Tensor,
+        draws: TrainDraws,
+        gt_boxes_dc: Optional[torch.Tensor] = None,
+        dc_mask: Optional[torch.Tensor] = None,
+        scale_idx: Optional[int] = None,
+        proposals: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Tuple[Dict[str, torch.Tensor], TrainAux]:
+        """Training forward -> (float32 loss dict with total_loss, TrainAux).
+
+        images (B, H, W, 3), gt_boxes (B, G, 5), gt_mask (B, G), window
+        (B, 4); gt_boxes_dc (B, D, 4) and dc_mask (B, D) feed TRAIN.IGNORE_DC.
+        `proposals` = (src, valid) pins the second stage to those anchor
+        lanes instead of the NMS's own choice."""
+        b = gt_boxes.shape[0]
+        if gt_boxes_dc is None:
+            gt_boxes_dc = torch.zeros((b, 1, 4), device=gt_boxes.device)
+            dc_mask = torch.zeros((b, 1), dtype=torch.bool, device=gt_boxes.device)
+        feat = self.features(images)
+        rpn_out, anchors, at, losses = self.rpn_train(
+            feat, gt_boxes, gt_mask, window, draws, scale_idx)
+        src = valid = pt = None
+        if self.cfg.enable_full_net:
+            src, valid = proposals if proposals is not None else self.select_proposals(
+                rpn_out, anchors, window)
+            det_losses, pt = self.second_stage_train(
+                feat, rpn_out, anchors, window, src, valid, gt_boxes, gt_mask,
+                gt_boxes_dc, dc_mask, draws)
+            losses.update(det_losses)
+        else:
+            zero = torch.zeros((), device=feat.device)
+            losses.update(cross_entropy=zero, loss_box=zero)
+        losses["total_loss"] = (
+            losses["rpn_cross_entropy"] + losses["rpn_loss_box"]
+            + losses["cross_entropy"] + losses["loss_box"]
+        )
+        return losses, TrainAux(at, src, valid, pt)
+
+    forward = forward_train
 
     def classify_rois(
         self, feat: torch.Tensor, rois: torch.Tensor, window: torch.Tensor
@@ -304,17 +496,21 @@ def init_params(model: FasterRCNN, generator: torch.Generator) -> FasterRCNN:
     return model
 
 
+def init_detector(cfg: Config, num_classes: int, seed: int = 0) -> FasterRCNN:
+    """A randomly initialized float32 detector on the host.  Init draws from
+    torch.Generator(seed), so the weights do not depend on the device."""
+    with torch.device("meta"):
+        model = FasterRCNN(cfg, num_classes)
+    model = model.to_empty(device="cpu")
+    return init_params(model, torch.Generator().manual_seed(seed))
+
+
 def build_detector(
     cfg: Config, num_classes: int, device: torch.device | str, seed: int = 0
 ) -> FasterRCNN:
     """A randomly initialized detector on `device`, in cfg.compute_dtype,
-    channels_last, in eval mode.  Init draws from torch.Generator(seed) on
-    the host, so the weights do not depend on the device."""
-    with torch.device("meta"):
-        model = FasterRCNN(cfg, num_classes)
-    model = model.to_empty(device="cpu")
-    init_params(model, torch.Generator().manual_seed(seed))
-    return to_device(model, device)
+    channels_last, in eval mode."""
+    return to_device(init_detector(cfg, num_classes, seed), device)
 
 
 def to_device(model: FasterRCNN, device: torch.device | str) -> FasterRCNN:

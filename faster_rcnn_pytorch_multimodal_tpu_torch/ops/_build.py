@@ -34,7 +34,7 @@ LIB_NAME = "libfrcnn_kernels.so"
 
 # Launches of each kernel wrapper; a wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that it went through the kernel.
-LAUNCH_COUNTS = {"nms": 0, "roi_align": 0}
+LAUNCH_COUNTS = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -99,6 +99,8 @@ def library() -> ctypes.CDLL:
     lib.frcnn_nms.restype = i
     lib.frcnn_roi_align_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]
     lib.frcnn_roi_align_fwd.restype = i
+    lib.frcnn_roi_align_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
+    lib.frcnn_roi_align_bwd.restype = i
     return lib
 
 

@@ -1,16 +1,19 @@
-"""Single-level RoI align, forward: a hand-written CUDA kernel and its twin.
+"""Single-level RoI align: hand-written CUDA kernels (forward and the
+feature gradient) and their plain twin.
 
 Port of faster_rcnn_pytorch_multimodal_tpu/ops/roi_align.py:32-150
 (`_sample_coords`, `roi_align`, `roi_align_batched`).  Semantics follow the
 JAX package: torchvision's box mapping with aligned=False (RoI size floored at
 1 feature cell), a FIXED sampling_ratio (parity waiver 6), sample coordinates
 clamped to [0, dim - 1] before the bilinear taps, and the mean over the
-sr x sr samples of each bin.  Features are NHWC.
+sr x sr samples of each bin.  Features are NHWC.  The RoIs get no gradient,
+as under the JAX package's stop_gradient (ops/roi_align.py:144).
 
-On a CUDA tensor `roi_align_batched` launches csrc/roi_align.cu or raises;
-on a CPU tensor it runs `roi_align_batched_plain`, a gather formulation of
-the same formula.  The kernel is forward only: on CUDA it raises when
-autograd would need a feature gradient.
+On a CUDA tensor `roi_align_batched` runs `_RoIAlignCuda`, an autograd
+Function whose forward launches the forward kernel of csrc/roi_align.cu and
+whose backward launches its backward kernel, or raises.  On a CPU tensor it
+runs `roi_align_batched_plain`, a gather formulation of the same formula,
+which torch's autograd differentiates.
 """
 
 from __future__ import annotations
@@ -104,6 +107,51 @@ def _roi_align_cuda(features, rois, spatial_scale, p, sr, aligned):
     return out
 
 
+def _roi_align_bwd_cuda(grad_out, rois, feat_shape, feat_dtype, spatial_scale, p, sr, aligned):
+    """Feature gradient (B, H, W, C) in the features' dtype from the output
+    gradient (B, R, P, P, C): float32 atomics into a zeroed accumulator,
+    then (bfloat16) one rounding pass, both in the backward kernel's entry."""
+    b, h, w, c = feat_shape
+    r = rois.shape[1]
+    device = grad_out.device
+    grad_out = grad_out.to(feat_dtype).contiguous()
+    accum = torch.zeros(feat_shape, dtype=torch.float32, device=device)
+    grad = accum if feat_dtype == torch.float32 else torch.empty(
+        feat_shape, dtype=feat_dtype, device=device)
+    if grad_out.numel() == 0:
+        return grad.zero_()
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = lib.frcnn_roi_align_bwd(
+            grad_out.data_ptr(), rois.data_ptr(), accum.data_ptr(), grad.data_ptr(),
+            _DTYPE_CODE[feat_dtype], b, h, w, c, r,
+            float(spatial_scale), p, sr, int(aligned), _build.stream_handle(device),
+        )
+    _build.check(err, "frcnn_roi_align_bwd")
+    _build.LAUNCH_COUNTS["roi_align_bwd"] += 1
+    return grad
+
+
+class _RoIAlignCuda(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel; the RoIs
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, features, rois, spatial_scale, p, sr, aligned):
+        ctx.save_for_backward(rois)
+        ctx.geometry = (features.shape, features.dtype, spatial_scale, p, sr, aligned)
+        return _roi_align_cuda(features, rois, spatial_scale, p, sr, aligned)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (rois,) = ctx.saved_tensors
+        shape, dtype, spatial_scale, p, sr, aligned = ctx.geometry
+        grad = None
+        if ctx.needs_input_grad[0]:
+            grad = _roi_align_bwd_cuda(grad_out, rois, shape, dtype, spatial_scale, p, sr, aligned)
+        return grad, None, None, None, None, None
+
+
 def roi_align_batched(
     features: torch.Tensor,
     rois: torch.Tensor,
@@ -122,7 +170,8 @@ def roi_align_batched(
       sampling_ratio: fixed samples per bin side.
       aligned: half-pixel offset (False keeps torchvision's legacy mapping).
 
-    Returns: (B, R, output_size, output_size, C) in the features' dtype.
+    Returns: (B, R, output_size, output_size, C) in the features' dtype,
+    differentiable in the features only.
     """
     if features.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4:
         raise ValueError(
@@ -140,6 +189,7 @@ def roi_align_batched(
         raise ValueError("roi_align: features and rois must be on one device")
     if output_size < 1 or sampling_ratio < 1:
         raise ValueError("roi_align: output_size and sampling_ratio must be >= 1")
+    rois = rois.detach()
     if features.device.type == "cpu":
         return roi_align_batched_plain(
             features, rois, spatial_scale, output_size, sampling_ratio, aligned
@@ -148,11 +198,7 @@ def roi_align_batched(
         raise ValueError(f"roi_align: unsupported device {features.device}")
     if not (features.is_contiguous() and rois.is_contiguous()):
         raise ValueError("roi_align: contiguous NHWC features and rois required")
-    if torch.is_grad_enabled() and features.requires_grad:
-        raise NotImplementedError(
-            "roi_align: the CUDA kernel is forward only; no feature gradient"
-        )
-    return _roi_align_cuda(
+    return _RoIAlignCuda.apply(
         features, rois, spatial_scale, output_size, sampling_ratio, aligned
     )
 
