@@ -1,63 +1,49 @@
 """The serving loop as library functions: frames -> detections -> AP.
 
-Port of the frame loop of tools/test_net.py:48-207: a batch from the JAX
-package's (jax-free) BatchLoader goes through `detect_batch` (the detector's
-forward_test), `filter_batch` (per-class threshold + NMS, one batched launch),
-`to_per_class_lists` per frame, and `evaluate_class` per class.  Used by
-tools/test_net_torch.py and chip_smoke.py.
+Port of the frame loop of tools/test_net.py:48-290: a batch from the port's
+BatchLoader goes through `detect_batch` (the detector's forward_test),
+`filter_batch` (per-class threshold + NMS, one batched launch),
+`to_per_class_lists` per frame, and `evaluate_class` per class.  A LiDAR
+batch arrives with its BEV raster already on the device (the loader runs
+`voxelize_bev` there).  Used by tools/test_net_torch.py and chip_smoke.py.
 
-`DeviceTimer` times each stage with CUDA events on a card (host clock on the
-CPU), so the numbers are device time, not enqueue time.
+Stages are timed with `DeviceTimer`: CUDA events on a card (host clock on
+the CPU), so the numbers are device time, not enqueue time.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from faster_rcnn_pytorch_multimodal_tpu.evaluation.eval_utils import evaluate_class
+from faster_rcnn_pytorch_multimodal_tpu_torch.evaluation.eval_utils import evaluate_class
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import FasterRCNN
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import (
     filter_detections,
     to_per_class_lists,
 )
-
-
-class DeviceTimer:
-    """Milliseconds of the work issued between start() and stop(): CUDA
-    events on a CUDA device, the host clock otherwise."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def start(self) -> None:
-        if self.cuda:
-            self._t0 = torch.cuda.Event(enable_timing=True)
-            self._t0.record()
-        else:
-            self._t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        if self.cuda:
-            t1 = torch.cuda.Event(enable_timing=True)
-            t1.record()
-            t1.synchronize()
-            return self._t0.elapsed_time(t1)
-        return (time.perf_counter() - self._t0) * 1e3
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
 
 
 def model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def detect_batch(model: FasterRCNN, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """One loader batch (uint8 NHWC `data`, `window`) through forward_test."""
+def _on_device(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def detect_batch(model: FasterRCNN, batch: Dict[str, object]) -> Dict[str, torch.Tensor]:
+    """One loader batch through forward_test: `data` uint8 NHWC frames
+    (numpy) or a BEV raster (a tensor, already on the model's device), and
+    `window`."""
     device = model_device(model)
-    images = torch.from_numpy(np.ascontiguousarray(batch["data"])).to(device)
-    window = torch.from_numpy(np.ascontiguousarray(batch["window"], np.float32)).to(device)
+    images = _on_device(batch["data"], device)
+    window = _on_device(np.asarray(batch["window"], np.float32), device)
     with torch.inference_mode():
         return model.forward_test(images, window)
 
@@ -75,6 +61,8 @@ def filter_batch(model: FasterRCNN, out: Dict[str, torch.Tensor], thresh: float)
             max_dets=cfg.test.max_dets,
             thresh=thresh,
             nms_thresh=cfg.test.nms_thresh,
+            is_lidar=cfg.net_type == "lidar",
+            rotated_nms=cfg.test.rotated_nms,
         )
 
 
@@ -86,25 +74,40 @@ def frame_id(db, i: int) -> str:
     return f"frame_{i:06d}"
 
 
-def evaluate(model: FasterRCNN, loader, db, n_frames: int, thresh: float, iou_thresh: float = 0.5) -> Dict:
+def eval_settings(cfg) -> tuple:
+    """(eval_type, IoU threshold) of the self-contained eval, as
+    tools/test_net.py:277-278 chooses them: 2d @ 0.5 for images; for lidar
+    LIDAR.EVAL_TYPE, at 0.5 for '3d' and 0.7 otherwise."""
+    if cfg.net_type != "lidar":
+        return "2d", 0.5
+    eval_type = cfg.lidar.eval_type
+    return eval_type, 0.5 if eval_type == "3d" else 0.7
+
+
+def evaluate(model: FasterRCNN, loader, db, n_frames: int, thresh: float) -> Dict:
     """Run n_frames through the serving path and score them against the
-    dataset's ground truth (self-contained 2D eval, as tools/test_net.py
-    does for datasets without a roidb).
+    dataset's ground truth (the self-contained eval of tools/test_net.py
+    for datasets without a roidb: GT and detections stay in network space,
+    image pixels or LiDAR voxel-grid units).
 
     The loader must yield frames in dataset order from frame 0
-    (shuffle=False).  Returns per-frame per-class boxes, AP per class, mAP,
-    per-batch device milliseconds of detection and filtering, whether every
-    float output was finite, and the fewest valid proposals of any frame."""
+    (shuffle=False).  Returns per-frame per-class boxes, AP per class, mAP
+    with its eval type and IoU threshold, per-batch device milliseconds of
+    the voxelizer (lidar), detection and filtering, whether every float
+    output was finite, and the fewest valid proposals of any frame."""
     num_classes, bbox_elem = model.num_classes, model.cfg.num_bbox_elem
+    eval_type, iou_thresh = eval_settings(model.cfg)
     timer = DeviceTimer(model_device(model))
     all_boxes: List[List[np.ndarray]] = [[] for _ in range(num_classes)]
     detections = {j: [] for j in range(1, num_classes)}
     gt_frames = {}
-    detect_ms, filter_ms = [], []
+    raster_ms, detect_ms, filter_ms = [], [], []
     finite, min_proposals = True, None
     frame_idx = 0
     while frame_idx < n_frames:
         batch = loader.next()
+        if getattr(loader, "last_raster_ms", None) is not None:
+            raster_ms.append(loader.last_raster_ms)
         timer.start()
         out = detect_batch(model, batch)
         detect_ms.append(timer.stop())
@@ -115,7 +118,7 @@ def evaluate(model: FasterRCNN, loader, db, n_frames: int, thresh: float, iou_th
         n_prop = int(out["roi_valid"].sum(1).min())
         min_proposals = n_prop if min_proposals is None else min(min_proposals, n_prop)
         filt = {k: v.cpu().numpy() for k, v in filt.items()}
-        for i in range(batch["data"].shape[0]):
+        for i in range(batch["window"].shape[0]):
             if frame_idx >= n_frames:
                 break
             boxes_j, _ = to_per_class_lists(
@@ -135,11 +138,14 @@ def evaluate(model: FasterRCNN, loader, db, n_frames: int, thresh: float, iou_th
     ap = {}
     for j in range(1, num_classes):
         gtc = {fid: {"boxes": g["boxes"][g["cls"] == j]} for fid, g in gt_frames.items()}
-        ap[j] = evaluate_class(detections[j], gtc, iou_thresh=iou_thresh, eval_type="2d")
+        ap[j] = evaluate_class(detections[j], gtc, iou_thresh=iou_thresh, eval_type=eval_type)
     return {
         "all_boxes": all_boxes,
         "ap": ap,
         "mAP": float(np.mean([r["ap"] for r in ap.values()])) if ap else 0.0,
+        "eval_type": eval_type,
+        "iou_thresh": iou_thresh,
+        "raster_ms": raster_ms,
         "detect_ms": detect_ms,
         "filter_ms": filter_ms,
         "frames": n_frames,

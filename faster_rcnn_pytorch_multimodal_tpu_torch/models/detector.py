@@ -1,11 +1,17 @@
-"""Faster R-CNN detector, image C4: serving and training paths.
+"""Faster R-CNN detector, C4: image serving and training, LiDAR BEV serving.
 
 Port of faster_rcnn_pytorch_multimodal_tpu/models/detector.py without
-uncertainty: `build_anchor_grid` (image branch), `feat_stride`,
+uncertainty: `build_anchor_grid` (image and lidar branches), `feat_stride`,
 `propose_one` (with TEST.MODE 'top') and `FasterRCNN.features`,
 `rpn_scores`, `_anchors` (test and train phase), `_propose_batch`,
 `pool_rois`, `roi_head`, `pooled_head`, `forward_test` and `forward_train`.
 The JAX package's vmaps over frames become a batch dimension written out.
+
+For LiDAR (NET_TYPE lidar) the input is the (B, Y, X, slices + 3) BEV raster,
+the stem takes that many channels, the RPN regresses the BEV AABB footprints
+of the 3D anchors, and the second stage decodes 7-DoF boxes against each
+proposal's 3D anchor (`lidar_3d_bbox_transform_inv`, no clipping).  LiDAR
+training is not ported yet.
 
 `forward_train` runs in two stages that tests can drive apart: the RPN stage
 (features, anchor targets, RPN losses) and the second stage, which takes the
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from faster_rcnn_pytorch_multimodal_tpu.config import Config
+from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.heads import (
     DetectionPredictors,
     RPNHead,
@@ -44,10 +50,15 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import (
     ResNetC4,
     ResNetLayer4,
 )
-from faster_rcnn_pytorch_multimodal_tpu_torch.ops.anchors import generate_anchors_pre
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.anchors import (
+    anchors_3d_to_bev_aabb,
+    generate_3d_anchors,
+    generate_anchors_pre,
+)
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.box_transform import (
     bbox_transform_inv,
     clip_boxes,
+    lidar_3d_bbox_transform_inv,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.losses import cross_entropy, smooth_l1_loss
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import nms
@@ -71,17 +82,55 @@ def feat_stride(cfg: Config) -> int:
     return 16
 
 
-def build_anchor_grid(cfg: Config, feat_h: int, feat_w: int, frame_scale: float) -> np.ndarray:
-    """(feat_h * feat_w * A, 4) float32 image anchors in (y, x, a) order."""
-    anchors, _ = generate_anchors_pre(
+def build_anchor_grid(
+    cfg: Config, feat_h: int, feat_w: int, frame_scale: float
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(anchors_bev (N, 4), anchors_3d (N, 7)) float32 in (y, x, a) order.
+
+    Image nets: the 2D anchors and a zero (N, 7) placeholder.  Lidar nets:
+    the 3D grid anchors and their BEV AABB footprints, with
+    LIDAR.ANCHOR_SUBSTRIDE centers tiled every stride / sub voxels and the
+    lanes reordered to (H, W, sub_y, sub_x, A), as the JAX package does."""
+    stride = feat_stride(cfg)
+    if cfg.net_type == "lidar":
+        sub = cfg.lidar.anchor_substride
+        if stride % sub:
+            raise ValueError("LIDAR.ANCHOR_SUBSTRIDE must divide the feature stride")
+        fine_stride = stride // sub
+        fh, fw = feat_h * sub, feat_w * sub
+        _, a3d = generate_3d_anchors(
+            fh, fw, fine_stride,
+            anchor_sizes_lwh=cfg.lidar.anchors,
+            anchor_scales=cfg.lidar.anchor_scales,
+            anchor_rotations=cfg.lidar.anchor_angles,
+            voxel_len=cfg.lidar.voxel_len,
+            frame_scale=frame_scale,
+        )
+        bev = anchors_3d_to_bev_aabb(a3d)
+        # the 3D grid tiles [0, W*stride - 1), which drops the last row and
+        # column when the fine stride is 1: pad them by edge replication
+        a = cfg.num_anchors_3d // (sub * sub)  # anchors per fine cell
+        full = fh * fw * a
+        if bev.shape[0] != full:
+            grid_w = int(np.ceil((fw * fine_stride - 1) / fine_stride))
+            grid_h = int(np.ceil((fh * fine_stride - 1) / fine_stride))
+            pad = ((0, fh - grid_h), (0, fw - grid_w), (0, 0), (0, 0))
+            bev = np.pad(bev.reshape(grid_h, grid_w, a, 4), pad, mode="edge").reshape(full, 4)
+            a3d = np.pad(a3d.reshape(grid_h, grid_w, a, 7), pad, mode="edge").reshape(full, 7)
+        if sub > 1:
+            n = feat_h * feat_w * sub * sub * a
+            bev = bev.reshape(feat_h, sub, feat_w, sub, a, 4).transpose(0, 2, 1, 3, 4, 5).reshape(n, 4)
+            a3d = a3d.reshape(feat_h, sub, feat_w, sub, a, 7).transpose(0, 2, 1, 3, 4, 5).reshape(n, 7)
+        return bev, a3d
+    anchors, n = generate_anchors_pre(
         feat_h,
         feat_w,
-        feat_stride(cfg),
+        stride,
         anchor_scales=cfg.anchor_scales,
         anchor_ratios=cfg.anchor_ratios,
         frame_scale=frame_scale,
     )
-    return anchors
+    return anchors, np.zeros((n, 7), np.float32)
 
 
 def propose(
@@ -157,8 +206,15 @@ def check_supported(cfg: Config, training: bool = False) -> None:
         uc.en_bbox_epistemic, uc.en_cls_epistemic,
     )
     problems = []
-    if cfg.net_type != "image":
-        problems.append(f"NET_TYPE {cfg.net_type!r} (image only)")
+    lidar = cfg.net_type == "lidar"
+    if cfg.net_type not in ("image", "lidar"):
+        problems.append(f"NET_TYPE {cfg.net_type!r}")
+    if lidar and training:
+        problems.append("NET_TYPE 'lidar' in training (serving only)")
+    if lidar and cfg.use_lidar_fpn:
+        problems.append("USE_LIDAR_FPN")
+    if lidar and cfg.test.rotated_nms:
+        problems.append("TEST.ROTATED_NMS (rotated IoU kernel)")
     if cfg.use_fpn:
         problems.append("USE_FPN (C4 only)")
     if not cfg.net_variant.startswith("res"):
@@ -167,14 +223,15 @@ def check_supported(cfg: Config, training: bool = False) -> None:
         problems.append("UC.* flags (no uncertainty yet)")
     if cfg.compute_dtype not in _DTYPES:
         problems.append(f"COMPUTE_DTYPE {cfg.compute_dtype!r}")
-    if training and cfg.resnet.fixed_blocks < 0:
-        problems.append("RESNET.FIXED_BLOCKS -1 (live BN) in training")
+    if (training or lidar) and cfg.resnet.fixed_blocks < 0:
+        problems.append("RESNET.FIXED_BLOCKS -1 (live BN) in training or with lidar")
     if problems:
         raise NotImplementedError("not ported: " + ", ".join(problems))
 
 
 class FasterRCNN(nn.Module):
-    """Image C4 Faster R-CNN (ResNet backbone, stride-1 layer4 tail)."""
+    """C4 Faster R-CNN (ResNet backbone, stride-1 layer4 tail) on images or
+    LiDAR BEV rasters."""
 
     def __init__(self, cfg: Config, num_classes: int):
         super().__init__()
@@ -182,13 +239,14 @@ class FasterRCNN(nn.Module):
         self.cfg = cfg
         self.num_classes = num_classes
         num_layers = int(cfg.net_variant.replace("res", "") or 101)
-        self.backbone = ResNetC4(num_layers)
+        in_channels = cfg.lidar.num_channel if cfg.net_type == "lidar" else 3
+        self.backbone = ResNetC4(num_layers, in_channels=in_channels)
         self.tail = ResNetLayer4(num_layers)
         self.rpn = RPNHead(ResNetC4.out_channels, cfg.rpn_channels, cfg.num_anchors)
         self.predictors = DetectionPredictors(
             ResNetLayer4.out_channels, num_classes, cfg.num_bbox_elem
         )
-        self._anchor_cache: Dict[tuple, torch.Tensor] = {}
+        self._anchor_cache: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -223,21 +281,30 @@ class FasterRCNN(nn.Module):
         deltas = bbox.permute(0, 2, 3, 1).reshape(b, h * w * a, 4).float()
         return {"logits": logits, "fg_prob": fg_prob, "deltas": deltas}
 
+    def anchor_grids(
+        self, feat_h: int, feat_w: int, device: torch.device, phase: str = "test",
+        scale_idx: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(anchors_bev (N, 4), anchors_3d (N, 7)) of `phase` on `device`,
+        built once per feature size.  Anchors scale with the frame scale:
+        the phase's first scale, or with a multi-scale TRAIN.SCALES the
+        minibatch's `scale_idx` (image nets only, as in the JAX package)."""
+        scales = self.cfg.phase(phase).scales
+        single = scale_idx is None or len(scales) == 1 or self.cfg.net_type == "lidar"
+        scale = float(scales[0 if single else int(scale_idx)])
+        key = (feat_h, feat_w, scale, str(device))
+        if key not in self._anchor_cache:
+            grids = build_anchor_grid(self.cfg, feat_h, feat_w, scale)
+            self._anchor_cache[key] = tuple(torch.from_numpy(g).to(device) for g in grids)
+        return self._anchor_cache[key]
+
     def anchors(
         self, feat_h: int, feat_w: int, device: torch.device, phase: str = "test",
         scale_idx: Optional[int] = None,
     ) -> torch.Tensor:
-        """The anchor grid of `phase` on `device`, built once per feature
-        size.  Anchors scale with the frame scale: the phase's first scale,
-        or with a multi-scale TRAIN.SCALES the minibatch's `scale_idx`."""
-        scales = self.cfg.phase(phase).scales
-        i = 0 if scale_idx is None or len(scales) == 1 else int(scale_idx)
-        scale = float(scales[i])
-        key = (feat_h, feat_w, scale, str(device))
-        if key not in self._anchor_cache:
-            grid = build_anchor_grid(self.cfg, feat_h, feat_w, scale)
-            self._anchor_cache[key] = torch.from_numpy(grid).to(device)
-        return self._anchor_cache[key]
+        """The (N, 4) anchors the RPN regresses (2D, or the BEV footprints
+        of the 3D anchors); see anchor_grids."""
+        return self.anchor_grids(feat_h, feat_w, device, phase, scale_idx)[0]
 
     def _propose_batch(self, rpn_out, anchors, window, phase: str = "test"):
         c = self.cfg.phase(phase)
@@ -279,18 +346,23 @@ class FasterRCNN(nn.Module):
     # -- inference ----------------------------------------------------------
 
     def forward_test(self, images: torch.Tensor, window: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(B, H, W, 3) frames, (B, 4) windows -> rois (B, S, 4),
-        roi_scores, roi_valid (B, S), and with the full net cls_prob (B, S, K)
-        and per-class decoded, clipped boxes bbox_pred (B, S, 4K)."""
+        """(B, H, W, C) frames or BEV rasters, (B, 4) windows -> rois
+        (B, S, 4), roi_scores, roi_valid (B, S), for lidar anchors_3d
+        (B, S, 7) (each proposal's 3D anchor), and with the full net
+        cls_prob (B, S, K) and per-class decoded boxes bbox_pred (B, S, EK):
+        clipped image boxes, or 7-DoF lidar boxes in voxel units."""
         feat = self.features(images)
         rpn_out = self.rpn_scores(feat)
-        anchors = self.anchors(feat.shape[1], feat.shape[2], feat.device)
-        rois, roi_scores, roi_valid, _src = self._propose_batch(rpn_out, anchors, window)
+        anchors, anchors_3d = self.anchor_grids(feat.shape[1], feat.shape[2], feat.device)
+        rois, roi_scores, roi_valid, src = self._propose_batch(rpn_out, anchors, window)
         out = {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid}
+        roi_a3d = None
+        if self.cfg.net_type == "lidar":
+            roi_a3d = out["anchors_3d"] = anchors_3d[src]
         if not self.cfg.enable_full_net:
             return out
 
-        out["cls_prob"], out["bbox_pred"] = self.classify_rois(feat, rois, window)
+        out["cls_prob"], out["bbox_pred"] = self.classify_rois(feat, rois, window, roi_a3d)
         return out
 
     # -- training -------------------------------------------------------------
@@ -440,19 +512,38 @@ class FasterRCNN(nn.Module):
     forward = forward_train
 
     def classify_rois(
-        self, feat: torch.Tensor, rois: torch.Tensor, window: torch.Tensor
+        self, feat: torch.Tensor, rois: torch.Tensor, window: torch.Tensor,
+        anchors_3d: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Second stage on (B, S, 4) rois -> class probabilities (B, S, K)
-        and per-class boxes (B, S, 4K), decoded with the un-normalized
-        deltas and clipped to each frame's window."""
+        and per-class boxes (B, S, EK); see decode."""
+        return self.decode(self.roi_head(feat, rois), rois, window, anchors_3d)
+
+    def decode(
+        self, det: Dict[str, torch.Tensor], rois: torch.Tensor, window: torch.Tensor,
+        anchors_3d: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """RoI-head outputs -> class probabilities and per-class boxes from
+        the un-normalized deltas: image boxes clipped to each frame's window,
+        or for lidar 7-DoF boxes decoded against the rois' (B, S, 7) 3D
+        anchors, unclipped."""
         c = self.cfg
-        det = self.roi_head(feat, rois)
         b, s = rois.shape[:2]
         k, e = self.num_classes, c.num_bbox_elem
-        means = torch.tensor(c.train.image_bbox_normalize_means, device=rois.device)
-        stds = torch.tensor(c.train.image_bbox_normalize_stds, device=rois.device)
+        lidar = c.net_type == "lidar"
+        tc = c.train
+        means = torch.tensor(
+            tc.lidar_bbox_normalize_means if lidar else tc.image_bbox_normalize_means,
+            device=rois.device)
+        stds = torch.tensor(
+            tc.lidar_bbox_normalize_stds if lidar else tc.image_bbox_normalize_stds,
+            device=rois.device)
         deltas = (det["bbox_pred"].reshape(b, s, k, e) * stds + means).reshape(b, s, k * e)
         cls_prob = torch.softmax(det["cls_score"], dim=-1)
+        if lidar:
+            if anchors_3d is None:
+                raise ValueError("decode: lidar rois need their (B, S, 7) 3D anchors")
+            return cls_prob, lidar_3d_bbox_transform_inv(rois, anchors_3d, deltas)
         return cls_prob, clip_boxes(bbox_transform_inv(rois, deltas), window)
 
 

@@ -3,7 +3,8 @@
 The kernels have a plain C interface and are compiled by `nvcc` into one
 shared library, loaded with ctypes: pointers and the stream go in as
 `c_void_p`, and every entry returns `cudaGetLastError()`.  No PyTorch header
-is compiled, so a build takes seconds.
+is compiled, so a build takes seconds: one `nvcc -c` per source, all started
+together, then one link.
 
 The build is lazy: importing this module never looks for `nvcc`; the first
 kernel launch builds.  The library lands in `build/kernels/<hash>/` at the
@@ -28,13 +29,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libfrcnn_kernels.so"
 
 # Launches of each kernel wrapper; a wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that it went through the kernel.
-LAUNCH_COUNTS = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0}
+LAUNCH_COUNTS = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0, "voxelize_bev": 0}
 
 
 def reset_launch_counts() -> None:
@@ -67,7 +68,8 @@ def library_path() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def build() -> tuple[Path, float, str]:
-    """Compile csrc/*.cu into the shared library unless it exists.
+    """Compile csrc/*.cu into the shared library unless it exists: one
+    `nvcc -c` per source in parallel, then one link.
 
     Returns (path, build seconds, nvcc's output): 0 seconds and an empty log
     when the library was already there.  Raises RuntimeError if nvcc fails.
@@ -76,17 +78,29 @@ def build() -> tuple[Path, float, str]:
     if path.exists():
         return path, 0.0, ""
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [path.with_name(f"{src.stem}.{tag}.o") for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(_sources(), objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(src.name, log) for src, proc, log in zip(_sources(), procs, logs) if proc.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n}:\n{log}" for n, log in failed))
+    tmp = path.with_name(f"{path.name}.{tag}")
+    link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                           "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+    logs.append(link.stdout + link.stderr)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, path)  # atomic: a concurrent process never loads half a file
-    return path, seconds, proc.stdout + proc.stderr
+    return path, seconds, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,6 +115,8 @@ def library() -> ctypes.CDLL:
     lib.frcnn_roi_align_fwd.restype = i
     lib.frcnn_roi_align_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.frcnn_roi_align_bwd.restype = i
+    lib.frcnn_voxelize_bev.argtypes = [p, p, p, p, p, p, i, i, f, f, f, f, f, f, f, i, i, i, i, i, f, p]
+    lib.frcnn_voxelize_bev.restype = i
     return lib
 
 

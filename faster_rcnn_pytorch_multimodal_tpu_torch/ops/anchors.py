@@ -1,7 +1,6 @@
-"""2D anchor generation (host-side numpy).
+"""2D and 3D anchor generation (host-side numpy).
 
-Port of faster_rcnn_pytorch_multimodal_tpu/ops/anchors.py:26-87, copied
-rather than imported because that package's `ops/__init__.py` imports JAX.
+Port of faster_rcnn_pytorch_multimodal_tpu/ops/anchors.py:26-154, copied.
 Anchor grids depend only on static shapes, so they are computed once on the
 host and cached on the device by the detector.  Bit-exact with the JAX
 package, including numpy's round-half-even in the ratio enumeration (parity
@@ -10,6 +9,7 @@ waiver 1).
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -77,3 +77,58 @@ def generate_anchors_pre(
     k = shifts.shape[0]
     all_anchors = (anchors[None, :, :] + shifts[:, None, :]).reshape(k * a, 4)
     return all_anchors.astype(np.float32), int(k * a)
+
+
+def generate_3d_anchors(
+    height: int,
+    width: int,
+    feat_stride: int,
+    anchor_sizes_lwh: Sequence[Sequence[float]] = ((4.73, 2.08, 1.77),),
+    anchor_scales: Sequence[float] = (1.0,),
+    anchor_rotations: Sequence[float] = (0.0, math.pi / 2),
+    voxel_len: float = 0.1,
+    frame_scale: float = 1.0,
+) -> Tuple[int, np.ndarray]:
+    """BEV-grid 3D anchors, N x [x, y, z, l, w, h, ry] in voxel-grid units.
+
+    Centers tile every `feat_stride` voxel cells over [0, W*stride - 1) x
+    [0, H*stride - 1); (l, w) go from meters to voxels with
+    voxel_len / frame_scale; z sits at half the (metric) anchor height.
+    Lanes are ordered (y, x, size, rotation), row-major."""
+    if len(anchor_scales) != 1:
+        raise ValueError("generate_3d_anchors: a single 3D anchor scale is supported")
+    x_max = width * feat_stride - 1
+    y_max = height * feat_stride - 1
+    eff_voxel_len = voxel_len / frame_scale
+    sizes = (
+        np.asarray(anchor_sizes_lwh, dtype=np.float64)
+        / np.array([eff_voxel_len, eff_voxel_len, 1.0])
+        * anchor_scales[0]
+    )
+    rotations = np.asarray(anchor_rotations, dtype=np.float64)
+    x_centers = np.arange(0, x_max, feat_stride, dtype=np.float64)
+    y_centers = np.arange(0, y_max, feat_stride, dtype=np.float64)
+    yy, xx, ss, rr = np.meshgrid(
+        y_centers, x_centers, np.arange(len(sizes)), np.arange(len(rotations)), indexing="ij"
+    )
+    flat = np.stack([xx.ravel(), yy.ravel(), ss.ravel(), rr.ravel()], axis=1)
+    out = np.zeros((flat.shape[0], 7), dtype=np.float32)
+    out[:, 0] = flat[:, 0]
+    out[:, 1] = flat[:, 1]
+    out[:, 2] = sizes[0][2] / 2.0
+    out[:, 3:6] = sizes[flat[:, 2].astype(np.int64)]
+    out[:, 6] = rotations[flat[:, 3].astype(np.int64)]
+    return flat.shape[0], out
+
+
+def anchors_3d_to_bev_aabb(anchors_3d: np.ndarray) -> np.ndarray:
+    """Axis-aligned BEV footprint (x1, y1, x2, y2) of 3D anchors: the pi/2
+    heading swaps the (l, w) extents."""
+    x, y = anchors_3d[:, 0], anchors_3d[:, 1]
+    l, w = anchors_3d[:, 3], anchors_3d[:, 4]
+    swap = np.abs(np.sin(anchors_3d[:, 6])) > 0.5
+    ex = np.where(swap, w, l)
+    ey = np.where(swap, l, w)
+    return np.stack(
+        [x - ex / 2.0, y - ey / 2.0, x + ex / 2.0, y + ey / 2.0], axis=1
+    ).astype(np.float32)

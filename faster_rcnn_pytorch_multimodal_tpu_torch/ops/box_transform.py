@@ -1,6 +1,7 @@
 """Box encode/decode and clipping on tensors, polymorphic over leading dims.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/ops/box_transform.py:21-88.  Keeps
+Port of faster_rcnn_pytorch_multimodal_tpu/ops/box_transform.py:21-88 (2D)
+and :96-157 (`_roi_bev_geometry`, `lidar_3d_bbox_transform_inv`).  Keeps
 the reference's diagonal-normalized dx/dy (divided by sqrt(w^2 + h^2), not by
 w and h) and the +1 widths (parity waiver 2): checkpoints are only
 compatible with this variant.
@@ -82,3 +83,38 @@ def clip_boxes(boxes: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     x2 = torch.clamp(b[..., 2], x_lo, x_hi)
     y2 = torch.clamp(b[..., 3], y_lo, y_hi)
     return torch.stack([x1, y1, x2, y2], dim=-1).reshape(boxes.shape)
+
+
+def _roi_bev_geometry(rois: torch.Tensor):
+    """(lengths, widths, ctr_x, ctr_y, diag) of BEV RoIs [x1, y1, x2, y2]."""
+    lengths = rois[..., 2] - rois[..., 0] + 1.0
+    widths = rois[..., 3] - rois[..., 1] + 1.0
+    ctr_x = rois[..., 0] + lengths / 2.0
+    ctr_y = rois[..., 1] + widths / 2.0
+    diag = torch.sqrt(lengths**2 + widths**2)
+    return lengths, widths, ctr_x, ctr_y, diag
+
+
+def lidar_3d_bbox_transform_inv(
+    rois: torch.Tensor, anchors_3d: torch.Tensor, deltas: torch.Tensor
+) -> torch.Tensor:
+    """Decode (..., 7K) deltas -> (..., 7K) [xc, yc, zc, l, w, h, ry] in
+    voxel units: (ctr, l, w) from the BEV RoI, (z, h) from its 3D anchor,
+    the heading as predicted."""
+    lengths, widths, cx, cy, diag = _roi_bev_geometry(rois)
+    heights = anchors_3d[..., 5]
+    cz = anchors_3d[..., 2]
+    d = deltas.reshape(deltas.shape[:-1] + (-1, 7))
+    pred = torch.stack(
+        [
+            d[..., 0] * diag[..., None] + cx[..., None],
+            d[..., 1] * diag[..., None] + cy[..., None],
+            d[..., 2] * heights[..., None] + cz[..., None],
+            torch.exp(d[..., 3]) * lengths[..., None],
+            torch.exp(d[..., 4]) * widths[..., None],
+            torch.exp(d[..., 5]) * heights[..., None],
+            d[..., 6],
+        ],
+        dim=-1,
+    )
+    return pred.reshape(deltas.shape)

@@ -1,10 +1,12 @@
 """Final-detection filtering: per-class threshold -> NMS -> gather.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/ops/filter.py:33-145 (image
-AABB path).  The JAX package vmaps a per-class NMS over classes, one frame
-at a time; here every (frame, class) pair is one problem of a single batched
-NMS launch.  `to_per_class_lists` is the host-side numpy conversion, copied
-because the JAX module imports JAX.
+Port of faster_rcnn_pytorch_multimodal_tpu/ops/filter.py:33-145: the image
+path and the lidar path, whose NMS runs on the axis-aligned BEV footprint
+center +- (l, w) / 2 and ignores the heading (:61-78).  The rotated-NMS
+option (TEST.ROTATED_NMS) needs the rotated IoU kernel, which is not ported:
+it raises.  The JAX package vmaps a per-class NMS over classes, one frame at
+a time; here every (frame, class) pair is one problem of a single batched
+NMS launch.  `to_per_class_lists` is the host-side numpy conversion, copied.
 """
 
 from __future__ import annotations
@@ -27,23 +29,36 @@ def filter_detections(
     max_dets: int = 100,
     thresh: float = 0.5,
     nms_thresh: float = 0.6,
+    is_lidar: bool = False,
+    rotated_nms: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """cls_prob (..., S, K), pred_boxes (..., S, E*K), roi_valid (..., S).
+    """cls_prob (..., S, K), pred_boxes (..., S, E*K), roi_valid (..., S);
+    E is 4 for image boxes, 7 ([xc, yc, zc, l, w, h, ry]) with is_lidar.
 
     Returns a dict of (..., K, M, .) tensors, M = min(S, max_dets): boxes
     (E), scores, valid and src_idx (index into the S rois).  Class 0
     (background) lanes are always invalid.
     """
-    if bbox_elem != 4:
-        raise NotImplementedError("filter_detections: image (4-element) boxes only")
-    s, k = cls_prob.shape[-2], cls_prob.shape[-1]
+    if rotated_nms:
+        raise NotImplementedError(
+            "filter_detections: rotated NMS (TEST.ROTATED_NMS) needs the rotated IoU "
+            "kernel, which is not ported")
+    if bbox_elem != (7 if is_lidar else 4):
+        raise ValueError(f"filter_detections: bbox_elem {bbox_elem} with is_lidar={is_lidar}")
+    k = cls_prob.shape[-1]
     if k != num_classes:
         raise ValueError(f"filter_detections: {k} class columns, num_classes {num_classes}")
     scores = cls_prob.transpose(-1, -2)  # (..., K, S)
     boxes = pred_boxes.reshape(pred_boxes.shape[:-1] + (k, bbox_elem)).transpose(-2, -3)
     not_bg = torch.arange(k, device=cls_prob.device) > 0
     valid = roi_valid[..., None, :] & (scores > thresh) & not_bg[:, None]
-    keep, keep_valid = nms(boxes[..., :4], scores, nms_thresh, max_dets, valid=valid)
+    if is_lidar:
+        half_l, half_w = boxes[..., 3] / 2.0, boxes[..., 4] / 2.0
+        nms_boxes = torch.stack([boxes[..., 0] - half_l, boxes[..., 1] - half_w,
+                                 boxes[..., 0] + half_l, boxes[..., 1] + half_w], dim=-1)
+    else:
+        nms_boxes = boxes[..., :4]
+    keep, keep_valid = nms(nms_boxes.contiguous(), scores, nms_thresh, max_dets, valid=valid)
     keep = keep.long()
     kept_scores = torch.gather(scores, -1, keep)
     return {

@@ -28,7 +28,7 @@ from typing import Callable, Dict, Iterable, List
 import numpy as np
 import torch
 
-from faster_rcnn_pytorch_multimodal_tpu.config import Config
+from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
 
 _BN_STATS = ("running_mean", "running_var")
 _STEM = ("conv1", "bn1")

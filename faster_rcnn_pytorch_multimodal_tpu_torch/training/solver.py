@@ -21,8 +21,8 @@ from typing import Callable, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from faster_rcnn_pytorch_multimodal_tpu.config import Config
-from faster_rcnn_pytorch_multimodal_tpu_torch.inference import DeviceTimer, model_device
+from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
+from faster_rcnn_pytorch_multimodal_tpu_torch.inference import model_device
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import (
     FasterRCNN,
     TrainDraws,
@@ -30,6 +30,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import (
     init_detector,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
 
 
 def create_train_state(

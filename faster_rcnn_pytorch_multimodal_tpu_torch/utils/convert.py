@@ -8,9 +8,11 @@ into the port's state dict; `to_flax_variables` goes back.  Conversions:
   BN scale / bias / mean / var   <-> weight / bias / running_mean / running_var
 
 The port's backbone and tail are named after torchvision's ResNet keys, so
-the flax path of a backbone key is exactly what the JAX package's
-`utils.convert.resnet_key_to_flax` gives (that module is jax-free).  Every
-leaf must map, in both directions: an unknown path or key raises.
+the flax path of a backbone key is exactly what `resnet_key_to_flax` gives,
+a copy of the JAX package's utils/convert.py:49-86.  Every leaf must map,
+in both directions: an unknown path or key raises.  Shapes carry over as
+they are, so a LiDAR net's 15-channel stem and 7K-wide box head convert
+like the image net's.
 """
 
 from __future__ import annotations
@@ -21,14 +23,47 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from faster_rcnn_pytorch_multimodal_tpu.utils.convert import resnet_key_to_flax
-
 _BN_TO_TORCH = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _BN_TO_FLAX = {v: k for k, v in _BN_TO_TORCH.items()}
 _HEADS = {
     "rpn": ("rpn_net", "rpn_cls_score_net", "rpn_bbox_pred_net"),
     "predictors": ("cls_score_net", "bbox_pred_net"),
 }
+
+
+def resnet_key_to_flax(key: str, use_fpn: bool) -> Tuple[str, ...] | None:
+    """torchvision ResNet key -> the JAX package's param path (under
+    'backbone' / the C4 'tail').  None for keys it drops (fc head,
+    trackers)."""
+    if "num_batches_tracked" in key or key.startswith("fc."):
+        return None
+    key = key.replace("resnet.", "")
+    m = re.match(r"^(conv1|bn1)\.(\w+)$", key)
+    if m:
+        mod, leaf = m.groups()
+        if mod == "conv1":
+            return ("backbone", "stem", "conv1", "kernel")
+        return ("backbone", "stem", "bn1", _BN_TO_FLAX[leaf])
+    m = re.match(r"^layer(\d)\.(\d+)\.(conv\d|bn\d|downsample)\.?(\d+)?\.(\w+)$", key)
+    if not m:
+        m2 = re.match(r"^layer(\d)\.(\d+)\.(conv\d|bn\d)\.(\w+)$", key)
+        if not m2:
+            return None
+        stage, block, mod, leaf = m2.groups()
+        ds_idx = None
+    else:
+        stage, block, mod, ds_idx, leaf = m.groups()
+    stage_i, block_i = int(stage), int(block)
+    # layer4 lives in the C4 tail; under FPN it is in the pyramid backbone
+    root = ("tail",) if (stage_i == 4 and not use_fpn) else ("backbone",)
+    scope = root + (f"layer{stage_i}", f"block{block_i}")
+    if mod == "downsample":
+        name = "downsample_conv" if ds_idx == "0" else "downsample_bn"
+        leaf_name = "kernel" if name == "downsample_conv" else _BN_TO_FLAX[leaf]
+        return scope + (name, leaf_name)
+    if mod.startswith("conv"):
+        return scope + (mod, "kernel")
+    return scope + (mod, _BN_TO_FLAX[leaf])
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:

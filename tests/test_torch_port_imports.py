@@ -1,7 +1,8 @@
 """The port's import boundary and kernel dispatch.
 
-* Importing every module of the port (and its CLI and chip_smoke.py) in a
-  fresh interpreter leaves JAX out of sys.modules.
+* Importing every module of the port (and its CLIs and chip_smoke.py) in a
+  fresh interpreter leaves JAX, the JAX package and bench.py out of
+  sys.modules: the port keeps its own copies of what it needs.
 * On CPU tensors the kernel wrappers run their plain twins and launch
   nothing; on a CUDA tensor they launch the hand-written kernel, which is
   held against the twin (tests marked `cuda`, skipped without a card).
@@ -27,6 +28,10 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (  # noqa: E4
     roi_align_batched,
     roi_align_batched_plain,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.voxelize import (  # noqa: E402
+    voxelize_bev,
+    voxelize_bev_plain,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -45,7 +50,9 @@ for path in ({tools!r} + "/test_net_torch.py", {tools!r} + "/trainval_net_torch.
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     names.append(path)
 print(len(names))
-assert "jax" not in sys.modules, [m for m in sys.modules if m.startswith("jax")][:5]
+leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "bench"
+          or m.split(".")[0] == "faster_rcnn_pytorch_multimodal_tpu"]
+assert not leaked, leaked[:10]
 """
 
 
@@ -54,13 +61,31 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=str(REPO))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 22  # every module of the port was imported
+    assert int(proc.stdout.split()[-1]) >= 30  # every module of the port was imported
 
 
 def _boxes(rng, shape):
     xy = rng.uniform(0, 300, shape + (2,))
     wh = rng.uniform(8, 120, shape + (2,))
     return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+GRID = dict(x_range=(0.0, 70.0), y_range=(-40.0, 40.0), z_range=(-3.0, 3.0), voxel_len=0.4,
+            voxel_height=0.5, num_x=175, num_y=200, num_slices=12)
+
+
+def _cloud(rng, b, p):
+    pts = np.stack([rng.uniform(-5, 75, (b, p)), rng.uniform(-45, 45, (b, p)),
+                    rng.uniform(-4, 4, (b, p)), rng.uniform(0, 1, (b, p)),
+                    rng.uniform(0, 0.3, (b, p))], -1).astype(np.float32)
+    n = p // 4  # on cell and slice boundaries
+    pts[:, :n, 0] = rng.randint(-1, 177, (b, n)) * 0.4
+    pts[:, :n, 1] = -40 + rng.randint(-1, 202, (b, n)) * 0.4
+    pts[:, :n, 2] = -3 + rng.randint(-1, 14, (b, n)) * 0.5
+    pts[:, n:n + 40, :3] = [10.1, 0.1, -2.9]  # 40 points in one voxel
+    valid = rng.uniform(size=(b, p)) < 0.9
+    valid[:, n:n + 40] = True
+    return pts, valid
 
 
 def test_cpu_tensors_run_the_twin_without_launching():
@@ -78,6 +103,11 @@ def test_cpu_tensors_run_the_twin_without_launching():
     feats.requires_grad_(True)
     roi_align_batched(feats, rois, 1 / 16).sum().backward()  # the twin's autograd
     assert feats.grad is not None and float(feats.grad.abs().sum()) > 0
+    pts, valid = (torch.from_numpy(a) for a in _cloud(rng, 2, 3000))
+    bev = voxelize_bev(pts, valid, **GRID)
+    want = voxelize_bev_plain(pts, valid, **GRID)
+    assert torch.equal(bev, want)
+    assert bev.shape == (2, 200, 175, 15)
     assert _build.LAUNCH_COUNTS == before
 
 
@@ -91,6 +121,19 @@ def test_wrappers_reject_bad_inputs():
         nms(torch.zeros(5, 4), torch.zeros(6), 0.5, 3)
     with pytest.raises(TypeError):
         nms(torch.zeros(5, 4).double(), torch.zeros(5).double(), 0.5, 3)
+    pts, valid = torch.zeros(2, 10, 5), torch.ones(2, 10, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        voxelize_bev(pts[..., :4], valid, **GRID)  # not 5 values a point
+    with pytest.raises(ValueError):
+        voxelize_bev(pts[0], valid[0], **GRID)  # one frame without its batch axis
+    with pytest.raises(ValueError):
+        voxelize_bev(pts, valid[:, :9], **GRID)  # valid does not fit the points
+    with pytest.raises(TypeError):
+        voxelize_bev(pts.double(), valid, **GRID)
+    with pytest.raises(TypeError):
+        voxelize_bev(pts, valid.float(), **GRID)
+    with pytest.raises(ValueError):
+        voxelize_bev(pts, valid, **{**GRID, "num_slices": 0})
 
 
 # -- on the card -----------------------------------------------------------
@@ -169,3 +212,22 @@ def test_roi_align_backward_kernel_matches_twin(cuda, dtype, c, tol):
     assert f_dev.grad.dtype == dtype
     err = float((f_dev.grad.cpu().float() - want).abs().max())
     assert err <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_voxelize_kernel_matches_twin(cuda):
+    """Height and density channels equal, the meta channels (float sums in
+    atomic order) within 1e-5; an all-invalid frame stays zero."""
+    rng = np.random.RandomState(3)
+    pts, valid = _cloud(rng, 3, 20000)
+    valid[2] = False
+    tp, tv = torch.from_numpy(pts), torch.from_numpy(valid)
+    before = _build.LAUNCH_COUNTS["voxelize_bev"]
+    got = voxelize_bev(tp.to(cuda), tv.to(cuda), **GRID)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["voxelize_bev"] == before + 1
+    want = voxelize_bev_plain(tp, tv, **GRID)
+    got = got.cpu()
+    assert torch.equal(got[..., :13], want[..., :13])
+    assert float((got[..., 13:] - want[..., 13:]).abs().max()) <= 1e-5
+    assert not bool(got[2].any())

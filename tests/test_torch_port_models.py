@@ -14,12 +14,9 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from faster_rcnn_pytorch_multimodal_tpu.config import (  # noqa: E402
-    cfg_from_list,
-    default_config,
-)
 from faster_rcnn_pytorch_multimodal_tpu.models import heads as j_heads  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu.models import resnet as j_resnet  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch import config as t_config  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.models import detector as t_det  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.models import heads as t_heads  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.models import resnet as t_resnet  # noqa: E402
@@ -183,8 +180,8 @@ def test_frozen_batchnorm_bf16_affine_in_float32():
 def test_torchvision_resnet_state_dict_loads_directly():
     """Backbone and tail keys are torchvision's: a torchvision ResNet state
     dict (with its fc head and BN step counters) loads key for key."""
-    cfg = cfg_from_list(default_config(), ("NET_TYPE", "image", "NET_VARIANT", "res50",
-                                           "COMPUTE_DTYPE", "float32"))
+    cfg = t_config.cfg_from_list(t_config.default_config(), (
+        "NET_TYPE", "image", "NET_VARIANT", "res50", "COMPUTE_DTYPE", "float32"))
     src = t_det.build_detector(cfg, 2, "cpu", seed=1)
     tv = {k.split(".", 1)[1]: v for k, v in src.state_dict().items()
           if k.startswith(("backbone.", "tail."))}

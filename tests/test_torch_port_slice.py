@@ -29,6 +29,7 @@ from faster_rcnn_pytorch_multimodal_tpu.models import detector as j_det  # noqa:
 from faster_rcnn_pytorch_multimodal_tpu.ops.filter import (  # noqa: E402
     filter_detections as j_filter,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch import config as t_config  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.models import detector as t_det  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import (  # noqa: E402
     filter_detections as t_filter,
@@ -43,19 +44,25 @@ B, H, W, K = 2, 128, 192, 2
 PRE_N, POST_N = 256, 32
 
 
+OVERRIDES = (
+    "NET_TYPE", "image",
+    "NET_VARIANT", "res50",
+    "COMPUTE_DTYPE", "float32",
+    "PIXEL_STDDEVS", "[60.,60.,60.]",
+    "TEST.SCALES", "(1.0,)",
+    "STATIC.NMS_PRE_TEST", str(PRE_N),
+    "TEST.RPN_POST_NMS_TOP_N", str(POST_N),
+)
+
+
 def _cfg():
-    return cfg_from_list(
-        default_config(),
-        (
-            "NET_TYPE", "image",
-            "NET_VARIANT", "res50",
-            "COMPUTE_DTYPE", "float32",
-            "PIXEL_STDDEVS", "[60.,60.,60.]",
-            "TEST.SCALES", "(1.0,)",
-            "STATIC.NMS_PRE_TEST", str(PRE_N),
-            "TEST.RPN_POST_NMS_TOP_N", str(POST_N),
-        ),
-    )
+    """The JAX package's config."""
+    return cfg_from_list(default_config(), OVERRIDES)
+
+
+def _tcfg():
+    """The port's config, from the same overrides."""
+    return t_config.cfg_from_list(t_config.default_config(), OVERRIDES)
 
 
 def _flat(tree, prefix=()):
@@ -111,11 +118,12 @@ def _run_both():
         variables, jnp.asarray(x), jnp.asarray(window),
         method=j_det.FasterRCNN.forward_test, rngs={"dropout": jax.random.PRNGKey(0)})
 
-    t_model = t_det.FasterRCNN(cfg, K)
+    tcfg = _tcfg()
+    t_model = t_det.FasterRCNN(tcfg, K)
     load_flax_variables(t_model, variables)
     t_model.eval()
     return types.SimpleNamespace(
-        cfg=cfg, x=x, window=window, variables=variables, t_model=t_model,
+        cfg=cfg, tcfg=tcfg, x=x, window=window, variables=variables, t_model=t_model,
         j_feat=np.asarray(j_feat),
         j_fg=np.asarray(j_rpn["fg_prob"]), j_deltas=np.asarray(j_rpn["deltas"]),
         j_props=[np.asarray(a) for a in j_props],
@@ -219,7 +227,7 @@ def test_top_mode_proposals_on_pinned_scores(slice_run):
 
 def test_rpn_only_forward(slice_run):
     """ENABLE_FULL_NET False returns the proposals alone, the same ones."""
-    cfg = slice_run.cfg.replace(enable_full_net=False)
+    cfg = slice_run.tcfg.replace(enable_full_net=False)
     m = t_det.FasterRCNN(cfg, K)
     load_flax_variables(m, slice_run.variables)
     with torch.no_grad():

@@ -21,6 +21,7 @@ from faster_rcnn_pytorch_multimodal_tpu.ops import losses as j_losses  # noqa: E
 from faster_rcnn_pytorch_multimodal_tpu.ops import roi_align as j_roi  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu.ops import targets as j_tg  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu.training import optim as j_optim  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch import config as t_config  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.models import detector as t_det  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops import iou as t_iou  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops import losses as t_losses  # noqa: E402
@@ -322,12 +323,19 @@ def test_roi_align_feature_gradient(fh, fw):
 
 
 def _cfg(*extra):
+    """The JAX package's config."""
     return cfg_from_list(default_config(), ("NET_TYPE", "image", "NET_VARIANT", "res50") + extra)
+
+
+def _tcfg(*extra):
+    """The port's config, from the same overrides."""
+    return t_config.cfg_from_list(t_config.default_config(),
+                                  ("NET_TYPE", "image", "NET_VARIANT", "res50") + extra)
 
 
 @pytest.fixture(scope="module")
 def res50_port():
-    return t_det.init_detector(_cfg("COMPUTE_DTYPE", "float32"), 2, seed=0)
+    return t_det.init_detector(_tcfg("COMPUTE_DTYPE", "float32"), 2, seed=0)
 
 
 def _flat(tree, prefix=()):
@@ -340,7 +348,8 @@ def _flat(tree, prefix=()):
 
 @pytest.mark.parametrize("fixed_blocks,bias_decay", [(1, False), (3, True), (0, False), (-1, True)])
 def test_masks_match_jax(fixed_blocks, bias_decay):
-    cfg = _cfg("RESNET.FIXED_BLOCKS", str(fixed_blocks), "TRAIN.BIAS_DECAY", str(bias_decay))
+    extra = ("RESNET.FIXED_BLOCKS", str(fixed_blocks), "TRAIN.BIAS_DECAY", str(bias_decay))
+    cfg, tcfg = _cfg(*extra), _tcfg(*extra)
     model = j_det.FasterRCNN(cfg=cfg, num_classes=2)
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
                             jnp.zeros((1, 4)))["params"]
@@ -351,9 +360,9 @@ def test_masks_match_jax(fixed_blocks, bias_decay):
     }
     for name, (j_mask, t_fn) in masks.items():
         want = {flax_path_to_torch_key(p): bool(v) for p, v in _flat(j_mask)}
-        got = t_fn(want.keys(), cfg)
+        got = t_fn(want.keys(), tcfg)
         assert got == want, name
-    frozen = t_optim.frozen_mask(want.keys(), cfg)
+    frozen = t_optim.frozen_mask(want.keys(), tcfg)
     assert any(frozen.values()) == (fixed_blocks >= 0) and not all(frozen.values())
 
 
@@ -385,9 +394,9 @@ def test_safe_clip(case):
 
 
 def test_lr_schedule_boundaries():
-    cfg = _cfg("TRAIN.LEARNING_RATE", "0.01", "TRAIN.GAMMA", "0.1", "TRAIN.STEPSIZE", "(3, 5, 5)")
-    want = j_optim.lr_schedule(cfg)
-    got = t_optim.lr_schedule(cfg)
+    extra = ("TRAIN.LEARNING_RATE", "0.01", "TRAIN.GAMMA", "0.1", "TRAIN.STEPSIZE", "(3, 5, 5)")
+    want = j_optim.lr_schedule(_cfg(*extra))
+    got = t_optim.lr_schedule(_tcfg(*extra))
     for count in range(8):
         assert got(count) == float(np.float32(want(count))), count
     assert got(2) == float(np.float32(0.01)) and got(3) < got(2) and got(5) < got(4)
@@ -400,12 +409,13 @@ def test_three_updates_match_optax_chain(res50_port, double_bias, bias_decay):
     as make_train_step's stop_gradient gives them): deltas within
     1e-4 * max|delta| of each leaf plus 1e-6 * max|p| (float32 rounding of
     the two chains and of the parameter at each update)."""
-    cfg = _cfg("TRAIN.LEARNING_RATE", "0.01", "TRAIN.MOMENTUM", "0.9", "TRAIN.STEPSIZE", "(1,)",
-               "TRAIN.DOUBLE_BIAS", str(double_bias), "TRAIN.BIAS_DECAY", str(bias_decay))
-    model = t_det.init_detector(cfg, 2, seed=0)
+    extra = ("TRAIN.LEARNING_RATE", "0.01", "TRAIN.MOMENTUM", "0.9", "TRAIN.STEPSIZE", "(1,)",
+             "TRAIN.DOUBLE_BIAS", str(double_bias), "TRAIN.BIAS_DECAY", str(bias_decay))
+    cfg, tcfg = _cfg(*extra), _tcfg(*extra)
+    model = t_det.init_detector(tcfg, 2, seed=0)
     model.load_state_dict(res50_port.state_dict())
     start = {k: v.clone() for k, v in model.state_dict().items()}
-    opt = t_optim.DetectorSGD(model, cfg)
+    opt = t_optim.DetectorSGD(model, tcfg)
 
     params = to_flax_variables(start)["params"]
     j_opt = j_optim.build_optimizer(params, cfg)

@@ -23,11 +23,13 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from faster_rcnn_pytorch_multimodal_tpu.config import cfg_from_list, default_config  # noqa: E402
-from faster_rcnn_pytorch_multimodal_tpu.data import BatchLoader, SyntheticDataset  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu.models import detector as j_det  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu.ops import targets as j_tg  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu.training import optim as j_optim  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu.training import solver as j_solver  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch import config as t_config  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.models import detector as t_det  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.training import solver as t_solver  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD  # noqa: E402
@@ -40,25 +42,31 @@ B, H, W, K, G = 2, 128, 192, 2, 8
 LOSSES = ("rpn_cross_entropy", "rpn_loss_box", "cross_entropy", "loss_box")
 
 
+OVERRIDES = (
+    "NET_TYPE", "image",
+    "NET_VARIANT", "res50",
+    "COMPUTE_DTYPE", "float32",
+    "PIXEL_STDDEVS", "[60.,60.,60.]",
+    "TRAIN.ROI_BATCH_SIZE", "32",
+    "STATIC.NMS_PRE_TRAIN", "256",
+    "TRAIN.RPN_POST_NMS_TOP_N", "64",
+    "TRAIN.RPN_BATCHSIZE", "64",
+    "STATIC.MAX_GT", str(G),
+    "TRAIN.USE_GT", "True",
+    "TRAIN.USE_GT_NOISE", "True",
+    "TRAIN.LEARNING_RATE", "0.01",
+    "TRAIN.MOMENTUM", "0.9",
+)
+
+
 def _cfg(*extra):
-    return cfg_from_list(
-        default_config(),
-        (
-            "NET_TYPE", "image",
-            "NET_VARIANT", "res50",
-            "COMPUTE_DTYPE", "float32",
-            "PIXEL_STDDEVS", "[60.,60.,60.]",
-            "TRAIN.ROI_BATCH_SIZE", "32",
-            "STATIC.NMS_PRE_TRAIN", "256",
-            "TRAIN.RPN_POST_NMS_TOP_N", "64",
-            "TRAIN.RPN_BATCHSIZE", "64",
-            "STATIC.MAX_GT", str(G),
-            "TRAIN.USE_GT", "True",
-            "TRAIN.USE_GT_NOISE", "True",
-            "TRAIN.LEARNING_RATE", "0.01",
-            "TRAIN.MOMENTUM", "0.9",
-        ) + extra,
-    )
+    """The JAX package's config."""
+    return cfg_from_list(default_config(), OVERRIDES + extra)
+
+
+def _tcfg(*extra):
+    """The port's config, from the same overrides."""
+    return t_config.cfg_from_list(t_config.default_config(), OVERRIDES + extra)
 
 
 def _flat(tree, prefix=()):
@@ -199,7 +207,8 @@ def run():
     j = _jax_run(cfg, variables, batch, jax.random.PRNGKey(3))
     n = (H // 16) * (W // 16) * cfg.num_anchors
     draws = jax_draws(j.step_rng, B, n, j.n_rois, G)
-    return types.SimpleNamespace(cfg=cfg, batch=batch, variables=variables, j=j, draws=draws)
+    return types.SimpleNamespace(cfg=cfg, tcfg=_tcfg(), batch=batch, variables=variables, j=j,
+                                 draws=draws)
 
 
 def _port(cfg, variables):
@@ -239,7 +248,7 @@ def test_lanes_and_sampled_labels_identical(run):
     """The port's own proposal lanes on the JAX scores agree with JAX's, its
     anchor targets use the same lanes, and (pinned) it samples the same
     second-stage labels from the JAX draws."""
-    model = _port(run.cfg, run.variables)
+    model = _port(run.tcfg, run.variables)
     with torch.no_grad():
         losses, aux = _forward(model, run)
     np.testing.assert_array_equal(aux.proposal_targets.labels.numpy(), run.j.labels)
@@ -257,8 +266,8 @@ def test_lanes_and_sampled_labels_identical(run):
 def test_losses_and_gradients(run):
     """Losses within rtol 1e-4; every trainable leaf's gradient within
     1e-3 * its max."""
-    model = _port(run.cfg, run.variables)
-    DetectorSGD(model, run.cfg)  # sets requires_grad from the frozen mask
+    model = _port(run.tcfg, run.variables)
+    DetectorSGD(model, run.tcfg)  # sets requires_grad from the frozen mask
     losses, _ = _forward(model, run)
     for k in LOSSES + ("total_loss",):
         np.testing.assert_allclose(float(losses[k]), run.j.losses[k], rtol=1e-4, err_msg=k)
@@ -271,8 +280,8 @@ def test_loss_box_reaches_the_rpn_through_the_proposals(run):
     """Fault F1, kept in the port: loss_box alone sends gradient into the
     RPN bbox conv, through the differentiable proposal boxes of the
     regression targets; in the JAX package and in the port alike."""
-    model = _port(run.cfg, run.variables)
-    DetectorSGD(model, run.cfg)
+    model = _port(run.tcfg, run.variables)
+    DetectorSGD(model, run.tcfg)
     losses, _ = _forward(model, run)
     losses["loss_box"].backward()
     want = run.j.g_box["rpn.rpn_bbox_pred_net.weight"]
@@ -290,9 +299,9 @@ def test_one_train_step_matches_make_train_step(run):
     """Port make_train_step (forward, backward, DetectorSGD) vs JAX
     make_train_step: each trainable leaf's update within 1e-3 * its max
     plus float32 rounding of the parameter."""
-    model = _port(run.cfg, run.variables)
+    model = _port(run.tcfg, run.variables)
     start = {k: v.clone() for k, v in model.state_dict().items()}
-    step = t_solver.make_train_step(model, DetectorSGD(model, run.cfg))
+    step = t_solver.make_train_step(model, DetectorSGD(model, run.tcfg))
     tb = _tensors(run.batch)
     pin = (torch.from_numpy(run.j.src).long(), torch.from_numpy(run.j.valid))
     losses, _ = step(tb, run.draws, pin)
@@ -311,7 +320,7 @@ def test_one_train_step_matches_make_train_step(run):
 def test_rpn_only_forward_train(run):
     """ENABLE_FULL_NET False: the RPN losses alone, equal to JAX's, and no
     gradient into the second stage."""
-    cfg = run.cfg.replace(enable_full_net=False)
+    cfg = run.tcfg.replace(enable_full_net=False)
     model = _port(cfg, run.variables)
     DetectorSGD(model, cfg)
     tb = _tensors(run.batch)
@@ -332,7 +341,7 @@ def test_train_anchors_follow_scale_idx(run):
     cfg = _cfg("TRAIN.SCALES", "(0.5, 1.0, 1.5)")
     j_model = j_det.FasterRCNN(cfg=cfg, num_classes=K)
     feat = jnp.zeros((1, H // 16, W // 16, 1024))
-    model = t_det.FasterRCNN(cfg, K)
+    model = t_det.FasterRCNN(_tcfg("TRAIN.SCALES", "(0.5, 1.0, 1.5)"), K)
     for idx in (0, 2):
         want, _ = j_model.apply(run.variables, feat, scale_idx=jnp.int32(idx),
                                 method=j_det.FasterRCNN._anchors)
@@ -345,9 +354,9 @@ def test_train_anchors_follow_scale_idx(run):
 def test_train_loss_decreases():
     """The counterpart of tests/test_train_smoke.py: four steps of the port's
     train loop on one repeated synthetic batch; finite losses that fall."""
-    cfg = _cfg()
+    cfg = _tcfg()
     ds = SyntheticDataset(cfg, num_frames=B, num_classes=K, image_hw=(H, W))
-    loader = BatchLoader(ds, cfg, batch_size=B, augment=False, shuffle=False, seed=0)
+    loader = BatchLoader(ds, cfg, batch_size=B, device="cpu", augment=False, shuffle=False, seed=0)
     model, opt = t_solver.create_train_state(cfg, K, "cpu", seed=0)
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -364,7 +373,7 @@ def test_bf16_step_trains_float32_masters(run):
     """COMPUTE_DTYPE bfloat16: the forward runs on bf16 casts of every
     float32 parameter and buffer, and the gradients and updates land on
     the float32 masters (as cast_for_compute in the JAX package)."""
-    cfg = _cfg("COMPUTE_DTYPE", "bfloat16")
+    cfg = _tcfg("COMPUTE_DTYPE", "bfloat16")
     model = _port(cfg, run.variables)
     casts = t_solver.cast_for_compute(model)
     assert all(v.dtype == torch.bfloat16 for v in casts.values())

@@ -1,10 +1,12 @@
 #!/usr/bin/env python
-"""Evaluate the PyTorch port of the detector (image C4 path) on one device.
+"""Evaluate the PyTorch port of the detector (C4, image or LiDAR BEV) on one
+device.
 
-The flags are tools/test_net.py's, plus --device.  The frame loop
-is faster_rcnn_pytorch_multimodal_tpu_torch.inference.evaluate: BatchLoader
--> forward_test -> batched per-class NMS -> per-class lists -> AP, timed with
-CUDA events on a card.
+The flags are tools/test_net.py's, plus --device (the port's cli module).
+The frame loop is faster_rcnn_pytorch_multimodal_tpu_torch.inference.evaluate:
+BatchLoader (for lidar: points up, `voxelize_bev` on the device) ->
+forward_test -> batched per-class NMS -> per-class lists -> AP (2d @ 0.5 for
+images, LIDAR.EVAL_TYPE for lidar), timed with CUDA events on a card.
 
 --weights_file takes a state dict in the port's layout (a `.pt` written by
 torch.save or an `.npz` of arrays keyed like the port's state_dict); without
@@ -12,31 +14,24 @@ one the detector is randomly initialized from the config's RNG_SEED.  Orbax
 checkpoints of the JAX package are not read here.
 
     python tools/test_net_torch.py --db synthetic --net res101 --net_type image --max_frames 16
+    python tools/test_net_torch.py --db synthetic --net res101 --net_type lidar --scale 0.5 --max_frames 16
 """
 
 from __future__ import annotations
 
-import argparse
 import os
 import pickle
 import sys
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 
 def parse_args(argv=None):
-    from test_net import parse_args as test_net_args  # same dir, jax-free at import
+    from faster_rcnn_pytorch_multimodal_tpu_torch.cli import test_parser
 
-    parser = argparse.ArgumentParser(add_help=False)
-    parser.add_argument("--device", default="cuda", type=str,
-                        help="torch device; the CUDA kernels run only on 'cuda'")
-    own, rest = parser.parse_known_args(argv)
-    args = test_net_args(rest)
-    args.device = own.device
-    return args
+    return test_parser().parse_args(argv)
 
 
 def load_weights(path: str):
@@ -50,12 +45,14 @@ def load_weights(path: str):
 
 def main(argv=None):
     args = parse_args(argv)
-    from test_net import args_to_train_ns
-    from trainval_net import build_config, build_dataset
-
     import torch
 
-    from faster_rcnn_pytorch_multimodal_tpu.data import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.cli import (
+        args_to_train_ns,
+        build_config,
+        build_dataset,
+    )
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
     from faster_rcnn_pytorch_multimodal_tpu_torch.inference import evaluate
     from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import build_detector
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
@@ -65,11 +62,6 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("test_net_torch: --device cuda but no CUDA device is visible")
     db = build_dataset(cfg, args.db_name, "val")
-    if hasattr(db, "roidb"):
-        raise NotImplementedError(
-            "test_net_torch: datasets with a roidb (difficulty-aware eval, result "
-            "files) are not ported yet; use --db synthetic"
-        )
     num_classes = len(db.classes)
     model = build_detector(cfg, num_classes, device, seed=cfg.rng_seed)
     if args.weights_file:
@@ -78,7 +70,7 @@ def main(argv=None):
     if device.type == "cuda":
         _, seconds, _ = _build.build()
         print(f"kernels: {_build.library_path()} (built in {seconds:.1f} s)")
-    loader = BatchLoader(db, cfg, batch_size=args.batch_size, augment=False,
+    loader = BatchLoader(db, cfg, batch_size=args.batch_size, device=device, augment=False,
                          shuffle=False, seed=cfg.rng_seed)
     n_frames = len(db) if args.max_frames <= 0 else min(len(db), args.max_frames)
 
@@ -86,6 +78,9 @@ def main(argv=None):
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     ms = np.asarray(res["detect_ms"]) + np.asarray(res["filter_ms"])
+    if res["raster_ms"]:
+        ms = ms + np.asarray(res["raster_ms"])
+        print(f"voxelize ms/batch: {np.round(res['raster_ms'], 3).tolist()}")
     print(f"device: {name}; batches of {args.batch_size}: "
           f"{ms.mean():.2f} ms/batch mean (first {ms[0]:.2f} ms), "
           f"{n_frames / (ms.sum() / 1e3):.2f} frames/s")
@@ -101,7 +96,7 @@ def main(argv=None):
         for j, r in res["ap"].items():
             print(f"class {db.classes[j]}: AP={r['ap']:.4f} "
                   f"(tp={r['tp']} fp={r['fp']} npos={r['npos']})")
-        print(f"mAP (2d @ 0.5): {res['mAP']:.4f}")
+        print(f"mAP ({res['eval_type']} @ {res['iou_thresh']}): {res['mAP']:.4f}")
     return res["mAP"]
 
 
