@@ -53,10 +53,28 @@ non-zero and never prints its last line):
      BatchLoader (voxelize_bev on the card) and inference.evaluate, one
      warm-up batch then 3 batches.  Outputs finite, proposals in every
      frame, voxelize_bev, NMS and RoI align launched.
-Each path (5, 7, 9) runs with the launch counts set to 0 just before it and
-read just after.  Then one JSON line describing the kernels (each kernel's
-`launches` is the count on the newest path that runs it: BEV serving, or
-training for the RoI-align backward; `launches_by_path` has all three), the
+ 10. the FPN slices at res101, float32, one 256x320 frame, serving and
+     training, card against CPU as in phases 4 and 6 (the pyramid p2..p5 in
+     place of the C4 map; the FPN, layer4 and FCTail among the leaves).
+ 11. the FPN serving path: the FPN config (the image config with USE_FPN and
+     multiscale pooling: the RPN on p2 at stride 4, 768,000 anchors a frame)
+     at test settings, bf16, batch 8, 512x960, one warm-up batch then 3
+     batches.  The multiscale RoI-align kernel must have launched and the
+     single-level one not.
+ 12. the FPN training path: the FPN config, bf16, batch 8, one warm-up step
+     then 10 steps; the multiscale kernel and its backward must have
+     launched.  Then anchor_target alone at (8, 768000 anchors, 64 GT):
+     time and peak memory.
+Phase 3 also holds the multiscale RoI-align kernels against their twins at
+the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
+of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
+1e-5 / 1e-2 * max|F|, the backward at dOut (8, 256, 7, 7, 256) within
+1e-5 / 1e-2 * max|dF| of each level, and once with every RoI on p5.
+Each path (5, 7, 9, 11, 12) runs with the launch counts set to 0 just before
+it and read just after.  Then one JSON line describing the kernels (each
+kernel's `launches` is the count on the newest path that runs it: BEV
+serving, training for the RoI-align backward, FPN serving and FPN training
+for the multiscale kernels; `launches_by_path` has all five), the
 nvidia-smi name/power line, and the result line {"ok": true, "device": ...}.
 
 Imports nothing of JAX; needs the repository checkout around it.
@@ -97,6 +115,11 @@ BEV_OVERRIDES = (
     "STATIC.MAX_POINTS", "32768",
 )
 SERVING_OVERRIDES = ("STATIC.NMS_PRE_TEST", "2048", "TEST.RPN_POST_NMS_TOP_N", "300")
+# bench.py:292-297: the image config with the FPN backbone and multiscale pooling
+FPN_OVERRIDES = ("USE_FPN", "True", "POOLING_MODE", "multiscale")
+FPN_STRIDES = (4, 8, 16, 32)
+FPN_MAP_HW = ((128, 240), (64, 120), (32, 60), (16, 30))  # p2..p5 of a 512x960 frame
+C_FPN = 256
 # the raster grid follows TRAIN.SCALES[0] in the loader; serving sets both
 BEV_SERVING_OVERRIDES = SERVING_OVERRIDES + ("TEST.SCALES", "(0.5,)", "COMPUTE_DTYPE", "bfloat16")
 
@@ -302,6 +325,127 @@ def check_roi_align_backward(rng):
     return results
 
 
+def fpn_rois(rng, b, r, sides=(16.0, 900.0), frame_hw=FRAME_HW):
+    """RoIs with log-uniform sides in `sides` px (clipped to the frame), so
+    that every level of the pyramid gets some."""
+    x1 = rng.uniform(0, frame_hw[1] - 16, (b, r))
+    y1 = rng.uniform(0, frame_hw[0] - 16, (b, r))
+    side = np.exp(rng.uniform(np.log(sides[0]), np.log(sides[1]), (b, r)))
+    aspect = np.exp(rng.uniform(-0.7, 0.7, (b, r)))
+    x2 = np.minimum(x1 + side * aspect, frame_hw[1] - 1)
+    y2 = np.minimum(y1 + side / aspect, frame_hw[0] - 1)
+    return np.stack([x1, y1, x2, y2], -1).astype(np.float32)
+
+
+def p5_rois(rng, b, r, frame_hw=FRAME_HW):
+    """Squares of 450-510 px inside the frame: sqrt(area) >= 448, all on p5."""
+    side = rng.uniform(450, 510, (b, r))
+    x1 = rng.uniform(0, 1, (b, r)) * (frame_hw[1] - 1 - side)
+    y1 = rng.uniform(0, 1, (b, r)) * (frame_hw[0] - 1 - side)
+    return np.stack([x1, y1, x1 + side, y1 + side], -1).astype(np.float32)
+
+
+def level_counts(levels) -> list:
+    return [int((levels == i).sum()) for i in range(len(FPN_STRIDES))]
+
+
+def check_multiscale_roi_align(rng):
+    """The multiscale forward kernel against its twin (CPU copies) at the FPN
+    serving shape: every RoI on the twin's level, values within tol * max|F|."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
+        _multiscale_roi_align_cuda,
+        multiscale_roi_align_batched,
+        multiscale_roi_align_batched_plain,
+        roi_levels,
+    )
+
+    maps = [rng.normal(size=(B, h, w, C_FPN)).astype(np.float32) for h, w in FPN_MAP_HW]
+    rois = torch.from_numpy(fpn_rois(rng, B, R))
+    want_levels = roi_levels(rois, len(FPN_STRIDES))
+    counts = level_counts(want_levels)
+    if min(counts) == 0:
+        raise AssertionError(f"multiscale roi_align: a level got no RoI: {counts}")
+    results = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        tm = [torch.from_numpy(m).to(dtype) for m in maps]
+        dm, dr = [m.cuda() for m in tm], rois.cuda()
+        got = multiscale_roi_align_batched(dm, dr, FPN_STRIDES)
+        _out, levels = _multiscale_roi_align_cuda(dm, dr, FPN_STRIDES, 7, 2, 224, 4)
+        torch.cuda.synchronize()
+        want = multiscale_roi_align_batched_plain(tm, rois, FPN_STRIDES)
+        fmax = max(float(m.float().abs().max()) for m in tm)
+        err = float((got.cpu().float() - want.float()).abs().max())
+        same_levels = torch.equal(levels.cpu().long(), want_levels)
+        if not same_levels or not err <= tol * fmax:
+            raise AssertionError(f"multiscale roi_align {dtype}: levels equal {same_levels}, "
+                                 f"max err {err} > {tol} * {fmax}")
+        ms = cuda_ms(lambda: multiscale_roi_align_batched(dm, dr, FPN_STRIDES), 20)
+        plain_ms = cuda_ms(lambda: multiscale_roi_align_batched_plain(dm, dr, FPN_STRIDES), 3)
+        nbytes = (sum(m.numel() * m.element_size() for m in dm) + dr.numel() * 4
+                  + got.numel() * got.element_size())
+        bound, by = bound_ms(nbytes, roi_align_flops(got.numel()))
+        print(f"roi_align_multiscale {str(dtype).split('.')[-1]} maps "
+              f"{[tuple(m.shape) for m in dm]} rois {tuple(dr.shape)}, RoIs per level p2..p5 "
+              f"{counts}: levels equal to the twin's, max abs err {err} (bound {tol} * max|F| = "
+              f"{tol * fmax}); kernel {ms} ms, plain twin on the card {plain_ms} ms, bound "
+              f"{bound} ms ({by}: each map, the rois and the output once)")
+        results[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound, "bound_by": by}
+    return results
+
+
+def check_multiscale_backward(rng, rois_np, label):
+    """The multiscale backward kernel against the twin's autograd gradients,
+    both on the card, at dOut (8, 256, 7, 7, 256): each level within
+    tol * max|dF| of that level; times of the backward alone."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
+        _multiscale_roi_align_bwd_cuda,
+        multiscale_roi_align_batched,
+        multiscale_roi_align_batched_plain,
+        roi_levels,
+    )
+
+    maps = [rng.normal(size=(B, h, w, C_FPN)).astype(np.float32) for h, w in FPN_MAP_HW]
+    rois = torch.from_numpy(rois_np).cuda()
+    counts = level_counts(roi_levels(rois, len(FPN_STRIDES)))
+    grad_out = rng.normal(size=(B, rois.shape[1], 7, 7, C_FPN)).astype(np.float32)
+    results = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        f = [torch.from_numpy(m).to(dtype).cuda().requires_grad_(True) for m in maps]
+        g = torch.from_numpy(grad_out).to(dtype).cuda()
+        got = torch.autograd.grad(multiscale_roi_align_batched(f, rois, FPN_STRIDES), f, g)
+        plain_out = multiscale_roi_align_batched_plain(f, rois, FPN_STRIDES)
+        want = torch.autograd.grad(plain_out, f, g, retain_graph=True)
+        torch.cuda.synchronize()
+        errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)]
+        gmax = [float(w.float().abs().max()) for w in want]
+        ok = all(a.dtype == dtype for a in got) and all(
+            e <= tol * m for e, m in zip(errs, gmax))
+        if not ok:
+            raise AssertionError(f"multiscale backward {label} {dtype}: max err per level {errs} "
+                                 f"vs {tol} * max|dF| {gmax}")
+        shapes, fd = [tuple(m.shape) for m in f], f[0].dtype
+        ms = cuda_ms(lambda: _multiscale_roi_align_bwd_cuda(
+            g, rois, shapes, fd, FPN_STRIDES, 7, 2, 224, 4), 10)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, f, g, retain_graph=True), 3)
+        nbytes = (g.numel() * g.element_size() + rois.numel() * 4
+                  + sum(m.numel() * m.element_size() for m in f))
+        bound, by = bound_ms(nbytes, roi_align_flops(g.numel()))
+        print(f"roi_align_multiscale backward {label} {str(dtype).split('.')[-1]} dOut "
+              f"{tuple(g.shape)}, RoIs per level p2..p5 {counts}: max abs err per level {errs} "
+              f"(bound {tol} * max|dF| per level {gmax}); kernel {ms} ms, plain twin's autograd "
+              f"backward on the card {plain_ms} ms, bound {bound} ms ({by}: dOut, the rois and "
+              f"each map's gradient once)")
+        results[dtype] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound, "bound_by": by}
+        del plain_out
+    return results
+
+
 def bev_points(rng, b, p, grid):
     """(b, p, 5) points and (b, p) valid over the BEV grid: a random cloud
     with points exactly on cell and slice boundaries, invalid lanes, points
@@ -387,13 +531,21 @@ def iou_plus1(a, b):
     return inter / (area_a[:, None] + area_b[None, :] - inter)
 
 
-def split_thresh(scores) -> float:
-    """A threshold in the widest gap among the middle third of the scores,
-    so about half pass and none sits within backend noise of it."""
-    s = np.sort(scores.numpy().ravel())
+def split_thresh(scores, valid) -> float:
+    """A threshold in the widest gap among the middle third of the valid
+    rois' scores (pad slots repeat the top box), so about half pass and none
+    sits within backend noise of it."""
+    s = np.sort(scores[valid].numpy().ravel())
     lo, hi = s.size // 3, max(s.size // 3 + 1, 2 * s.size // 3)
     i = lo + int(np.argmax(np.diff(s[lo:hi + 1])))
     return float((s[i] + s[i + 1]) / 2)
+
+
+def feature_err(got, want):
+    """(max |card - CPU|, max |CPU|) over a feature map or a pyramid."""
+    gs, ws = (got, want) if isinstance(want, tuple) else ((got,), (want,))
+    return (max(float((g.cpu() - w).abs().max()) for g, w in zip(gs, ws)),
+            max(float(w.abs().max()) for w in ws))
 
 
 def check_slice(cfg_base):
@@ -420,8 +572,7 @@ def check_slice(cfg_base):
         g_out = {k: v.cpu() for k, v in gpu.forward_test(x.cuda(), win.cuda()).items()}
         # second stage on the CPU's rois (pinned), so the comparison isolates it
         g_cls, g_boxes = gpu.classify_rois(g_feat, c_out["rois"].cuda(), win.cuda())
-    feat_err = float((g_feat.cpu() - c_feat).abs().max())
-    feat_max = float(c_feat.abs().max())
+    feat_err, feat_max = feature_err(g_feat, c_feat)
     fg_err = float((g_rpn["fg_prob"].cpu() - c_rpn["fg_prob"]).abs().max())
     delta_err = float((g_rpn["deltas"].cpu() - c_rpn["deltas"]).abs().max())
     cls_err = float((g_cls.cpu() - c_out["cls_prob"]).abs().max())
@@ -429,11 +580,13 @@ def check_slice(cfg_base):
     cr = c_out["rois"][0][c_out["roi_valid"][0]]
     gr = g_out["rois"][0][g_out["roi_valid"][0]]
     matched = int((iou_plus1(cr, gr).max(dim=1).values >= 0.99).sum())
-    print(f"slice res101 fp32 {h}x{w}: C4 max err {feat_err} (max|C4| {feat_max}); "
+    fm = "p2..p5" if cfg.use_fpn else "C4"
+    print(f"slice {'FPN ' if cfg.use_fpn else ''}res101 fp32 {h}x{w}: {fm} max err {feat_err} "
+          f"(max|{fm}| {feat_max}); "
           f"fg_prob {fg_err}; deltas {delta_err}; proposals matched {matched}/{len(cr)} "
           f"at IoU >= 0.99; pinned cls_prob {cls_err}; pinned boxes {box_err} px")
     checks = {
-        "C4 features": feat_err <= 1e-4 * feat_max,
+        f"{fm} features": feat_err <= 1e-4 * feat_max,
         "fg_prob": fg_err <= 2e-3,
         "deltas": delta_err <= 2e-3,
         "proposals": len(cr) > 0 and matched >= 0.95 * len(cr),
@@ -441,7 +594,7 @@ def check_slice(cfg_base):
         "boxes": box_err <= 0.15,
     }
     kw = dict(num_classes=2, bbox_elem=4, max_dets=100,
-              thresh=split_thresh(c_out["cls_prob"][..., 1]), nms_thresh=0.6)
+              thresh=split_thresh(c_out["cls_prob"][..., 1], c_out["roi_valid"]), nms_thresh=0.6)
     cf = filter_detections(c_out["cls_prob"], c_out["bbox_pred"], c_out["roi_valid"], **kw)
     gf = filter_detections(*(g_out[k].cuda() for k in ("cls_prob", "bbox_pred", "roi_valid")), **kw)
     cb = cf["boxes"][0, 1][cf["valid"][0, 1]]
@@ -455,7 +608,9 @@ def check_slice(cfg_base):
         raise AssertionError(f"slice card vs CPU out of tolerance: {failed}")
 
 
-def run_serving(cfg, smi):
+def run_serving(cfg, smi, need=("nms", "roi_align"), never=()):
+    """The image serving path: warm-up batch, then 3 batches, counted; the
+    kernels in `need` must have launched and those in `never` not."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
@@ -484,18 +639,19 @@ def run_serving(cfg, smi):
     launches = dict(_build.LAUNCH_COUNTS)
     peak = torch.cuda.max_memory_allocated()
     ms = np.asarray(res["detect_ms"]) + np.asarray(res["filter_ms"])
-    print(f"serving res101 bf16 {FRAME_HW[0]}x{FRAME_HW[1]} batch {B} ({smi}): "
+    name = "FPN serving" if cfg.use_fpn else "serving"
+    print(f"{name} res101 bf16 {FRAME_HW[0]}x{FRAME_HW[1]} batch {B} ({smi}): "
           f"detect ms/batch {res['detect_ms']}, filter ms/batch {res['filter_ms']}, "
           f"mean {float(ms.mean())} ms/batch, {B * len(ms) / (float(ms.sum()) / 1e3)} frames/s, "
           f"peak memory {peak / 2**30} GiB, random-weight mAP {res['mAP']}")
-    print(f"serving: outputs finite {res['finite']}, fewest proposals in a frame "
+    print(f"{name}: outputs finite {res['finite']}, fewest proposals in a frame "
           f"{res['min_proposals']}, kernel launches {launches}")
     if not res["finite"]:
-        raise AssertionError("serving: non-finite outputs")
+        raise AssertionError(f"{name}: non-finite outputs")
     if not res["min_proposals"] or res["min_proposals"] <= 0:
-        raise AssertionError("serving: a frame has no valid proposal")
-    if not all(launches[k] > 0 for k in ("nms", "roi_align")):
-        raise AssertionError(f"serving: a kernel never launched: {launches}")
+        raise AssertionError(f"{name}: a frame has no valid proposal")
+    if not all(launches[k] > 0 for k in need) or any(launches[k] for k in never):
+        raise AssertionError(f"{name}: launches {launches}, needed {need}, never {never}")
     return launches
 
 
@@ -503,6 +659,10 @@ TRAIN_LEAVES = (
     "rpn.rpn_cls_score_net.weight", "rpn.rpn_bbox_pred_net.weight",
     "predictors.cls_score_net.weight", "predictors.bbox_pred_net.weight",
     "tail.layer4.0.conv1.weight",
+)
+FPN_TRAIN_LEAVES = TRAIN_LEAVES[:4] + (
+    "tail.t_fc1.weight", "fpn.latlayer2.weight", "fpn.aalayer2.weight",
+    "backbone.layer4.0.conv1.weight",
 )
 LOSSES = ("rpn_cross_entropy", "rpn_loss_box", "cross_entropy", "loss_box")
 
@@ -534,7 +694,8 @@ def check_train_slice(cfg_base):
     # GT: jittered copies of some CPU proposals, so proposals are sampled as fg
     with torch.no_grad():
         feat = cpu.features(x)
-        anchors = cpu.anchors(feat.shape[1], feat.shape[2], "cpu", "train")
+        fm = cpu.rpn_map(feat)
+        anchors = cpu.anchors(fm.shape[1], fm.shape[2], "cpu", "train")
         rois, _scores, valid, _src = cpu._propose_batch(cpu.rpn_scores(feat), anchors, win, "train")
     props = rois[0][valid[0]][::9][:6]
     n = len(props)
@@ -567,13 +728,13 @@ def check_train_slice(cfg_base):
     grad_err = {}
     c_params, g_params = dict(cpu.named_parameters()), dict(gpu.named_parameters())
     last_layer3 = f"backbone.layer3.{len(cpu.backbone.layer3) - 1}.conv3.weight"
-    for name in TRAIN_LEAVES + (last_layer3,):
+    for name in (FPN_TRAIN_LEAVES if cfg.use_fpn else TRAIN_LEAVES) + (last_layer3,):
         cg, gg = c_params[name].grad, g_params[name].grad
         scale = float(cg.abs().max())
         grad_err[name] = float((gg.cpu() - cg).abs().max()) / scale
         checks[f"grad {name}"] = scale > 0 and grad_err[name] <= 1e-3
     labels = c_aux.proposal_targets.labels
-    print(f"train slice {cfg.net_variant} fp32 {h}x{w}: losses cpu "
+    print(f"train slice {'FPN ' if cfg.use_fpn else ''}{cfg.net_variant} fp32 {h}x{w}: losses cpu "
           f"{ {k: float(c_losses[k].detach()) for k in LOSSES} }, relative errors {loss_err} "
           f"(rpn losses unpinned, second stage pinned); sampled RoIs fg {int((labels > 0).sum())} "
           f"bg {int((labels == 0).sum())}; gradient error / max|g| per leaf {grad_err}")
@@ -582,8 +743,9 @@ def check_train_slice(cfg_base):
         raise AssertionError(f"train slice card vs CPU out of tolerance: {failed}")
 
 
-def run_training(cfg, smi):
-    """The training path: warm-up step, then TRAIN_STEPS steps, counted."""
+def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd")):
+    """The training path: warm-up step, then TRAIN_STEPS steps, counted; the
+    kernels in `need` must have launched."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
@@ -606,18 +768,74 @@ def run_training(cfg, smi):
     peak = torch.cuda.max_memory_allocated()
     ms = np.asarray(res["ms"])
     finite = all(np.isfinite(v) for losses in warm["losses"] + res["losses"] for v in losses.values())
-    print(f"training {cfg.net_variant} {cfg.compute_dtype} {FRAME_HW[0]}x{FRAME_HW[1]} batch {B} ({smi}): "
+    name = "FPN training" if cfg.use_fpn else "training"
+    print(f"{name} {cfg.net_variant} {cfg.compute_dtype} {FRAME_HW[0]}x{FRAME_HW[1]} batch {B} ({smi}): "
           f"warm-up step {warm['ms'][0]} ms; ms/step {res['ms']}; mean {float(ms.mean())} ms, "
           f"median {float(np.median(ms))} ms, {B / (float(ms.mean()) / 1e3)} frames/s, "
           f"peak memory {peak / 2**30} GiB")
     for i, losses in enumerate(res["losses"]):
         print(f"  step {i + 1}: " + ", ".join(f"{k} {v}" for k, v in losses.items()))
-    print(f"training: losses finite {finite}, kernel launches {launches}")
+    print(f"{name}: losses finite {finite}, kernel launches {launches}")
     if not finite:
-        raise AssertionError("training: a non-finite loss")
-    if not all(launches[k] > 0 for k in ("nms", "roi_align", "roi_align_bwd")):
-        raise AssertionError(f"training: a kernel never launched: {launches}")
+        raise AssertionError(f"{name}: a non-finite loss")
+    if not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"{name}: a kernel never launched: {launches}")
     return launches
+
+
+def measure_anchor_targets(cfg, smi):
+    """anchor_target alone (plain torch: the IoU of every anchor with every
+    GT box, labels, sampling, regression targets) at the FPN training shape:
+    8 frames x 768,000 anchors x 64 GT boxes.  Times by CUDA events; peak
+    memory above what was allocated before the call."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import (
+        build_anchor_grid,
+        feat_stride,
+    )
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.iou import bbox_overlaps
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.targets import (
+        anchor_target,
+        effective_rpn_overlaps,
+    )
+
+    s = feat_stride(cfg)
+    fh, fw = -(-FRAME_HW[0] // s), -(-FRAME_HW[1] // s)
+    anchors = torch.from_numpy(build_anchor_grid(cfg, fh, fw, float(cfg.train.scales[0]))[0]).cuda()
+    rng = np.random.RandomState(9)
+    g = cfg.static.max_gt
+    gt = np.zeros((B, g, 5), np.float32)
+    gt[..., :4] = np.stack([random_boxes(rng, g) for _ in range(B)])
+    gt[..., 4] = 1
+    gt = torch.from_numpy(gt).cuda()
+    mask = torch.ones((B, g), dtype=torch.bool, device="cuda")
+    win = torch.tensor([[0.0, FRAME_HW[1], 0.0, FRAME_HW[0]]] * B, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = anchors.shape[0]
+    kf, kb = (torch.rand((B, n), generator=gen, device="cuda") for _ in range(2))
+    pos, neg = effective_rpn_overlaps(cfg)
+    c = cfg.train
+
+    def run():
+        return anchor_target(anchors, gt, mask, win, kf, kb, rpn_batchsize=c.rpn_batchsize,
+                             fg_fraction=c.rpn_fg_fraction, positive_overlap=pos,
+                             negative_overlap=neg, clobber_positives=c.rpn_clobber_positives)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    at = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(run, 5)
+    iou_ms = cuda_ms(lambda: bbox_overlaps(anchors, gt[..., :4]), 5)
+    fg = int((at.labels == 1).sum())
+    print(f"anchor_target ({B}, {n} anchors, {g} GT) ({smi}): {ms} ms, peak memory above the "
+          f"inputs {peak / 2**30} GiB; bbox_overlaps alone {iou_ms} ms for the "
+          f"({B}, {n}, {g}) float32 IoU tensor ({B * n * g * 4 / 2**30} GiB); {fg} fg anchors "
+          f"sampled")
+    return {"anchor_target_ms": ms, "bbox_overlaps_ms": iou_ms, "peak_gib": peak / 2**30}
 
 
 def bev_aabb(boxes7):
@@ -684,7 +902,7 @@ def check_bev_slice(cfg_base):
         "boxes": box_err <= 0.15,
     }
     kw = dict(num_classes=2, bbox_elem=7, max_dets=100, is_lidar=True,
-              thresh=split_thresh(c_out["cls_prob"][..., 1]), nms_thresh=0.6)
+              thresh=split_thresh(c_out["cls_prob"][..., 1], c_out["roi_valid"]), nms_thresh=0.6)
     cf = filter_detections(c_out["cls_prob"], c_out["bbox_pred"], c_out["roi_valid"], **kw)
     gf = filter_detections(*(g_out[k].cuda() for k in ("cls_prob", "bbox_pred", "roi_valid")), **kw)
     cb = cf["boxes"][0, 1][cf["valid"][0, 1]]
@@ -789,6 +1007,9 @@ def main() -> int:
     roi = check_roi_align(rng, (H_FEAT, W_FEAT))
     roi_bev = check_roi_align(rng, BEV_FEAT_HW)
     roi_bwd = check_roi_align_backward(rng)
+    ms_fwd = check_multiscale_roi_align(rng)
+    ms_bwd = check_multiscale_backward(rng, fpn_rois(rng, B, R_TRAIN), "16-900 px RoIs")
+    ms_bwd_p5 = check_multiscale_backward(rng, p5_rois(rng, B, R_TRAIN), "every RoI on p5")
     vox_waymo = check_voxelize(rng, bev_cfg, 1.0, 180000)
     vox = check_voxelize(rng, bev_cfg, 0.5, bev_cfg.static.max_points)
 
@@ -812,7 +1033,28 @@ def main() -> int:
     phase("BEV serving path")
     bev_serving = run_bev_serving(bev_cfg, smi)
 
-    paths = {"serving": serving, "training": training, "bev_serving": bev_serving}
+    fpn_cfg = make_config(IMAGE_OVERRIDES, FPN_OVERRIDES)
+    fpn_serving_cfg = make_config(IMAGE_OVERRIDES, FPN_OVERRIDES, SERVING_OVERRIDES)
+
+    phase("FPN slices: card vs CPU")
+    # at init the top-scored anchors of the stride-4 grid are mostly large
+    # boxes clipped to the frame, which NMS folds together: a wider
+    # candidate pool keeps more proposals to compare
+    check_slice(make_config(IMAGE_OVERRIDES, FPN_OVERRIDES, SERVING_OVERRIDES,
+                            ("STATIC.NMS_PRE_TEST", "6000")))
+    check_train_slice(fpn_cfg)
+
+    phase("FPN serving path")
+    fpn_serving = run_serving(fpn_serving_cfg, smi, need=("nms", "roi_align_multiscale"),
+                              never=("roi_align",))
+
+    phase("FPN training path")
+    fpn_training = run_training(fpn_cfg, smi, need=(
+        "nms", "roi_align_multiscale", "roi_align_multiscale_bwd"))
+    measure_anchor_targets(fpn_cfg, smi)
+
+    paths = {"serving": serving, "training": training, "bev_serving": bev_serving,
+             "fpn_serving": fpn_serving, "fpn_training": fpn_training}
 
     def entry(name, source, replaces, path, measured):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -829,16 +1071,25 @@ def main() -> int:
               roi_bev[torch.bfloat16]),
         entry("roi_align_bwd", "roi_align.cu", "ops/roi_align.py:122 (VJP)", "training",
               roi_bwd[torch.bfloat16]),
+        entry("roi_align_multiscale", "roi_align.cu", "ops/roi_align.py:208", "fpn_serving",
+              ms_fwd[torch.bfloat16]),
+        entry("roi_align_multiscale_bwd", "roi_align.cu", "ops/roi_align.py:208 (VJP)",
+              "fpn_training", ms_bwd[torch.bfloat16]),
     ]}
     print("timed at: voxelize_bev (8, 32768) -> (8, 400, 350, 15); nms (8, 1100) -> 300; "
           "roi_align bf16 (8, 25, 22, 1024) x 300; roi_align_bwd bf16 dOut (8, 256, 7, 7, 1024); "
-          "library_ms null: no single PyTorch call computes these functions "
-          "(torchvision's nms and roi_align are not installed)")
+          "roi_align_multiscale bf16 p2..p5 of 512x960 x (8, 300) rois of 16-900 px; "
+          "roi_align_multiscale_bwd bf16 dOut (8, 256, 7, 7, 256); library_ms null: no single "
+          "PyTorch call computes these functions (torchvision's nms, roi_align and "
+          "MultiScaleRoIAlign are not installed)")
     print(f"also: voxelize_bev (8, 180000) -> 800 x 700: {vox_waymo}; nms (8, 2048) -> 300: "
           f"{nms_prop}; (16, 300) -> 100: {nms_filter}; (8, 4096) -> 2000: {nms_train}; "
           f"BEV (16, 300) -> 100: {nms_bev_filter}; roi_align (8, 32, 60, 1024): "
           f"fp32 {roi[torch.float32]}, bf16 {roi[torch.bfloat16]}; (8, 25, 22, 1024) fp32 "
-          f"{roi_bev[torch.float32]}; roi_align backward fp32 {roi_bwd[torch.float32]}")
+          f"{roi_bev[torch.float32]}; roi_align backward fp32 {roi_bwd[torch.float32]}; "
+          f"roi_align_multiscale fp32 {ms_fwd[torch.float32]}; its backward fp32 "
+          f"{ms_bwd[torch.float32]}; backward with every RoI on p5: fp32 "
+          f"{ms_bwd_p5[torch.float32]}, bf16 {ms_bwd_p5[torch.bfloat16]}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-// Single-level RoI align, forward and backward, for Hopper (sm_90a), plain C
-// ABI (ctypes).
+// RoI align, single-level and multiscale (FPN), forward and backward, for
+// Hopper (sm_90a), plain C ABI (ctypes).  The multiscale kernels are at the
+// end of the anonymous namespace.
 //
 // Replaces: faster_rcnn_pytorch_multimodal_tpu/ops/roi_align.py `roi_align`
 // and `roi_align_batched` (with `_sample_coords`), and their gradient with
@@ -44,6 +45,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
 
 namespace {
 
@@ -122,6 +125,89 @@ __device__ __forceinline__ Taps axis_taps(float start, float bin, int s, int sr,
   return t;
 }
 
+// One RoI's box on a map: start corner and bin size (torchvision's mapping:
+// aligned=False floors the RoI size at one feature cell).
+struct RoIBox {
+  float x1, y1, bin_w, bin_h;
+};
+
+__device__ __forceinline__ RoIBox roi_box(const float* roi, float scale, int p, int aligned) {
+  const float offset = aligned ? 0.5f : 0.f;
+  const float min_size = aligned ? 0.f : 1.f;
+  RoIBox r;
+  r.x1 = __fsub_rn(__fmul_rn(roi[0], scale), offset);
+  r.y1 = __fsub_rn(__fmul_rn(roi[1], scale), offset);
+  const float x2 = __fsub_rn(__fmul_rn(roi[2], scale), offset);
+  const float y2 = __fsub_rn(__fmul_rn(roi[3], scale), offset);
+  r.bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, r.x1), min_size), static_cast<float>(p));
+  r.bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, r.y1), min_size), static_cast<float>(p));
+  return r;
+}
+
+// Bin (ph, pw) of VEC channels from c0: the mean over its sr x sr samples of
+// the bilinear taps into the (h, w, c) map fb.
+template <typename T, int VEC>
+__device__ __forceinline__ void pool_bin(const T* fb, int h, int w, int c, int c0,
+                                         const RoIBox& box, int ph, int pw, int sr,
+                                         float (&acc)[VEC]) {
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  for (int iy = 0; iy < sr; ++iy) {
+    const Taps ty = axis_taps(box.y1, box.bin_h, ph * sr + iy, sr, h);
+    for (int ix = 0; ix < sr; ++ix) {
+      const Taps tx = axis_taps(box.x1, box.bin_w, pw * sr + ix, sr, w);
+      const int ys[2] = {ty.lo, ty.hi};
+      const int xs[2] = {tx.lo, tx.hi};
+      const float wys[2] = {ty.w_lo, ty.w_hi};
+      const float wxs[2] = {tx.w_lo, tx.w_hi};
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v[VEC];
+          VecIO<T, VEC>::load(fb + ((size_t)ys[a] * w + xs[e]) * c + c0, v);
+          const float wt = wys[a] * wxs[e];
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) acc[k] += wt * v[k];
+        }
+      }
+    }
+  }
+  const float count = static_cast<float>(sr * sr);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = __fdiv_rn(acc[k], count);
+}
+
+// The transpose of pool_bin for one channel ch: spreads g / (sr * sr) over
+// the bin's taps with float32 atomics (RED.ADD, the result is unused) into
+// the (h, w, c) float32 map gb.  Taps of neighbouring bins and RoIs overlap,
+// so the order of the adds, and the last bits of the sum, change from run
+// to run.  Zero-weight taps (a coordinate clamped to the edge) are skipped.
+__device__ __forceinline__ void scatter_bin(float* gb, int h, int w, int c, int ch,
+                                            const RoIBox& box, int ph, int pw, int sr,
+                                            float g) {
+  const float gs = __fdiv_rn(g, static_cast<float>(sr * sr));
+  for (int iy = 0; iy < sr; ++iy) {
+    const Taps ty = axis_taps(box.y1, box.bin_h, ph * sr + iy, sr, h);
+    for (int ix = 0; ix < sr; ++ix) {
+      const Taps tx = axis_taps(box.x1, box.bin_w, pw * sr + ix, sr, w);
+      const int ys[2] = {ty.lo, ty.hi};
+      const int xs[2] = {tx.lo, tx.hi};
+      const float wys[2] = {ty.w_lo, ty.w_hi};
+      const float wxs[2] = {tx.w_lo, tx.w_hi};
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float wt = wys[a] * wxs[e];
+          if (wt == 0.f) continue;
+          atomicAdd(gb + ((size_t)ys[a] * w + xs[e]) * c + ch, wt * gs);
+        }
+      }
+    }
+  }
+}
+
 template <typename T, int VEC>
 __global__ void roi_align_fwd_kernel(const T* __restrict__ feat,
                                      const float* __restrict__ rois,
@@ -132,61 +218,19 @@ __global__ void roi_align_fwd_kernel(const T* __restrict__ feat,
   const int br = blockIdx.x / bins;  // b * R + r
   const int bin = blockIdx.x % bins;
   const int b = br / r_per_frame;
-  const int ph = bin / p;
-  const int pw = bin % p;
-
-  const float* roi = rois + (size_t)br * 4;
-  const float offset = aligned ? 0.5f : 0.f;
-  const float min_size = aligned ? 0.f : 1.f;
-  const float x1 = __fsub_rn(__fmul_rn(roi[0], scale), offset);
-  const float y1 = __fsub_rn(__fmul_rn(roi[1], scale), offset);
-  const float x2 = __fsub_rn(__fmul_rn(roi[2], scale), offset);
-  const float y2 = __fsub_rn(__fmul_rn(roi[3], scale), offset);
-  const float bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, x1), min_size), static_cast<float>(p));
-  const float bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, y1), min_size), static_cast<float>(p));
-  const float count = static_cast<float>(sr * sr);
-
+  const RoIBox box = roi_box(rois + (size_t)br * 4, scale, p, aligned);
   const T* fb = feat + (size_t)b * h * w * c;
   T* ob = out + ((size_t)br * bins + bin) * c;
 
   for (int c0 = threadIdx.x * VEC; c0 < c; c0 += blockDim.x * VEC) {
     float acc[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-    for (int iy = 0; iy < sr; ++iy) {
-      const Taps ty = axis_taps(y1, bin_h, ph * sr + iy, sr, h);
-      for (int ix = 0; ix < sr; ++ix) {
-        const Taps tx = axis_taps(x1, bin_w, pw * sr + ix, sr, w);
-        const int ys[2] = {ty.lo, ty.hi};
-        const int xs[2] = {tx.lo, tx.hi};
-        const float wys[2] = {ty.w_lo, ty.w_hi};
-        const float wxs[2] = {tx.w_lo, tx.w_hi};
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float v[VEC];
-            VecIO<T, VEC>::load(fb + ((size_t)ys[a] * w + xs[e]) * c + c0, v);
-            const float wt = wys[a] * wxs[e];
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[k] += wt * v[k];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = __fdiv_rn(acc[k], count);
+    pool_bin<T, VEC>(fb, h, w, c, c0, box, bin / p, bin % p, sr, acc);
     VecIO<T, VEC>::store(ob + c0, acc);
   }
 }
 
 // Backward: the gradient with respect to the features (the RoIs get none).
-// Same grid as the forward, one channel a thread; each bin spreads
-// dOut / (sr * sr) over the bilinear taps of its sr x sr samples with float32
-// atomics (RED.ADD, the result is unused) into grad_feat.  Taps of
-// neighbouring bins and RoIs overlap, so the order of the adds, and the last
-// bits of the sum, change from run to run.  Zero-weight taps (a coordinate
-// clamped to the edge) are skipped.
+// Same grid as the forward, one channel a thread (scatter_bin).
 template <typename T>
 __global__ void roi_align_bwd_kernel(const T* __restrict__ grad_out,
                                      const float* __restrict__ rois,
@@ -197,46 +241,14 @@ __global__ void roi_align_bwd_kernel(const T* __restrict__ grad_out,
   const int br = blockIdx.x / bins;
   const int bin = blockIdx.x % bins;
   const int b = br / r_per_frame;
-  const int ph = bin / p;
-  const int pw = bin % p;
-
-  const float* roi = rois + (size_t)br * 4;
-  const float offset = aligned ? 0.5f : 0.f;
-  const float min_size = aligned ? 0.f : 1.f;
-  const float x1 = __fsub_rn(__fmul_rn(roi[0], scale), offset);
-  const float y1 = __fsub_rn(__fmul_rn(roi[1], scale), offset);
-  const float x2 = __fsub_rn(__fmul_rn(roi[2], scale), offset);
-  const float y2 = __fsub_rn(__fmul_rn(roi[3], scale), offset);
-  const float bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, x1), min_size), static_cast<float>(p));
-  const float bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, y1), min_size), static_cast<float>(p));
-  const float count = static_cast<float>(sr * sr);
-
+  const RoIBox box = roi_box(rois + (size_t)br * 4, scale, p, aligned);
   float* fb = grad_feat + (size_t)b * h * w * c;
   const T* gb = grad_out + ((size_t)br * bins + bin) * c;
 
   for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
     float g[1];
     VecIO<T, 1>::load(gb + ch, g);
-    const float gs = __fdiv_rn(g[0], count);
-    for (int iy = 0; iy < sr; ++iy) {
-      const Taps ty = axis_taps(y1, bin_h, ph * sr + iy, sr, h);
-      for (int ix = 0; ix < sr; ++ix) {
-        const Taps tx = axis_taps(x1, bin_w, pw * sr + ix, sr, w);
-        const int ys[2] = {ty.lo, ty.hi};
-        const int xs[2] = {tx.lo, tx.hi};
-        const float wys[2] = {ty.w_lo, ty.w_hi};
-        const float wxs[2] = {tx.w_lo, tx.w_hi};
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float wt = wys[a] * wxs[e];
-            if (wt == 0.f) continue;
-            atomicAdd(fb + ((size_t)ys[a] * w + xs[e]) * c + ch, wt * gs);
-          }
-        }
-      }
-    }
+    scatter_bin(fb, h, w, c, ch, box, bin / p, bin % p, sr, g[0]);
   }
 }
 
@@ -274,6 +286,153 @@ int launch_bwd(const void* grad_out, const void* rois, float* grad_accum, int b,
   roi_align_bwd_kernel<T><<<static_cast<unsigned>(blocks), threads_for(c, 1), 0, stream>>>(
       static_cast<const T*>(grad_out), static_cast<const float*>(rois),
       grad_accum, r, h, w, c, scale, p, sr, aligned);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- Multiscale (FPN) RoI align ----------------------------------------------
+//
+// Replaces: faster_rcnn_pytorch_multimodal_tpu/ops/roi_align.py
+// `multiscale_roi_align` and `multiscale_roi_align_batched` (:153-242), and
+// their gradient with respect to the four feature maps.  The JAX package
+// pools every RoI from every level and keeps the mapped one by mask; here
+// each RoI computes its level (torchvision's LevelMapper) and gathers its
+// taps from that level only, so the work is one level's, not four.
+//
+// Level: floor(k + log2(sqrt(max(area, 1e-6)) / canonical_scale + 1e-6)),
+// clipped to the pyramid.  floor(k + log2(x)) >= j exactly when
+// x >= 2^(j - k), so the kernel compares x with the host's powers of two
+// instead of taking a log2, and x is built with round-to-nearest
+// intrinsics, as the plain twin's float32 ops build it: kernel and twin map
+// every RoI to the same level.
+//
+// What bounds it at the FPN serving shapes (B 8, R 300, P 7, C 256, bf16):
+// bytes, the 60 MB output (8 x 300 x 49 x 256 x 2 B) and the taps' rows of
+// the 167 MB of maps.  One block per RoI walks the RoI's 49 bins x C / VEC channel
+// vectors, so a warp reads 32 consecutive 16-byte vectors of one tap row
+// and writes one coalesced bin (at C = 256 bf16 one bin is one warp; the
+// single-level layout would give a 32-thread block).  The backward, like
+// the single-level one, gives a thread one channel, so a warp's 32 float32
+// atomics hit one 128-byte line of the mapped level's accumulator.
+
+constexpr int kMaxLevels = 4;
+
+// The pyramid, by value in the kernel's parameters.
+struct Pyramid {
+  const void* feat[kMaxLevels];  // forward: the maps, NHWC
+  float* grad[kMaxLevels];       // backward: float32 accumulators, NHWC
+  int h[kMaxLevels], w[kMaxLevels];
+  float scale[kMaxLevels];       // 1 / stride
+  float thresh[kMaxLevels - 1];  // x >= thresh[j - 1] maps to level >= j
+  int levels;
+};
+
+// a[i] without indexing the parameter space dynamically (no local copy).
+template <typename V>
+__device__ __forceinline__ V pick(const V (&a)[kMaxLevels], int i) {
+  V v = a[0];
+#pragma unroll
+  for (int k = 1; k < kMaxLevels; ++k) {
+    if (i == k) v = a[k];
+  }
+  return v;
+}
+
+__device__ __forceinline__ int roi_level(const float* roi, const Pyramid& pyr,
+                                         float canonical_scale) {
+  const float area = fmaxf(__fmul_rn(__fsub_rn(roi[2], roi[0]), __fsub_rn(roi[3], roi[1])), 1e-6f);
+  const float x = __fadd_rn(__fdiv_rn(__fsqrt_rn(area), canonical_scale), 1e-6f);
+  int lvl = 0;
+#pragma unroll
+  for (int j = 1; j < kMaxLevels; ++j) {
+    if (j < pyr.levels && x >= pyr.thresh[j - 1]) lvl = j;
+  }
+  return lvl;
+}
+
+template <typename T, int VEC>
+__global__ void roi_align_ms_fwd_kernel(Pyramid pyr, const float* __restrict__ rois,
+                                        T* __restrict__ out, int* __restrict__ levels_out,
+                                        int r_per_frame, int c, int p, int sr,
+                                        float canonical_scale) {
+  const int br = blockIdx.x;  // b * R + r
+  const int b = br / r_per_frame;
+  const float* roi = rois + (size_t)br * 4;
+  const int lvl = roi_level(roi, pyr, canonical_scale);
+  if (threadIdx.x == 0) levels_out[br] = lvl;
+  const int h = pick(pyr.h, lvl);
+  const int w = pick(pyr.w, lvl);
+  const RoIBox box = roi_box(roi, pick(pyr.scale, lvl), p, 0);
+  const T* fb = static_cast<const T*>(pick(pyr.feat, lvl)) + (size_t)b * h * w * c;
+  const int nvec = c / VEC;
+  T* ob = out + (size_t)br * p * p * c;
+
+  for (int item = threadIdx.x; item < p * p * nvec; item += blockDim.x) {
+    const int bin = item / nvec;
+    const int c0 = (item - bin * nvec) * VEC;
+    float acc[VEC];
+    pool_bin<T, VEC>(fb, h, w, c, c0, box, bin / p, bin % p, sr, acc);
+    VecIO<T, VEC>::store(ob + (size_t)bin * c + c0, acc);
+  }
+}
+
+// Backward: scatter_bin into the RoI's level's accumulator, one channel a
+// thread.
+template <typename T>
+__global__ void roi_align_ms_bwd_kernel(Pyramid pyr, const T* __restrict__ grad_out,
+                                        const float* __restrict__ rois, int r_per_frame,
+                                        int c, int p, int sr, float canonical_scale) {
+  const int br = blockIdx.x;
+  const int b = br / r_per_frame;
+  const float* roi = rois + (size_t)br * 4;
+  const int lvl = roi_level(roi, pyr, canonical_scale);
+  const int h = pick(pyr.h, lvl);
+  const int w = pick(pyr.w, lvl);
+  const RoIBox box = roi_box(roi, pick(pyr.scale, lvl), p, 0);
+  float* gb = pick(pyr.grad, lvl) + (size_t)b * h * w * c;
+  const T* go = grad_out + (size_t)br * p * p * c;
+
+  for (int item = threadIdx.x; item < p * p * c; item += blockDim.x) {
+    const int bin = item / c;
+    float g[1];
+    VecIO<T, 1>::load(go + item, g);
+    scatter_bin(gb, h, w, c, item - bin * c, box, bin / p, bin % p, sr, g[0]);
+  }
+}
+
+// The level thresholds and per-level geometry; false on bad arguments.
+bool make_pyramid(Pyramid* pyr, int levels, const int* heights, const int* widths,
+                  const float* scales, int canonical_level) {
+  if (levels < 1 || levels > kMaxLevels) return false;
+  *pyr = Pyramid{};
+  pyr->levels = levels;
+  const int k0 = canonical_level - (levels - 2);  // level id of the finest map
+  for (int l = 0; l < kMaxLevels; ++l) {
+    const int s = l < levels ? l : levels - 1;
+    pyr->h[l] = heights[s];
+    pyr->w[l] = widths[s];
+    pyr->scale[l] = scales[s];
+    if (heights[s] < 1 || widths[s] < 1) return false;
+    if (l >= 1) pyr->thresh[l - 1] = ldexpf(1.f, k0 + l - canonical_level);
+  }
+  return true;
+}
+
+template <typename T, int VEC>
+int launch_ms_fwd(const Pyramid& pyr, const void* rois, void* out, void* levels_out, int b,
+                  int c, int r, int p, int sr, float canonical_scale, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(b * r);
+  roi_align_ms_fwd_kernel<T, VEC><<<blocks, threads_for(p * p * c, VEC), 0, stream>>>(
+      pyr, static_cast<const float*>(rois), static_cast<T*>(out), static_cast<int*>(levels_out),
+      r, c, p, sr, canonical_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_ms_bwd(const Pyramid& pyr, const void* grad_out, const void* rois, int b, int c,
+                  int r, int p, int sr, float canonical_scale, cudaStream_t stream) {
+  roi_align_ms_bwd_kernel<T><<<static_cast<unsigned>(b * r), threads_for(p * p * c, 1), 0, stream>>>(
+      pyr, static_cast<const T*>(grad_out), static_cast<const float*>(rois), r, c, p, sr,
+      canonical_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,5 +489,75 @@ extern "C" int frcnn_roi_align_bwd(const void* grad_out, const void* rois,
   if (blocks == 0) blocks = 1;
   cast_f32_bf16_kernel<<<static_cast<unsigned>(blocks), threads, 0, s>>>(
       acc, static_cast<__nv_bfloat16*>(grad_features), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Multiscale forward.  features: `levels` (<= 4) pointers to (B, H_l, W_l, C)
+// maps, finest first, float32 (dtype 0) or bfloat16 (dtype 1), contiguous;
+// heights, widths, scales (1 / stride): `levels` values each, host memory.
+// rois: (B, R, 4) float32.  out: (B, R, P, P, C) in the features' dtype.
+// levels_out: (B, R) int32, each RoI's level index 0..levels-1.  vectorized
+// != 0 selects 16-byte channel vectors (C a multiple of the vector width,
+// every map and the output 16-byte aligned).  Returns cudaGetLastError()
+// after the launch (0 on success).
+extern "C" int frcnn_roi_align_ms_fwd(const void* const* features, const int* heights,
+                                      const int* widths, const float* scales, int levels,
+                                      const void* rois, void* out, void* levels_out, int dtype,
+                                      int vectorized, int b, int c, int r, int p, int sr,
+                                      float canonical_scale, int canonical_level, void* stream) {
+  Pyramid pyr;
+  if (!make_pyramid(&pyr, levels, heights, widths, scales, canonical_level)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int l = 0; l < kMaxLevels; ++l) pyr.feat[l] = features[l < levels ? l : levels - 1];
+  if (b * r == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float cs = canonical_scale;
+  if (dtype == 0) {
+    return vectorized
+               ? launch_ms_fwd<float, 4>(pyr, rois, out, levels_out, b, c, r, p, sr, cs, s)
+               : launch_ms_fwd<float, 1>(pyr, rois, out, levels_out, b, c, r, p, sr, cs, s);
+  }
+  if (dtype == 1) {
+    return vectorized
+               ? launch_ms_fwd<__nv_bfloat16, 8>(pyr, rois, out, levels_out, b, c, r, p, sr, cs, s)
+               : launch_ms_fwd<__nv_bfloat16, 1>(pyr, rois, out, levels_out, b, c, r, p, sr, cs, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Multiscale backward.  grad_out: (B, R, P, P, C) in the features' dtype.
+// accum: one float32 buffer of `total` elements, zeroed by the caller,
+// holding every level's (B, H_l, W_l, C) accumulator at element offset
+// offsets[l]; the kernel adds the feature gradients into it.  grad: a
+// bfloat16 buffer of the same layout, written from accum when dtype is 1 and
+// ignored when it is 0 (the accumulators are then the gradients).  Returns
+// cudaGetLastError() after the launches (0 on success).
+extern "C" int frcnn_roi_align_ms_bwd(const void* grad_out, const void* rois, void* accum,
+                                      const long long* offsets, void* grad, long long total,
+                                      const int* heights, const int* widths, const float* scales,
+                                      int levels, int dtype, int b, int c, int r, int p, int sr,
+                                      float canonical_scale, int canonical_level, void* stream) {
+  Pyramid pyr;
+  if (!make_pyramid(&pyr, levels, heights, widths, scales, canonical_level)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* acc = static_cast<float*>(accum);
+  for (int l = 0; l < kMaxLevels; ++l) pyr.grad[l] = acc + offsets[l < levels ? l : levels - 1];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float cs = canonical_scale;
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (b * r > 0) {
+    const int err = dtype == 0
+                        ? launch_ms_bwd<float>(pyr, grad_out, rois, b, c, r, p, sr, cs, s)
+                        : launch_ms_bwd<__nv_bfloat16>(pyr, grad_out, rois, b, c, r, p, sr, cs, s);
+    if (err != 0) return err;
+  }
+  if (dtype == 0 || total == 0) return 0;
+  const int threads = 256;
+  long long blocks = (total + threads - 1) / threads;
+  if (blocks > 65535LL * 16LL) blocks = 65535LL * 16LL;
+  cast_f32_bf16_kernel<<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+      acc, static_cast<__nv_bfloat16*>(grad), static_cast<size_t>(total));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-"""Faster R-CNN detector, C4: image serving and training, LiDAR BEV serving.
+"""Faster R-CNN detector: C4 image serving and training, LiDAR BEV serving,
+FPN image serving and training.
 
 Port of faster_rcnn_pytorch_multimodal_tpu/models/detector.py without
 uncertainty: `build_anchor_grid` (image and lidar branches), `feat_stride`,
@@ -6,6 +7,11 @@ uncertainty: `build_anchor_grid` (image and lidar branches), `feat_stride`,
 `rpn_scores`, `_anchors` (test and train phase), `_propose_batch`,
 `pool_rois`, `roi_head`, `pooled_head`, `forward_test` and `forward_train`.
 The JAX package's vmaps over frames become a batch dimension written out.
+
+With USE_FPN (and POOLING_MODE multiscale) the backbone is ResNetPyramid and
+an FPN, `features` returns the pyramid (p2, p3, p4, p5) as a tuple, the RPN
+runs on p2 at stride 4, RoIs are pooled by multiscale RoI align and the tail
+is the three-layer FCTail; everything else is the C4 code.
 
 For LiDAR (NET_TYPE lidar) the input is the (B, Y, X, slices + 3) BEV raster,
 the stem takes that many channels, the RPN regresses the BEV AABB footprints
@@ -34,21 +40,24 @@ outputs are cast to float32 before softmax and decode.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
+from faster_rcnn_pytorch_multimodal_tpu_torch.models.fpn import FPN
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.heads import (
     DetectionPredictors,
+    FCTail,
     RPNHead,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import (
     FrozenBatchNorm,
     ResNetC4,
     ResNetLayer4,
+    ResNetPyramid,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.anchors import (
     anchors_3d_to_bev_aabb,
@@ -62,7 +71,10 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.box_transform import (
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.losses import cross_entropy, smooth_l1_loss
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import nms
-from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import roi_align_batched
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
+    multiscale_roi_align_batched,
+    roi_align_batched,
+)
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.targets import (
     AnchorTargets,
     ProposalTargets,
@@ -73,6 +85,11 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.targets import (
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FPN_STRIDES = (4, 8, 16, 32)  # p2..p5
+FPN_PLANES = 256
+FC7_CHANNELS = 2048
+# NHWC features: the C4 map, or the FPN pyramid (p2, p3, p4, p5)
+Features = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 def feat_stride(cfg: Config) -> int:
@@ -215,8 +232,14 @@ def check_supported(cfg: Config, training: bool = False) -> None:
         problems.append("USE_LIDAR_FPN")
     if lidar and cfg.test.rotated_nms:
         problems.append("TEST.ROTATED_NMS (rotated IoU kernel)")
-    if cfg.use_fpn:
-        problems.append("USE_FPN (C4 only)")
+    if cfg.use_fpn and lidar:
+        problems.append("USE_FPN with NET_TYPE 'lidar'")
+    if cfg.use_fpn and cfg.pooling_mode != "multiscale":
+        # the JAX package lays stride-16 anchors over the stride-4 p2 and
+        # pools p2 at 1/16 (models/detector.py:197-201,508-510,573-580)
+        problems.append(
+            f"USE_FPN with POOLING_MODE {cfg.pooling_mode!r} (fault F2: anchors and "
+            "pooling at stride 16 over the stride-4 p2; use POOLING_MODE multiscale)")
     if not cfg.net_variant.startswith("res"):
         problems.append(f"NET_VARIANT {cfg.net_variant!r} (ResNet only)")
     if any(flags):
@@ -230,8 +253,9 @@ def check_supported(cfg: Config, training: bool = False) -> None:
 
 
 class FasterRCNN(nn.Module):
-    """C4 Faster R-CNN (ResNet backbone, stride-1 layer4 tail) on images or
-    LiDAR BEV rasters."""
+    """Faster R-CNN with a ResNet backbone: C4 (stride-1 layer4 tail) on
+    images or LiDAR BEV rasters, or FPN (pyramid backbone, FCTail) on
+    images."""
 
     def __init__(self, cfg: Config, num_classes: int):
         super().__init__()
@@ -240,12 +264,17 @@ class FasterRCNN(nn.Module):
         self.num_classes = num_classes
         num_layers = int(cfg.net_variant.replace("res", "") or 101)
         in_channels = cfg.lidar.num_channel if cfg.net_type == "lidar" else 3
-        self.backbone = ResNetC4(num_layers, in_channels=in_channels)
-        self.tail = ResNetLayer4(num_layers)
-        self.rpn = RPNHead(ResNetC4.out_channels, cfg.rpn_channels, cfg.num_anchors)
-        self.predictors = DetectionPredictors(
-            ResNetLayer4.out_channels, num_classes, cfg.num_bbox_elem
-        )
+        if cfg.use_fpn:
+            self.backbone = ResNetPyramid(num_layers, in_channels=in_channels)
+            self.fpn = FPN(ResNetPyramid.out_channels, FPN_PLANES)
+            self.tail = FCTail(FPN_PLANES * cfg.pooling_size ** 2, FC7_CHANNELS)
+            rpn_in, fc7 = FPN_PLANES, FC7_CHANNELS
+        else:
+            self.backbone = ResNetC4(num_layers, in_channels=in_channels)
+            self.tail = ResNetLayer4(num_layers)
+            rpn_in, fc7 = ResNetC4.out_channels, ResNetLayer4.out_channels
+        self.rpn = RPNHead(rpn_in, cfg.rpn_channels, cfg.num_anchors)
+        self.predictors = DetectionPredictors(fc7, num_classes, cfg.num_bbox_elem)
         self._anchor_cache: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
@@ -254,8 +283,10 @@ class FasterRCNN(nn.Module):
 
     # -- feature extraction ------------------------------------------------
 
-    def features(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) images -> (B, H/16, W/16, 1024) NHWC C4 features.
+    def features(self, images: torch.Tensor) -> Features:
+        """(B, H, W, 3) images -> NHWC features: the (B, H/16, W/16, 1024) C4
+        map, or with FPN the tuple (p2, p3, p4, p5) of (B, H/s, W/s, 256)
+        maps at strides 4, 8, 16, 32.
 
         Integer frames are raw pixels, normalized here on the device with
         cfg.pixel_means/stddevs; float frames are taken as pre-normalized."""
@@ -264,14 +295,21 @@ class FasterRCNN(nn.Module):
             stds = torch.tensor(self.cfg.pixel_stddevs, dtype=torch.float32, device=images.device)
             images = (images.float() - means) / stds
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)  # channels_last view
+        if self.cfg.use_fpn:
+            return tuple(p.permute(0, 2, 3, 1) for p in self.fpn(*self.backbone(x)))
         return self.backbone(x).permute(0, 2, 3, 1)
+
+    @staticmethod
+    def rpn_map(feats: Features) -> torch.Tensor:
+        """The map the RPN runs on: the C4 map, or p2 of a pyramid."""
+        return feats[0] if isinstance(feats, tuple) else feats
 
     # -- rpn ---------------------------------------------------------------
 
-    def rpn_scores(self, rpn_feat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """NHWC features -> fg_prob (B, N), logits (B, N, 2), deltas (B, N, 4)
-        in float32 and (y, x, a) lane order."""
-        cls, bbox = self.rpn(rpn_feat.permute(0, 3, 1, 2))
+    def rpn_scores(self, feats: Features) -> Dict[str, torch.Tensor]:
+        """NHWC features (or a pyramid: its p2) -> fg_prob (B, N), logits
+        (B, N, 2), deltas (B, N, 4) in float32 and (y, x, a) lane order."""
+        cls, bbox = self.rpn(self.rpn_map(feats).permute(0, 3, 1, 2))
         b, _, h, w = cls.shape
         a = self.cfg.num_anchors
         # channel layout [bg x A | fg x A]: (h, w, 2, A) -> (h, w, A, 2)
@@ -324,23 +362,33 @@ class FasterRCNN(nn.Module):
 
     # -- roi head ----------------------------------------------------------
 
-    def pool_rois(self, feat: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
-        """RoI-align (B, S, 4) rois from NHWC features -> (B, S, P, P, C)."""
+    def pool_rois(self, feat: Features, rois: torch.Tensor) -> torch.Tensor:
+        """RoI-align (B, S, 4) rois from NHWC features -> (B, S, P, P, C);
+        from a pyramid, each RoI from its LevelMapper level."""
+        if self.cfg.use_fpn:
+            return multiscale_roi_align_batched(
+                tuple(f.contiguous() for f in feat), rois, FPN_STRIDES,
+                output_size=self.cfg.pooling_size,
+            )
         return roi_align_batched(
             feat.contiguous(), rois, 1.0 / feat_stride(self.cfg),
             output_size=self.cfg.pooling_size,
         )
 
     def pooled_head(self, pooled: torch.Tensor, b: int, s: int) -> Dict[str, torch.Tensor]:
-        """layer4, spatial mean and predictors over pooled RoIs -> float32
-        dict of (B, S, .)."""
+        """Tail and predictors over pooled RoIs -> float32 dict of (B, S, .):
+        C4 layer4 and the spatial mean, or the FPN's FCTail over each RoI
+        flattened in (y, x, c) order."""
         p, c = pooled.shape[-2], pooled.shape[-1]
-        x = pooled.reshape(b * s, p, p, c).permute(0, 3, 1, 2)  # channels_last view
-        fc7 = self.tail(x).mean(dim=(2, 3))
+        if self.cfg.use_fpn:
+            fc7 = self.tail(pooled.reshape(b * s, p * p * c))
+        else:
+            x = pooled.reshape(b * s, p, p, c).permute(0, 3, 1, 2)  # channels_last view
+            fc7 = self.tail(x).mean(dim=(2, 3))
         out = self.predictors(fc7)
         return {k: v.reshape(b, s, -1).float() for k, v in out.items()}
 
-    def roi_head(self, feat: torch.Tensor, rois: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def roi_head(self, feat: Features, rois: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.pooled_head(self.pool_rois(feat, rois), rois.shape[0], rois.shape[1])
 
     # -- inference ----------------------------------------------------------
@@ -353,7 +401,8 @@ class FasterRCNN(nn.Module):
         clipped image boxes, or 7-DoF lidar boxes in voxel units."""
         feat = self.features(images)
         rpn_out = self.rpn_scores(feat)
-        anchors, anchors_3d = self.anchor_grids(feat.shape[1], feat.shape[2], feat.device)
+        m = self.rpn_map(feat)
+        anchors, anchors_3d = self.anchor_grids(m.shape[1], m.shape[2], m.device)
         rois, roi_scores, roi_valid, src = self._propose_batch(rpn_out, anchors, window)
         out = {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid}
         roi_a3d = None
@@ -369,8 +418,9 @@ class FasterRCNN(nn.Module):
 
     def train_lane_counts(self, image_hw: Tuple[int, int], max_gt: int) -> Tuple[int, int]:
         """(N anchors, R proposals) a frame for training frames of
-        `image_hw`: the sizes of TrainDraws' keys.  The C4 map is
-        ceil(H / 16) x ceil(W / 16); R counts the appended GT boxes when
+        `image_hw`: the sizes of TrainDraws' keys.  The RPN's map is
+        ceil(H / s) x ceil(W / s) at the feature stride s (16 for C4, 4 for
+        p2 of FPN); R counts the appended GT boxes when
         TRAIN.USE_GT."""
         stride = feat_stride(self.cfg)
         n = -(-image_hw[0] // stride) * -(-image_hw[1] // stride) * self.cfg.num_anchors
@@ -383,7 +433,8 @@ class FasterRCNN(nn.Module):
         RPN losses, over the sampled anchor lanes only."""
         c = self.cfg
         rpn_out = self.rpn_scores(feat)
-        anchors = self.anchors(feat.shape[1], feat.shape[2], feat.device, "train", scale_idx)
+        m = self.rpn_map(feat)
+        anchors = self.anchors(m.shape[1], m.shape[2], m.device, "train", scale_idx)
         if draws.anchor_fg.shape != rpn_out["fg_prob"].shape:
             raise ValueError(
                 f"forward_train: anchor keys {tuple(draws.anchor_fg.shape)} for "
@@ -501,7 +552,7 @@ class FasterRCNN(nn.Module):
                 gt_boxes_dc, dc_mask, draws)
             losses.update(det_losses)
         else:
-            zero = torch.zeros((), device=feat.device)
+            zero = torch.zeros((), device=images.device)
             losses.update(cross_entropy=zero, loss_box=zero)
         losses["total_loss"] = (
             losses["rpn_cross_entropy"] + losses["rpn_loss_box"]
@@ -512,7 +563,7 @@ class FasterRCNN(nn.Module):
     forward = forward_train
 
     def classify_rois(
-        self, feat: torch.Tensor, rois: torch.Tensor, window: torch.Tensor,
+        self, feat: Features, rois: torch.Tensor, window: torch.Tensor,
         anchors_3d: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Second stage on (B, S, 4) rois -> class probabilities (B, S, K)
@@ -558,11 +609,13 @@ def _trunc_normal(w: torch.Tensor, std: float, g: torch.Generator) -> None:
 def init_params(model: FasterRCNN, generator: torch.Generator) -> FasterRCNN:
     """Random init with the JAX package's initializers, from `generator`:
     ResNet convs variance-scaling(2, fan_out, truncated normal), the stem
-    conv lecun-normal, RPN and class heads normal(0.01), the box head
-    normal(0.001), zero biases, identity frozen BN (residual-terminator
-    scales zero when cfg.resnet.fixed_blocks == -1)."""
+    conv and the FPN convs lecun-normal (flax's default), RPN, class heads
+    and the FPN tail's t_fc layers normal(0.01), the box head normal(0.001),
+    zero biases, identity frozen BN (residual-terminator scales zero when
+    cfg.resnet.fixed_blocks == -1)."""
     zero_init_residual = model.cfg.resnet.fixed_blocks == -1
-    head_std = {"rpn": 0.01, "predictors.cls_score_net": 0.01, "predictors.bbox_pred_net": 0.001}
+    head_std = {"rpn": 0.01, "predictors.cls_score_net": 0.01,
+                "predictors.bbox_pred_net": 0.001, "tail.t_fc": 0.01}
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, FrozenBatchNorm):
@@ -572,9 +625,9 @@ def init_params(model: FasterRCNN, generator: torch.Generator) -> FasterRCNN:
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
             elif isinstance(m, (nn.Conv2d, nn.Linear)):
-                if name.startswith(("backbone", "tail")):
+                if isinstance(m, nn.Conv2d) and name.startswith(("backbone", "tail", "fpn")):
                     kh, kw = m.kernel_size
-                    if name == "backbone.conv1":
+                    if name == "backbone.conv1" or name.startswith("fpn"):
                         std = math.sqrt(1.0 / (m.in_channels * kh * kw))
                     else:
                         std = math.sqrt(2.0 / (m.out_channels * kh * kw))

@@ -1,10 +1,12 @@
 """RPN head and second-stage predictors.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/models/heads.py:35-59 (RPNHead)
-and :109-163 (DetectionPredictors) without the uncertainty branches:
+Port of faster_rcnn_pytorch_multimodal_tpu/models/heads.py:35-59 (RPNHead),
+:62-78 (FCTail) and :109-163 (DetectionPredictors) without the uncertainty
+branches:
 
   rpn_net (3x3 conv -> rpn_channels) -> rpn_cls_score_net (1x1, 2A),
                                         rpn_bbox_pred_net (1x1, 4A)
+  FPN tail: flat pooled RoI -> t_fc1 -> t_fc2 -> t_fc3 (each + ReLU) = fc7
   fc7 -> cls_score_net (K), bbox_pred_net (E*K)
 
 Init (ref imagenet.py:65-91) is done by models.detector.init_params.
@@ -30,6 +32,23 @@ class RPNHead(nn.Module):
     def forward(self, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = torch.relu(self.rpn_net(feat))
         return self.rpn_cls_score_net(x), self.rpn_bbox_pred_net(x)
+
+
+class FCTail(nn.Module):
+    """Three dense layers with ReLU over the flattened pooled RoI (the FPN
+    tail).  The caller flattens NHWC pooled RoIs in (y, x, c) order, as the
+    JAX package does, so a bridged t_fc1 weight applies as it is."""
+
+    def __init__(self, in_features: int, fc7_channels: int = 2048):
+        super().__init__()
+        self.t_fc1 = nn.Linear(in_features, fc7_channels)
+        self.t_fc2 = nn.Linear(fc7_channels, fc7_channels)
+        self.t_fc3 = nn.Linear(fc7_channels, fc7_channels)
+
+    def forward(self, flat: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.t_fc1(flat))
+        x = torch.relu(self.t_fc2(x))
+        return torch.relu(self.t_fc3(x))
 
 
 class DetectionPredictors(nn.Module):

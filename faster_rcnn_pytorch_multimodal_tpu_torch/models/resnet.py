@@ -1,12 +1,15 @@
-"""ResNet backbone and C4 tail with the reference's detection surgery.
+"""ResNet backbone and C4 tail with the reference's detection surgery, and
+the FPN's pyramid backbone.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/models/resnet.py:57-428 for the
-serving path:
+Port of faster_rcnn_pytorch_multimodal_tpu/models/resnet.py:57-474:
   * FrozenBatchNorm (frozen mode; live BN is for training),
   * Bottleneck with caffe-style stride placement: layers 2 and 3 put the
     stride on the 1x1 conv1 instead of the 3x3 conv2, and the downsample
     conv carries it,
-  * stride-1 layer4 as the C4 detection tail.
+  * stride-1 layer4 as the C4 detection tail;
+  * ResNetPyramid for FPN: stem and layer1..4 -> (c2, c3, c4, c5), with a
+    stride-2 layer4 that places its stride as torchvision does (on the 3x3
+    conv2 and the downsample), unlike layers 2 and 3.
 
 Modules are NCHW, as PyTorch's convolutions are; the detector runs them on
 channels_last tensors, so the NHWC views it hands to RoI align are free.
@@ -185,3 +188,31 @@ class ResNetLayer4(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer4(x)
+
+
+class ResNetPyramid(nn.Module):
+    """Stem + layer1..layer4 -> (c2, c3, c4, c5) at strides 4, 8, 16, 32
+    (ref resnet.py:431-474).  The stem sits at the top level (conv1, bn1),
+    as in ResNetC4, and layer4 lives here, not in a tail."""
+
+    out_channels = (64 * EXPANSION, 128 * EXPANSION, 256 * EXPANSION, 512 * EXPANSION)
+
+    def __init__(self, num_layers: int = 101, in_channels: int = 3):
+        super().__init__()
+        if num_layers not in STAGE_BLOCKS:
+            raise NotImplementedError(
+                f"res{num_layers}: the port has Bottleneck depths {sorted(STAGE_BLOCKS)}"
+            )
+        blocks = STAGE_BLOCKS[num_layers]
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = FrozenBatchNorm(64)
+        self.layer1 = ResStage(64, 64, blocks[0], 1)
+        self.layer2 = ResStage(256, 128, blocks[1], 2, caffe_stride=True)
+        self.layer3 = ResStage(512, 256, blocks[2], 2, caffe_stride=True)
+        self.layer4 = ResStage(1024, 512, blocks[3], 2)  # torchvision's stride placement
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        c2 = self.layer1(_stem_forward(self.conv1, self.bn1, x))
+        c3 = self.layer2(c2)
+        c4 = self.layer3(c3)
+        return c2, c3, c4, self.layer4(c4)

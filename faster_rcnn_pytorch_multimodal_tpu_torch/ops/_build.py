@@ -35,7 +35,10 @@ LIB_NAME = "libfrcnn_kernels.so"
 
 # Launches of each kernel wrapper; a wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that it went through the kernel.
-LAUNCH_COUNTS = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0, "voxelize_bev": 0}
+LAUNCH_COUNTS = {
+    "nms": 0, "roi_align": 0, "roi_align_bwd": 0, "voxelize_bev": 0,
+    "roi_align_multiscale": 0, "roi_align_multiscale_bwd": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -108,7 +111,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library with every entry's signature declared."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.frcnn_nms.argtypes = [p, p, p, i, i, f, i, p, p, p, p]
     lib.frcnn_nms.restype = i
     lib.frcnn_roi_align_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]
@@ -117,6 +120,12 @@ def library() -> ctypes.CDLL:
     lib.frcnn_roi_align_bwd.restype = i
     lib.frcnn_voxelize_bev.argtypes = [p, p, p, p, p, p, i, i, f, f, f, f, f, f, f, i, i, i, i, i, f, p]
     lib.frcnn_voxelize_bev.restype = i
+    # pointer arguments to host arrays: the maps (void*[]), heights, widths,
+    # scales and accumulator offsets, built by the wrapper with ctypes
+    lib.frcnn_roi_align_ms_fwd.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.frcnn_roi_align_ms_fwd.restype = i
+    lib.frcnn_roi_align_ms_bwd.argtypes = [p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.frcnn_roi_align_ms_bwd.restype = i
     return lib
 
 

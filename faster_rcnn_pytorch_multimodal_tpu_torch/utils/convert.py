@@ -9,7 +9,10 @@ into the port's state dict; `to_flax_variables` goes back.  Conversions:
 
 The port's backbone and tail are named after torchvision's ResNet keys, so
 the flax path of a backbone key is exactly what `resnet_key_to_flax` gives,
-a copy of the JAX package's utils/convert.py:49-86.  Every leaf must map,
+a copy of the JAX package's utils/convert.py:49-86.  The root tells the two
+models apart: layer4 lives under 'tail' in C4 and under 'backbone' in the
+FPN model, whose 'fpn' (latlayer2..5, aalayer2..4) and FCTail
+('tail/t_fc1..3') map like the heads.  Every leaf must map,
 in both directions: an unknown path or key raises.  Shapes carry over as
 they are, so a LiDAR net's 15-channel stem and 7K-wide box head convert
 like the image net's.
@@ -28,6 +31,8 @@ _BN_TO_FLAX = {v: k for k, v in _BN_TO_TORCH.items()}
 _HEADS = {
     "rpn": ("rpn_net", "rpn_cls_score_net", "rpn_bbox_pred_net"),
     "predictors": ("cls_score_net", "bbox_pred_net"),
+    "fpn": ("latlayer2", "latlayer3", "latlayer4", "latlayer5", "aalayer2", "aalayer3", "aalayer4"),
+    "tail": ("t_fc1", "t_fc2", "t_fc3"),
 }
 
 
@@ -89,6 +94,9 @@ def _unflatten(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
 def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
     """('backbone', 'layer1', 'block0', 'conv1', 'kernel') -> 'backbone.layer1.0.conv1.weight'."""
     root, rest = path[0], path[1:]
+    if root in _HEADS and len(rest) == 2 and rest[0] in _HEADS[root]:
+        leaf = {"kernel": "weight", "bias": "bias"}[rest[1]]
+        return f"{root}.{rest[0]}.{leaf}"
     if root in ("backbone", "tail"):
         if rest[0] == "stem" and len(rest) == 3:
             mod, leaf = rest[1], rest[2]
@@ -101,26 +109,24 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
             mod = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}.get(mod, mod)
             name = "weight" if leaf == "kernel" else _BN_TO_TORCH[leaf]
             key = f"{layer}.{m.group(1)}.{mod}.{name}"
-        if resnet_key_to_flax(key, use_fpn=False) != tuple(path):
+        # layer4 under 'backbone' is the FPN model's
+        if resnet_key_to_flax(key, use_fpn=root == "backbone") != tuple(path):
             raise KeyError(f"unmapped flax path {'/'.join(path)}")
         return f"{root}.{key}"
-    if root in _HEADS and len(rest) == 2 and rest[0] in _HEADS[root]:
-        leaf = {"kernel": "weight", "bias": "bias"}[rest[1]]
-        return f"{root}.{rest[0]}.{leaf}"
     raise KeyError(f"unmapped flax path {'/'.join(path)}")
 
 
 def torch_key_to_flax_path(key: str) -> Tuple[str, ...]:
     """Inverse of flax_path_to_torch_key."""
     root, _, rest = key.partition(".")
-    if root in ("backbone", "tail"):
-        path = resnet_key_to_flax(rest, use_fpn=False)
-        if path is None or path[0] != root:
-            raise KeyError(f"unmapped torch key {key}")
-        return path
     parts = rest.split(".")
     if root in _HEADS and len(parts) == 2 and parts[0] in _HEADS[root]:
         return (root, parts[0], {"weight": "kernel", "bias": "bias"}[parts[1]])
+    if root in ("backbone", "tail"):
+        path = resnet_key_to_flax(rest, use_fpn=root == "backbone")
+        if path is None or path[0] != root:
+            raise KeyError(f"unmapped torch key {key}")
+        return path
     raise KeyError(f"unmapped torch key {key}")
 
 
@@ -169,14 +175,18 @@ def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
 
 
 def load_torchvision_resnet(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> int:
-    """Load a torchvision ResNet state dict into a FasterRCNN's backbone and
-    tail (layer4); the ImageNet fc head is dropped.  Returns the number of
-    tensors loaded; raises if a backbone or tail tensor is missing."""
+    """Load a torchvision ResNet state dict into a FasterRCNN: the backbone
+    and the C4 tail (layer4), or under FPN the pyramid backbone, which holds
+    layer4 (the FPN and its FCTail keep their init).  The ImageNet fc head
+    is dropped.  Returns the number of tensors loaded; raises if a backbone
+    or C4 tail tensor is missing."""
+    fpn = model.cfg.use_fpn
     backbone, tail = {}, {}
     for k, v in state_dict.items():
         if k.startswith("fc.") or k.endswith("num_batches_tracked"):
             continue
-        (tail if k.startswith("layer4.") else backbone)[k] = v
+        (tail if k.startswith("layer4.") and not fpn else backbone)[k] = v
     model.backbone.load_state_dict(backbone, strict=True)
-    model.tail.load_state_dict(tail, strict=True)
+    if not fpn:
+        model.tail.load_state_dict(tail, strict=True)
     return len(backbone) + len(tail)

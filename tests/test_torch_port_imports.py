@@ -25,8 +25,13 @@ torch = pytest.importorskip("torch")
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import nms, nms_plain  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (  # noqa: E402
+    _multiscale_roi_align_cuda,
+    multiscale_roi_align,
+    multiscale_roi_align_batched,
+    multiscale_roi_align_batched_plain,
     roi_align_batched,
     roi_align_batched_plain,
+    roi_levels,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.voxelize import (  # noqa: E402
     voxelize_bev,
@@ -109,6 +114,54 @@ def test_cpu_tensors_run_the_twin_without_launching():
     assert torch.equal(bev, want)
     assert bev.shape == (2, 200, 175, 15)
     assert _build.LAUNCH_COUNTS == before
+
+
+FPN_HW = [(32, 48), (16, 24), (8, 12), (4, 6)]  # p2..p5 of a 128x192 frame
+STRIDES = (4, 8, 16, 32)
+
+
+def _fpn_rois(rng, b, r, lo=8.0, hi=700.0):
+    """Log-uniform sides, so RoIs land on every level; some straddle the
+    frame's edge or lie outside it."""
+    x1 = rng.uniform(-30, 192, (b, r))
+    y1 = rng.uniform(-30, 128, (b, r))
+    side = np.exp(rng.uniform(np.log(lo), np.log(hi), (b, r)))
+    aspect = np.exp(rng.uniform(-1, 1, (b, r)))
+    rois = np.stack([x1, y1, x1 + side * aspect, y1 + side / aspect], -1)
+    rois[:, :4] += 3000.0  # outside every map
+    return rois.astype(np.float32)
+
+
+def test_multiscale_cpu_runs_the_twin_without_launching():
+    rng = np.random.RandomState(4)
+    before = dict(_build.LAUNCH_COUNTS)
+    maps = [torch.from_numpy(rng.normal(size=(2,) + hw + (8,)).astype(np.float32)).requires_grad_(True)
+            for hw in FPN_HW]
+    rois = torch.from_numpy(_fpn_rois(rng, 2, 30))
+    got = multiscale_roi_align_batched(maps, rois, STRIDES)
+    assert torch.equal(got, multiscale_roi_align_batched_plain(maps, rois, STRIDES))
+    assert torch.equal(multiscale_roi_align([m[1] for m in maps], rois[1], STRIDES), got[1])
+    assert set(roi_levels(rois, 4).unique().tolist()) == {0, 1, 2, 3}
+    got.sum().backward()  # the twin's autograd, into every level
+    assert all(float(m.grad.abs().sum()) > 0 for m in maps)
+    assert _build.LAUNCH_COUNTS == before
+
+
+def test_multiscale_wrapper_rejects_bad_inputs():
+    maps = [torch.zeros((1,) + hw + (8,)) for hw in FPN_HW]
+    rois = torch.zeros(1, 3, 4)
+    with pytest.raises(ValueError):
+        multiscale_roi_align_batched(maps, rois, STRIDES[:3])  # a stride short
+    with pytest.raises(ValueError):
+        multiscale_roi_align_batched(maps + maps[:1], rois, STRIDES + (64,))  # five levels
+    with pytest.raises(ValueError):
+        multiscale_roi_align_batched(maps, torch.zeros(2, 3, 4), STRIDES)  # batch mismatch
+    with pytest.raises(ValueError):
+        multiscale_roi_align_batched(maps[:3] + [torch.zeros(1, 4, 6, 16)], rois, STRIDES)  # C
+    with pytest.raises(ValueError):
+        multiscale_roi_align_batched(maps[:3] + [maps[3].bfloat16()], rois, STRIDES)  # dtype
+    with pytest.raises(TypeError):
+        multiscale_roi_align_batched([m.double() for m in maps], rois, STRIDES)
 
 
 def test_wrappers_reject_bad_inputs():
@@ -231,3 +284,62 @@ def test_voxelize_kernel_matches_twin(cuda):
     assert torch.equal(got[..., :13], want[..., :13])
     assert float((got[..., 13:] - want[..., 13:]).abs().max()) <= 1e-5
     assert not bool(got[2].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,tol", [(torch.float32, 256, 1e-5), (torch.bfloat16, 256, 1e-2),
+                                         (torch.float32, 30, 1e-5), (torch.bfloat16, 12, 1e-2)])
+def test_multiscale_roi_align_kernel_matches_twin(cuda, dtype, c, tol):
+    """The multiscale forward kernel (vectorized and scalar channel paths)
+    against the twin: every RoI on the twin's level, values within
+    tol * max|F| (bf16: the output is rounded to bf16)."""
+    rng = np.random.RandomState(c + 7)
+    maps = [torch.from_numpy(rng.normal(size=(2,) + hw + (c,)).astype(np.float32)).to(dtype)
+            for hw in FPN_HW]
+    rois = torch.from_numpy(_fpn_rois(rng, 2, 96))
+    before = _build.LAUNCH_COUNTS["roi_align_multiscale"]
+    got = multiscale_roi_align_batched([m.to(cuda) for m in maps], rois.to(cuda), STRIDES)
+    _out, levels = _multiscale_roi_align_cuda([m.to(cuda) for m in maps], rois.to(cuda), STRIDES,
+                                              7, 2, 224, 4)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["roi_align_multiscale"] == before + 2
+    want_levels = roi_levels(rois, 4)
+    assert torch.equal(levels.cpu().long(), want_levels)
+    assert set(want_levels.unique().tolist()) == {0, 1, 2, 3}
+    want = multiscale_roi_align_batched_plain(maps, rois, STRIDES)
+    assert got.dtype == dtype and got.shape == (2, 96, 7, 7, c)
+    fmax = max(float(m.float().abs().max()) for m in maps)
+    assert float((got.cpu().float() - want.float()).abs().max()) <= tol * fmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,tol,p5", [(torch.float32, 256, 1e-5, False),
+                                            (torch.bfloat16, 256, 1e-2, False),
+                                            (torch.float32, 12, 1e-5, False),
+                                            (torch.float32, 256, 1e-5, True)])
+def test_multiscale_roi_align_backward_kernel_matches_twin(cuda, dtype, c, tol, p5):
+    """The maps' gradients of the CUDA path (float32 atomics, one buffer for
+    the four levels, bf16 rounding pass) against the twin's autograd
+    gradients, within tol * max|dF| of each level; with p5 every RoI is
+    large enough for the coarsest map, where the atomics contend most."""
+    rng = np.random.RandomState(c + 11)
+    maps = [torch.from_numpy(rng.normal(size=(2,) + hw + (c,)).astype(np.float32)).to(dtype)
+            for hw in FPN_HW]
+    rois = torch.from_numpy(_fpn_rois(rng, 2, 80, *((460.0, 900.0) if p5 else ())))
+    g = torch.from_numpy(rng.normal(size=(2, 80, 7, 7, c)).astype(np.float32)).to(dtype)
+    dev = [m.to(cuda).requires_grad_(True) for m in maps]
+    r_dev = rois.to(cuda).requires_grad_(True)
+    before = _build.LAUNCH_COUNTS["roi_align_multiscale_bwd"]
+    multiscale_roi_align_batched(dev, r_dev, STRIDES).backward(g.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["roi_align_multiscale_bwd"] == before + 1
+    assert r_dev.grad is None
+    cpu = [m.clone().requires_grad_(True) for m in maps]
+    multiscale_roi_align_batched_plain(cpu, rois, STRIDES).backward(g)
+    for level, (d, w) in enumerate(zip(dev, cpu)):
+        want = w.grad.float()
+        assert d.grad.dtype == dtype
+        err = float((d.grad.cpu().float() - want).abs().max())
+        assert err <= tol * float(want.abs().max()), level
+    if p5:
+        assert float(cpu[3].grad.abs().max()) > 0 and float(cpu[0].grad.abs().max()) == 0

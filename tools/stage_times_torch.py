@@ -2,8 +2,8 @@
 """Where the time of one serving batch goes, on one NVIDIA GPU.
 
 Runs the port's serving batch (chip_smoke.py's configurations: res101 bf16,
-batch 8; the image path at 512x960, the LiDAR BEV path on 400 x 350 x 15
-rasters of synthetic points) stage by stage, each stage timed with CUDA
+batch 8; the image path at 512x960, C4 or with --fpn the FPN detector, the
+LiDAR BEV path on 400 x 350 x 15 rasters of synthetic points) stage by stage, each stage timed with CUDA
 events, the stages run one after another on the same batch, median of
 --reps runs after a warm-up.  A stage's time includes the device waiting
 for the host to launch its kernels.  Then torch.profiler over --reps whole
@@ -12,6 +12,7 @@ and the CUDA time by kernel name.
 
     python tools/stage_times_torch.py --net_type lidar
     python tools/stage_times_torch.py --net_type image --reps 5
+    python tools/stage_times_torch.py --net_type image --fpn
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ sys.path.insert(0, REPO)
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--net_type", default="lidar", choices=("lidar", "image"))
+    parser.add_argument("--fpn", action="store_true",
+                        help="the FPN image detector (USE_FPN, multiscale pooling)")
     parser.add_argument("--reps", default=5, type=int)
     parser.add_argument("--top", default=12, type=int, help="kernels listed by CUDA time")
     return parser.parse_args(argv)
@@ -49,11 +52,14 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("stage_times_torch: needs a CUDA device")
     lidar = args.net_type == "lidar"
+    if args.fpn and lidar:
+        raise SystemExit("stage_times_torch: --fpn is for --net_type image")
     if lidar:
         cfg = cs.make_config(cs.BEV_OVERRIDES, cs.BEV_SERVING_OVERRIDES)
         db = SyntheticDataset(cfg, num_frames=cs.B, num_classes=2, mode="val", seed=101)
     else:
-        cfg = cs.make_config(cs.IMAGE_OVERRIDES, cs.SERVING_OVERRIDES)
+        fpn = cs.FPN_OVERRIDES if args.fpn else ()
+        cfg = cs.make_config(cs.IMAGE_OVERRIDES, fpn, cs.SERVING_OVERRIDES)
         db = SyntheticDataset(cfg, num_frames=cs.B, num_classes=2, image_hw=cs.FRAME_HW,
                               mode="val", seed=101)
     device = torch.device("cuda")
@@ -86,7 +92,7 @@ def main(argv=None):
             state["rpn"] = m.rpn_scores(state["feat"])
 
         def proposals():
-            f = state["feat"]
+            f = m.rpn_map(state["feat"])
             anchors, a3d = m.anchor_grids(f.shape[1], f.shape[2], device)
             rois, _s, ok, src = m._propose_batch(state["rpn"], anchors, window)
             state["rois"], state["ok"], state["a3d"] = rois, ok, a3d[src] if lidar else None
@@ -105,9 +111,15 @@ def main(argv=None):
             filter_batch(m, out, cfg.test.thresh)
 
         stages = [("voxelize_bev", raster)] if lidar else []
-        stages += [("backbone (stem + layer1-3)", backbone), ("RPN head", rpn),
+        if args.fpn:
+            names = ("backbone (stem + layer1-4) + FPN", "multiscale RoI align kernel",
+                     "tail (FCTail: 3 dense layers, predictors)")
+        else:
+            names = ("backbone (stem + layer1-3)", "RoI align kernel",
+                     "tail (layer4, mean, predictors)")
+        stages += [(names[0], backbone), ("RPN head", rpn),
                    ("proposals (decode, sort, NMS kernel, gathers)", proposals),
-                   ("RoI align kernel", roi_align), ("tail (layer4, mean, predictors)", tail),
+                   (names[1], roi_align), (names[2], tail),
                    ("decode + final filter (NMS kernel)", decode_and_filter)]
         return stages
 
@@ -133,7 +145,8 @@ def main(argv=None):
             whole_ms.append(timer.stop())
         smi = cs.smi_name_power()
         shape = tuple(images.shape)
-        print(f"{cfg.net_variant} {cfg.compute_dtype} {args.net_type} input {shape} ({smi}); "
+        print(f"{cfg.net_variant}{' FPN' if args.fpn else ''} {cfg.compute_dtype} "
+              f"{args.net_type} input {shape} ({smi}); "
               f"median of {args.reps} runs, CUDA events:")
         for name, ms in times.items():
             print(f"  {name}: {float(np.median(ms))} ms")

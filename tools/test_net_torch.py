@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Evaluate the PyTorch port of the detector (C4, image or LiDAR BEV) on one
-device.
+"""Evaluate the PyTorch port of the detector (C4 on images or LiDAR BEV, or
+with --en_fpn 1 the FPN image detector) on one device.
 
 The flags are tools/test_net.py's, plus --device (the port's cli module).
 The frame loop is faster_rcnn_pytorch_multimodal_tpu_torch.inference.evaluate:
@@ -15,6 +15,7 @@ checkpoints of the JAX package are not read here.
 
     python tools/test_net_torch.py --db synthetic --net res101 --net_type image --max_frames 16
     python tools/test_net_torch.py --db synthetic --net res101 --net_type lidar --scale 0.5 --max_frames 16
+    python tools/test_net_torch.py --db synthetic --net res101 --net_type image --en_fpn 1 --max_frames 16
 """
 
 from __future__ import annotations

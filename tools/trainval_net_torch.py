@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Train the PyTorch port of the detector (image C4 path) on one device.
+"""Train the PyTorch port of the image detector (C4, or with --en_fpn 1 FPN)
+on one device.
 
 The flags are tools/trainval_net.py's, plus --device (the port's cli module);
 --iters defaults to 20.  The loop is faster_rcnn_pytorch_multimodal_tpu_torch.
@@ -10,6 +11,7 @@ pretrained weights, snapshots, resume, the val cycle and LiDAR training are
 not ported yet and raise.
 
     python tools/trainval_net_torch.py --db synthetic --net res101 --net_type image --iters 20 --batch_size 8
+    python tools/trainval_net_torch.py --db synthetic --net res101 --net_type image --en_fpn 1 --iters 20 --batch_size 8
 """
 
 from __future__ import annotations
