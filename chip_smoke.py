@@ -24,9 +24,11 @@ non-zero and never prints its last line):
      all-invalid frame: height and density channels equal, the meta
      channels within 1e-5 (float sums in atomic order).  Forward results are
      compared with the twins on CPU copies, the backward with the twin on
-     the card; times (CUDA events) with the twins on the card, beside the
-     least time the card could take (the larger of bytes over 3.35 TB/s and
-     float32 operations over 67 TFLOP/s).
+     the card.  Each kernel's time is device time (CUDA events, the median
+     of 5 windows queued while the card sleeps, so the host's launch time is
+     not in it: kernel_ms), beside the twin's time on the card (back to
+     back, host included) and the least time the card could take (the
+     larger of bytes over 3.35 TB/s and float32 operations over 67 TFLOP/s).
   4. the image serving slice at res101, float32, one 256x320 frame: card
      (kernels) against CPU (twins).
   5. the image serving path: the image config at test settings, compute
@@ -68,7 +70,8 @@ non-zero and never prints its last line):
 Phase 3 also holds the multiscale RoI-align kernels against their twins at
 the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
-1e-5 / 1e-2 * max|F|, the backward at dOut (8, 256, 7, 7, 256) within
+1e-5 / 1e-2 * max|F| (its bound reads only the tap rows the RoIs hit on
+their levels), the backward at dOut (8, 256, 7, 7, 256) within
 1e-5 / 1e-2 * max|dF| of each level, and once with every RoI on p5.
 Each path (5, 7, 9, 11, 12) runs with the launch counts set to 0 just before
 it and read just after.  Then one JSON line describing the kernels (each
@@ -102,6 +105,7 @@ TRAIN_STEPS = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 IOU_FLOPS = 13  # float32 operations of one IoU pair in the NMS mask
+SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's 1.98 GHz: the host queues a window meanwhile
 
 # The image and BEV configurations of the JAX package's bench (bench.py:196-228):
 # Waymo front camera at scale 0.5, and Waymo BEV at scale 0.5 (400 x 350 x 15).
@@ -153,7 +157,9 @@ def smi_name_power() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps runs, after one warm-up."""
+    """Mean milliseconds of fn() over reps runs back to back, after one
+    warm-up, between CUDA events: where the host takes longer to issue a call
+    than the card to run it, the host's time is in the number."""
     import torch
 
     fn()
@@ -164,6 +170,49 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_ms(fn, reps: int, windows: int = 5) -> dict:
+    """Device milliseconds of one fn() call without the host's time: in each
+    of `windows` windows the card first sleeps (SLEEP_CYCLES) while the host
+    queues reps calls, so the CUDA events time the calls back to back on the
+    card.  Returns the median, min and max over the windows and the host's
+    milliseconds to queue a window, which must stay below the sleep (else
+    the host's time would be in the number, and this raises)."""
+    import torch
+
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times, host = [], []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    times.sort()
+    sleep = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sleep[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    sleep[1].record()
+    sleep[1].synchronize()
+    sleep_ms = sleep[0].elapsed_time(sleep[1])
+    if max(host) >= sleep_ms:
+        raise AssertionError(f"kernel_ms: the host took {max(host)} ms to queue {reps} calls, "
+                             f"longer than the card's {sleep_ms} ms sleep")
+    return {"ms": times[len(times) // 2], "min": times[0], "max": times[-1], "windows": windows,
+            "host_queue_ms": max(host), "sleep_ms": sleep_ms}
+
+
+def spread(t: dict) -> str:
+    return (f"{t['ms']} ms (device time, median of {t['windows']} windows, min {t['min']}, max "
+            f"{t['max']}; the host queued a window in {t['host_queue_ms']} ms while the card "
+            f"slept {t['sleep_ms']} ms)")
 
 
 def random_boxes(rng, n, frame_hw=(512, 960), size=(16.0, 256.0)):
@@ -221,13 +270,14 @@ def check_nms(name, g, n, thr, max_out, rng):
     chain_kept = idx[3][ok[3]][:20].cpu().numpy()
     if not np.array_equal(chain_kept, np.arange(0, 40, 2)[:20]):
         raise AssertionError(f"nms {name}: chain keeps {chain_kept}")
-    ms = cuda_ms(lambda: nms(db, ds, thr, max_out, dv), 50)
+    t = kernel_ms(lambda: nms(db, ds, thr, max_out, dv), 50)
+    ms = t["ms"]
     plain_ms = cuda_ms(lambda: nms_plain(db, ds, thr, max_out, dv), 2)
     m = idx.shape[-1]
     pairs = nms_pairs(scores, valid, want_idx.numpy(), want_ok.numpy())
     bound, by = bound_ms(g * n * (16 + 4 + 1) + g * m * (4 + 1), pairs * IOU_FLOPS)
     print(f"nms {name} ({g}, {n}) -> {max_out} @ {thr}: identical keeps "
-          f"({int(ok.sum())} kept); kernel {ms} ms, plain twin on the card {plain_ms} ms, "
+          f"({int(ok.sum())} kept); kernel {spread(t)}, plain twin on the card {plain_ms} ms, "
           f"bound {bound} ms ({by}; {pairs} IoU pairs)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
 
@@ -271,13 +321,14 @@ def check_roi_align(rng, feat_hw):
         err = float((got.cpu().float() - want.float()).abs().max())
         if not err <= tol * fmax:
             raise AssertionError(f"roi_align {dtype}: max err {err} > {tol} * {fmax}")
-        ms = cuda_ms(lambda: roi_align_batched(df, dr, 1.0 / 16), 20)
+        t = kernel_ms(lambda: roi_align_batched(df, dr, 1.0 / 16), 20)
+        ms = t["ms"]
         plain_ms = cuda_ms(lambda: roi_align_batched_plain(df, dr, 1.0 / 16), 3)
         bound, by = bound_ms(df.numel() * df.element_size() + dr.numel() * 4
                              + got.numel() * got.element_size(), roi_align_flops(got.numel()))
         print(f"roi_align {str(dtype).split('.')[-1]} features {tuple(df.shape)} rois "
               f"{tuple(dr.shape)}: max abs err {err} (bound {tol} * max|F| = {tol * fmax}); "
-              f"kernel {ms} ms, plain twin on the card {plain_ms} ms, bound {bound} ms ({by})")
+              f"kernel {spread(t)}, plain twin on the card {plain_ms} ms, bound {bound} ms ({by})")
         results[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound, "bound_by": by}
     return results
@@ -311,13 +362,14 @@ def check_roi_align_backward(rng):
         if got.dtype != dtype or not err <= tol * gmax:
             raise AssertionError(f"roi_align backward {dtype}: max err {err} > {tol} * {gmax}")
         shape, fd = tuple(f.shape), f.dtype
-        ms = cuda_ms(lambda: _roi_align_bwd_cuda(g, rois, shape, fd, 1.0 / 16, 7, 2, False), 10)
+        t = kernel_ms(lambda: _roi_align_bwd_cuda(g, rois, shape, fd, 1.0 / 16, 7, 2, False), 10)
+        ms = t["ms"]
         plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, f, g, retain_graph=True), 3)
         bound, by = bound_ms(g.numel() * g.element_size() + rois.numel() * 4
                              + f.numel() * f.element_size(), roi_align_flops(g.numel()))
         print(f"roi_align backward {str(dtype).split('.')[-1]} dOut {tuple(g.shape)} -> dF "
               f"{shape}: max abs err {err} (bound {tol} * max|dF| = {tol * gmax}); kernel "
-              f"{ms} ms, plain twin's autograd backward on the card {plain_ms} ms, "
+              f"{spread(t)}, plain twin's autograd backward on the card {plain_ms} ms, "
               f"bound {bound} ms ({by})")
         results[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound, "bound_by": by}
@@ -349,9 +401,37 @@ def level_counts(levels) -> list:
     return [int((levels == i).sum()) for i in range(len(FPN_STRIDES))]
 
 
+def tap_cells(rois, levels, p=7, sr=2) -> list:
+    """Per level p2..p5, the distinct (frame, y, x) cells whose C-channel rows
+    the forward must read: the bilinear taps of the samples of the RoIs mapped
+    there (zero-weight taps included, as the kernel loads them).  A RoI's
+    samples pair every sample row with every sample column, so its taps are
+    the product of its y taps and its x taps.  rois (B, R, 4) and levels
+    (B, R) on the CPU."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import _sample_coords, _taps
+
+    cells = []
+    for lvl, ((h, w), stride) in enumerate(zip(FPN_MAP_HW, FPN_STRIDES)):
+        on = levels == lvl
+        frame = torch.nonzero(on)[:, 0]
+        gy, gx = _sample_coords(rois[on], 1.0 / stride, p, sr, False)
+        ylo, yhi, _, _ = _taps(gy, h)
+        xlo, xhi, _, _ = _taps(gx, w)
+        ys, xs = torch.cat([ylo, yhi], -1), torch.cat([xlo, xhi], -1)
+        flat = (frame[:, None, None] * h + ys[:, :, None]) * w + xs[:, None, :]
+        cells.append(int(torch.unique(flat).numel()))
+    return cells
+
+
 def check_multiscale_roi_align(rng):
     """The multiscale forward kernel against its twin (CPU copies) at the FPN
-    serving shape: every RoI on the twin's level, values within tol * max|F|."""
+    serving shape: every RoI on the twin's level, values within tol * max|F|.
+    The kernel's time is the raw entry's device time (kernel_ms); the
+    public wrapper's time back to back (cuda_ms), host included, is printed
+    beside it.  The bound counts the tap rows the RoIs hit on their levels
+    (tap_cells), not the whole maps."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -367,12 +447,13 @@ def check_multiscale_roi_align(rng):
     counts = level_counts(want_levels)
     if min(counts) == 0:
         raise AssertionError(f"multiscale roi_align: a level got no RoI: {counts}")
+    cells = tap_cells(rois, want_levels)
     results = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
         tm = [torch.from_numpy(m).to(dtype) for m in maps]
         dm, dr = [m.cuda() for m in tm], rois.cuda()
         got = multiscale_roi_align_batched(dm, dr, FPN_STRIDES)
-        _out, levels = _multiscale_roi_align_cuda(dm, dr, FPN_STRIDES, 7, 2, 224, 4)
+        _out, levels = _multiscale_roi_align_cuda(dm, dr, FPN_STRIDES, 7, 2)
         torch.cuda.synchronize()
         want = multiscale_roi_align_batched_plain(tm, rois, FPN_STRIDES)
         fmax = max(float(m.float().abs().max()) for m in tm)
@@ -381,17 +462,23 @@ def check_multiscale_roi_align(rng):
         if not same_levels or not err <= tol * fmax:
             raise AssertionError(f"multiscale roi_align {dtype}: levels equal {same_levels}, "
                                  f"max err {err} > {tol} * {fmax}")
-        ms = cuda_ms(lambda: multiscale_roi_align_batched(dm, dr, FPN_STRIDES), 20)
+        t = kernel_ms(lambda: _multiscale_roi_align_cuda(dm, dr, FPN_STRIDES, 7, 2), 20)
+        wrapper_ms = cuda_ms(lambda: multiscale_roi_align_batched(dm, dr, FPN_STRIDES), 20)
         plain_ms = cuda_ms(lambda: multiscale_roi_align_batched_plain(dm, dr, FPN_STRIDES), 3)
-        nbytes = (sum(m.numel() * m.element_size() for m in dm) + dr.numel() * 4
-                  + got.numel() * got.element_size())
+        esize = got.element_size()
+        tap_bytes = sum(cells) * C_FPN * esize
+        map_bytes = sum(m.numel() * m.element_size() for m in dm)
+        nbytes = tap_bytes + dr.numel() * 4 + got.numel() * esize + levels.numel() * 4
         bound, by = bound_ms(nbytes, roi_align_flops(got.numel()))
         print(f"roi_align_multiscale {str(dtype).split('.')[-1]} maps "
               f"{[tuple(m.shape) for m in dm]} rois {tuple(dr.shape)}, RoIs per level p2..p5 "
               f"{counts}: levels equal to the twin's, max abs err {err} (bound {tol} * max|F| = "
-              f"{tol * fmax}); kernel {ms} ms, plain twin on the card {plain_ms} ms, bound "
-              f"{bound} ms ({by}: each map, the rois and the output once)")
-        results[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              f"{tol * fmax}); kernel {spread(t)}; through the public wrapper back to back "
+              f"{wrapper_ms} ms (host included); plain twin on the card {plain_ms} ms; bound "
+              f"{bound} ms ({by}: {nbytes} B = the rows of the {cells} distinct tap cells on "
+              f"p2..p5, {tap_bytes} B of the maps' {map_bytes}, plus the rois, the output and "
+              f"the levels once)")
+        results[dtype] = {"max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
                           "bound_ms": bound, "bound_by": by}
     return results
 
@@ -429,15 +516,16 @@ def check_multiscale_backward(rng, rois_np, label):
             raise AssertionError(f"multiscale backward {label} {dtype}: max err per level {errs} "
                                  f"vs {tol} * max|dF| {gmax}")
         shapes, fd = [tuple(m.shape) for m in f], f[0].dtype
-        ms = cuda_ms(lambda: _multiscale_roi_align_bwd_cuda(
-            g, rois, shapes, fd, FPN_STRIDES, 7, 2, 224, 4), 10)
+        t = kernel_ms(lambda: _multiscale_roi_align_bwd_cuda(
+            g, rois, shapes, fd, FPN_STRIDES, 7, 2), 10)
+        ms = t["ms"]
         plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, f, g, retain_graph=True), 3)
         nbytes = (g.numel() * g.element_size() + rois.numel() * 4
                   + sum(m.numel() * m.element_size() for m in f))
         bound, by = bound_ms(nbytes, roi_align_flops(g.numel()))
         print(f"roi_align_multiscale backward {label} {str(dtype).split('.')[-1]} dOut "
               f"{tuple(g.shape)}, RoIs per level p2..p5 {counts}: max abs err per level {errs} "
-              f"(bound {tol} * max|dF| per level {gmax}); kernel {ms} ms, plain twin's autograd "
+              f"(bound {tol} * max|dF| per level {gmax}); kernel {spread(t)}, plain twin's autograd "
               f"backward on the card {plain_ms} ms, bound {bound} ms ({by}: dOut, the rois and "
               f"each map's gradient once)")
         results[dtype] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
@@ -492,7 +580,8 @@ def check_voxelize(rng, cfg, frame_scale, p):
     if not exact or not meta_err <= 1e-5 or bool(got[1].any()):
         raise AssertionError(f"voxelize_bev {tuple(got.shape)}: height/density equal {exact}, "
                              f"meta err {meta_err}, all-invalid frame zero {not bool(got[1].any())}")
-    ms = cuda_ms(lambda: voxelize_bev(dp, dv, **grid), 20)
+    t = kernel_ms(lambda: voxelize_bev(dp, dv, **grid), 20)
+    ms = t["ms"]
     plain_ms = cuda_ms(lambda: voxelize_bev_plain(dp, dv, **grid), 3)
     # float32 operations: ~11 a point (subtract, scale, floor per axis; the
     # height), ~2 per slice and ~50 for the two divisions and tanhs a column
@@ -501,7 +590,7 @@ def check_voxelize(rng, cfg, frame_scale, p):
     bound, by = bound_ms(dp.numel() * 4 + dv.numel() + got.numel() * 4, flops)
     print(f"voxelize_bev points {tuple(dp.shape)} -> {tuple(got.shape)}: height and density "
           f"channels equal, meta channels max err {meta_err} (limit 1e-5), filled cells "
-          f"{int((want[..., s] > 0).sum())}; kernel {ms} ms, plain twin on the card {plain_ms} ms, "
+          f"{int((want[..., s] > 0).sum())}; kernel {spread(t)}, plain twin on the card {plain_ms} ms, "
           f"bound {bound} ms ({by})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
 

@@ -298,66 +298,60 @@ int launch_bwd(const void* grad_out, const void* rois, float* grad_accum, int b,
 // each RoI computes its level (torchvision's LevelMapper) and gathers its
 // taps from that level only, so the work is one level's, not four.
 //
-// Level: floor(k + log2(sqrt(max(area, 1e-6)) / canonical_scale + 1e-6)),
-// clipped to the pyramid.  floor(k + log2(x)) >= j exactly when
-// x >= 2^(j - k), so the kernel compares x with the host's powers of two
-// instead of taking a log2, and x is built with round-to-nearest
-// intrinsics, as the plain twin's float32 ops build it: kernel and twin map
-// every RoI to the same level.
+// The pyramid is the one the detector builds: four maps p2..p5 and the
+// LevelMapper's canonical scale 224 at level 4 (the wrapper raises for any
+// other).  Level: floor(4 + log2(sqrt(max(area, 1e-6)) / 224 + 1e-6)),
+// clipped to 2..5.  floor(4 + log2(x)) >= j exactly when x >= 2^(j - 4), so
+// the kernel compares x with 0.5, 1 and 2 instead of taking a log2, and x is
+// built with round-to-nearest intrinsics, as the plain twin's float32 ops
+// build it: kernel and twin map every RoI to the same level.
 //
 // What bounds it at the FPN serving shapes (B 8, R 300, P 7, C 256, bf16):
-// bytes, the 60 MB output (8 x 300 x 49 x 256 x 2 B) and the taps' rows of
-// the 167 MB of maps.  One block per RoI walks the RoI's 49 bins x C / VEC channel
-// vectors, so a warp reads 32 consecutive 16-byte vectors of one tap row
-// and writes one coalesced bin (at C = 256 bf16 one bin is one warp; the
+// bytes, the 60 MB output (8 x 300 x 49 x 256 x 2 B) and the tap rows the
+// RoIs hit on their levels.  One block per RoI walks the RoI's 49 bins x
+// C / VEC channel vectors, so a warp reads 32 consecutive 16-byte vectors of
+// one tap row and writes one coalesced bin (at C = 256 bf16 one bin is one warp; the
 // single-level layout would give a 32-thread block).  The backward, like
 // the single-level one, gives a thread one channel, so a warp's 32 float32
 // atomics hit one 128-byte line of the mapped level's accumulator.
 
-constexpr int kMaxLevels = 4;
+constexpr int kLevels = 4;
+constexpr float kCanonicalScale = 224.f;
 
 // The pyramid, by value in the kernel's parameters.
 struct Pyramid {
-  const void* feat[kMaxLevels];  // forward: the maps, NHWC
-  float* grad[kMaxLevels];       // backward: float32 accumulators, NHWC
-  int h[kMaxLevels], w[kMaxLevels];
-  float scale[kMaxLevels];       // 1 / stride
-  float thresh[kMaxLevels - 1];  // x >= thresh[j - 1] maps to level >= j
-  int levels;
+  const void* feat[kLevels];  // forward: the maps, NHWC
+  float* grad[kLevels];       // backward: float32 accumulators, NHWC
+  int h[kLevels], w[kLevels];
+  float scale[kLevels];       // 1 / stride
 };
 
 // a[i] without indexing the parameter space dynamically (no local copy).
 template <typename V>
-__device__ __forceinline__ V pick(const V (&a)[kMaxLevels], int i) {
+__device__ __forceinline__ V pick(const V (&a)[kLevels], int i) {
   V v = a[0];
 #pragma unroll
-  for (int k = 1; k < kMaxLevels; ++k) {
+  for (int k = 1; k < kLevels; ++k) {
     if (i == k) v = a[k];
   }
   return v;
 }
 
-__device__ __forceinline__ int roi_level(const float* roi, const Pyramid& pyr,
-                                         float canonical_scale) {
+// The RoI's level index 0..3 (p2..p5).
+__device__ __forceinline__ int roi_level(const float* roi) {
   const float area = fmaxf(__fmul_rn(__fsub_rn(roi[2], roi[0]), __fsub_rn(roi[3], roi[1])), 1e-6f);
-  const float x = __fadd_rn(__fdiv_rn(__fsqrt_rn(area), canonical_scale), 1e-6f);
-  int lvl = 0;
-#pragma unroll
-  for (int j = 1; j < kMaxLevels; ++j) {
-    if (j < pyr.levels && x >= pyr.thresh[j - 1]) lvl = j;
-  }
-  return lvl;
+  const float x = __fadd_rn(__fdiv_rn(__fsqrt_rn(area), kCanonicalScale), 1e-6f);
+  return (x >= 0.5f) + (x >= 1.f) + (x >= 2.f);
 }
 
 template <typename T, int VEC>
 __global__ void roi_align_ms_fwd_kernel(Pyramid pyr, const float* __restrict__ rois,
                                         T* __restrict__ out, int* __restrict__ levels_out,
-                                        int r_per_frame, int c, int p, int sr,
-                                        float canonical_scale) {
+                                        int r_per_frame, int c, int p, int sr) {
   const int br = blockIdx.x;  // b * R + r
   const int b = br / r_per_frame;
   const float* roi = rois + (size_t)br * 4;
-  const int lvl = roi_level(roi, pyr, canonical_scale);
+  const int lvl = roi_level(roi);
   if (threadIdx.x == 0) levels_out[br] = lvl;
   const int h = pick(pyr.h, lvl);
   const int w = pick(pyr.w, lvl);
@@ -380,11 +374,11 @@ __global__ void roi_align_ms_fwd_kernel(Pyramid pyr, const float* __restrict__ r
 template <typename T>
 __global__ void roi_align_ms_bwd_kernel(Pyramid pyr, const T* __restrict__ grad_out,
                                         const float* __restrict__ rois, int r_per_frame,
-                                        int c, int p, int sr, float canonical_scale) {
+                                        int c, int p, int sr) {
   const int br = blockIdx.x;
   const int b = br / r_per_frame;
   const float* roi = rois + (size_t)br * 4;
-  const int lvl = roi_level(roi, pyr, canonical_scale);
+  const int lvl = roi_level(roi);
   const int h = pick(pyr.h, lvl);
   const int w = pick(pyr.w, lvl);
   const RoIBox box = roi_box(roi, pick(pyr.scale, lvl), p, 0);
@@ -399,40 +393,33 @@ __global__ void roi_align_ms_bwd_kernel(Pyramid pyr, const T* __restrict__ grad_
   }
 }
 
-// The level thresholds and per-level geometry; false on bad arguments.
-bool make_pyramid(Pyramid* pyr, int levels, const int* heights, const int* widths,
-                  const float* scales, int canonical_level) {
-  if (levels < 1 || levels > kMaxLevels) return false;
+// The per-level geometry from the host arrays; false on an empty map.
+bool make_pyramid(Pyramid* pyr, const int* heights, const int* widths, const float* scales) {
   *pyr = Pyramid{};
-  pyr->levels = levels;
-  const int k0 = canonical_level - (levels - 2);  // level id of the finest map
-  for (int l = 0; l < kMaxLevels; ++l) {
-    const int s = l < levels ? l : levels - 1;
-    pyr->h[l] = heights[s];
-    pyr->w[l] = widths[s];
-    pyr->scale[l] = scales[s];
-    if (heights[s] < 1 || widths[s] < 1) return false;
-    if (l >= 1) pyr->thresh[l - 1] = ldexpf(1.f, k0 + l - canonical_level);
+  for (int l = 0; l < kLevels; ++l) {
+    if (heights[l] < 1 || widths[l] < 1) return false;
+    pyr->h[l] = heights[l];
+    pyr->w[l] = widths[l];
+    pyr->scale[l] = scales[l];
   }
   return true;
 }
 
 template <typename T, int VEC>
 int launch_ms_fwd(const Pyramid& pyr, const void* rois, void* out, void* levels_out, int b,
-                  int c, int r, int p, int sr, float canonical_scale, cudaStream_t stream) {
+                  int c, int r, int p, int sr, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>(b * r);
   roi_align_ms_fwd_kernel<T, VEC><<<blocks, threads_for(p * p * c, VEC), 0, stream>>>(
       pyr, static_cast<const float*>(rois), static_cast<T*>(out), static_cast<int*>(levels_out),
-      r, c, p, sr, canonical_scale);
+      r, c, p, sr);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_ms_bwd(const Pyramid& pyr, const void* grad_out, const void* rois, int b, int c,
-                  int r, int p, int sr, float canonical_scale, cudaStream_t stream) {
+                  int r, int p, int sr, cudaStream_t stream) {
   roi_align_ms_bwd_kernel<T><<<static_cast<unsigned>(b * r), threads_for(p * p * c, 1), 0, stream>>>(
-      pyr, static_cast<const T*>(grad_out), static_cast<const float*>(rois), r, c, p, sr,
-      canonical_scale);
+      pyr, static_cast<const T*>(grad_out), static_cast<const float*>(rois), r, c, p, sr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -492,43 +479,38 @@ extern "C" int frcnn_roi_align_bwd(const void* grad_out, const void* rois,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Multiscale forward.  features: `levels` (<= 4) pointers to (B, H_l, W_l, C)
-// maps, finest first, float32 (dtype 0) or bfloat16 (dtype 1), contiguous;
-// heights, widths, scales (1 / stride): `levels` values each, host memory.
-// rois: (B, R, 4) float32.  out: (B, R, P, P, C) in the features' dtype.
-// levels_out: (B, R) int32, each RoI's level index 0..levels-1.  vectorized
-// != 0 selects 16-byte channel vectors (C a multiple of the vector width,
-// every map and the output 16-byte aligned).  Returns cudaGetLastError()
-// after the launch (0 on success).
+// Multiscale forward.  features: 4 pointers to (B, H_l, W_l, C) maps,
+// p2..p5, float32 (dtype 0) or bfloat16 (dtype 1), contiguous; heights,
+// widths, scales (1 / stride): 4 values each, host memory.  rois: (B, R, 4)
+// float32.  out: (B, R, P, P, C) in the features' dtype.  levels_out: (B, R)
+// int32, each RoI's level index 0..3.  vectorized != 0 selects 16-byte
+// channel vectors (C a multiple of the vector width, every map and the
+// output 16-byte aligned).  Returns cudaGetLastError() after the launch (0
+// on success).
 extern "C" int frcnn_roi_align_ms_fwd(const void* const* features, const int* heights,
-                                      const int* widths, const float* scales, int levels,
-                                      const void* rois, void* out, void* levels_out, int dtype,
-                                      int vectorized, int b, int c, int r, int p, int sr,
-                                      float canonical_scale, int canonical_level, void* stream) {
+                                      const int* widths, const float* scales, const void* rois,
+                                      void* out, void* levels_out, int dtype, int vectorized,
+                                      int b, int c, int r, int p, int sr, void* stream) {
   Pyramid pyr;
-  if (!make_pyramid(&pyr, levels, heights, widths, scales, canonical_level)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int l = 0; l < kMaxLevels; ++l) pyr.feat[l] = features[l < levels ? l : levels - 1];
+  if (!make_pyramid(&pyr, heights, widths, scales)) return static_cast<int>(cudaErrorInvalidValue);
+  for (int l = 0; l < kLevels; ++l) pyr.feat[l] = features[l];
   if (b * r == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float cs = canonical_scale;
   if (dtype == 0) {
-    return vectorized
-               ? launch_ms_fwd<float, 4>(pyr, rois, out, levels_out, b, c, r, p, sr, cs, s)
-               : launch_ms_fwd<float, 1>(pyr, rois, out, levels_out, b, c, r, p, sr, cs, s);
+    return vectorized ? launch_ms_fwd<float, 4>(pyr, rois, out, levels_out, b, c, r, p, sr, s)
+                      : launch_ms_fwd<float, 1>(pyr, rois, out, levels_out, b, c, r, p, sr, s);
   }
   if (dtype == 1) {
     return vectorized
-               ? launch_ms_fwd<__nv_bfloat16, 8>(pyr, rois, out, levels_out, b, c, r, p, sr, cs, s)
-               : launch_ms_fwd<__nv_bfloat16, 1>(pyr, rois, out, levels_out, b, c, r, p, sr, cs, s);
+               ? launch_ms_fwd<__nv_bfloat16, 8>(pyr, rois, out, levels_out, b, c, r, p, sr, s)
+               : launch_ms_fwd<__nv_bfloat16, 1>(pyr, rois, out, levels_out, b, c, r, p, sr, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Multiscale backward.  grad_out: (B, R, P, P, C) in the features' dtype.
 // accum: one float32 buffer of `total` elements, zeroed by the caller,
-// holding every level's (B, H_l, W_l, C) accumulator at element offset
+// holding the 4 levels' (B, H_l, W_l, C) accumulators at element offsets
 // offsets[l]; the kernel adds the feature gradients into it.  grad: a
 // bfloat16 buffer of the same layout, written from accum when dtype is 1 and
 // ignored when it is 0 (the accumulators are then the gradients).  Returns
@@ -536,21 +518,16 @@ extern "C" int frcnn_roi_align_ms_fwd(const void* const* features, const int* he
 extern "C" int frcnn_roi_align_ms_bwd(const void* grad_out, const void* rois, void* accum,
                                       const long long* offsets, void* grad, long long total,
                                       const int* heights, const int* widths, const float* scales,
-                                      int levels, int dtype, int b, int c, int r, int p, int sr,
-                                      float canonical_scale, int canonical_level, void* stream) {
+                                      int dtype, int b, int c, int r, int p, int sr, void* stream) {
   Pyramid pyr;
-  if (!make_pyramid(&pyr, levels, heights, widths, scales, canonical_level)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!make_pyramid(&pyr, heights, widths, scales)) return static_cast<int>(cudaErrorInvalidValue);
   float* acc = static_cast<float*>(accum);
-  for (int l = 0; l < kMaxLevels; ++l) pyr.grad[l] = acc + offsets[l < levels ? l : levels - 1];
+  for (int l = 0; l < kLevels; ++l) pyr.grad[l] = acc + offsets[l];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float cs = canonical_scale;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (b * r > 0) {
-    const int err = dtype == 0
-                        ? launch_ms_bwd<float>(pyr, grad_out, rois, b, c, r, p, sr, cs, s)
-                        : launch_ms_bwd<__nv_bfloat16>(pyr, grad_out, rois, b, c, r, p, sr, cs, s);
+    const int err = dtype == 0 ? launch_ms_bwd<float>(pyr, grad_out, rois, b, c, r, p, sr, s)
+                               : launch_ms_bwd<__nv_bfloat16>(pyr, grad_out, rois, b, c, r, p, sr, s);
     if (err != 0) return err;
   }
   if (dtype == 0 || total == 0) return 0;

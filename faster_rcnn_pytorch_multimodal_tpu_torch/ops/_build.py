@@ -122,9 +122,9 @@ def library() -> ctypes.CDLL:
     lib.frcnn_voxelize_bev.restype = i
     # pointer arguments to host arrays: the maps (void*[]), heights, widths,
     # scales and accumulator offsets, built by the wrapper with ctypes
-    lib.frcnn_roi_align_ms_fwd.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.frcnn_roi_align_ms_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.frcnn_roi_align_ms_fwd.restype = i
-    lib.frcnn_roi_align_ms_bwd.argtypes = [p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.frcnn_roi_align_ms_bwd.argtypes = [p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, p]
     lib.frcnn_roi_align_ms_bwd.restype = i
     return lib
 

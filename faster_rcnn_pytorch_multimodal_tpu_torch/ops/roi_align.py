@@ -31,6 +31,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_BYTES = 16
+_KERNEL_LEVELS = 4  # the multiscale kernels' pyramid: p2..p5
 
 
 def _sample_coords(rois, spatial_scale, p, sr, aligned):
@@ -307,8 +308,9 @@ def _addr(arr) -> int:
     return ctypes.cast(arr, ctypes.c_void_p).value
 
 
-def _multiscale_roi_align_cuda(feature_maps, rois, strides, p, sr, canonical_scale, canonical_level):
-    """The forward kernel: (out (B, R, P, P, C), levels (B, R) int32)."""
+def _multiscale_roi_align_cuda(feature_maps, rois, strides, p, sr):
+    """The forward kernel over the four maps p2..p5 (canonical scale 224 at
+    level 4): (out (B, R, P, P, C), levels (B, R) int32)."""
     b, c = feature_maps[0].shape[0], feature_maps[0].shape[-1]
     r = rois.shape[1]
     device, dtype = rois.device, feature_maps[0].dtype
@@ -317,28 +319,25 @@ def _multiscale_roi_align_cuda(feature_maps, rois, strides, p, sr, canonical_sca
     vec = _VEC_BYTES // feature_maps[0].element_size()
     vectorized = c % vec == 0 and all(
         t.data_ptr() % _VEC_BYTES == 0 for t in (*feature_maps, out))
-    n = len(feature_maps)
-    ptrs = (ctypes.c_void_p * n)(*(f.data_ptr() for f in feature_maps))
+    ptrs = (ctypes.c_void_p * _KERNEL_LEVELS)(*(f.data_ptr() for f in feature_maps))
     heights, widths, scales = _level_arrays([f.shape for f in feature_maps], strides)
     lib = _build.library()
     with torch.cuda.device(device):
         err = lib.frcnn_roi_align_ms_fwd(
-            _addr(ptrs), _addr(heights), _addr(widths), _addr(scales), n,
+            _addr(ptrs), _addr(heights), _addr(widths), _addr(scales),
             rois.data_ptr(), out.data_ptr(), levels.data_ptr(), _DTYPE_CODE[dtype],
-            int(vectorized), b, c, r, p, sr, float(canonical_scale), int(canonical_level),
-            _build.stream_handle(device),
+            int(vectorized), b, c, r, p, sr, _build.stream_handle(device),
         )
     _build.check(err, "frcnn_roi_align_ms_fwd")
     _build.LAUNCH_COUNTS["roi_align_multiscale"] += 1
     return out, levels
 
 
-def _multiscale_roi_align_bwd_cuda(grad_out, rois, shapes, dtype, strides, p, sr,
-                                   canonical_scale, canonical_level):
+def _multiscale_roi_align_bwd_cuda(grad_out, rois, shapes, dtype, strides, p, sr):
     """The maps' gradients (a tuple of (B, H_l, W_l, C) in the maps' dtype)
     from dOut (B, R, P, P, C): float32 atomics into one zeroed buffer that
     holds every level's accumulator, then (bfloat16) one rounding pass,
-    both in the backward kernel's entry."""
+    both in the backward kernel's entry.  Four maps, p2..p5."""
     device = grad_out.device
     b, _, _, c = shapes[0]
     r = rois.shape[1]
@@ -348,16 +347,14 @@ def _multiscale_roi_align_bwd_cuda(grad_out, rois, shapes, dtype, strides, p, sr
     grad_out = grad_out.to(dtype).contiguous()
     accum = torch.zeros(total, dtype=torch.float32, device=device)
     flat = accum if dtype == torch.float32 else torch.empty(total, dtype=dtype, device=device)
-    n = len(shapes)
     heights, widths, scales = _level_arrays(shapes, strides)
-    offs = (ctypes.c_longlong * n)(*offsets)
+    offs = (ctypes.c_longlong * _KERNEL_LEVELS)(*offsets)
     lib = _build.library()
     with torch.cuda.device(device):
         err = lib.frcnn_roi_align_ms_bwd(
             grad_out.data_ptr(), rois.data_ptr(), accum.data_ptr(), _addr(offs),
-            flat.data_ptr(), total, _addr(heights), _addr(widths), _addr(scales), n,
-            _DTYPE_CODE[dtype], b, c, r, p, sr, float(canonical_scale), int(canonical_level),
-            _build.stream_handle(device),
+            flat.data_ptr(), total, _addr(heights), _addr(widths), _addr(scales),
+            _DTYPE_CODE[dtype], b, c, r, p, sr, _build.stream_handle(device),
         )
     _build.check(err, "frcnn_roi_align_ms_bwd")
     _build.LAUNCH_COUNTS["roi_align_multiscale_bwd"] += 1
@@ -369,7 +366,7 @@ class _MultiscaleRoIAlignCuda(torch.autograd.Function):
     the RoIs get no gradient."""
 
     @staticmethod
-    def forward(ctx, rois, geometry, *feature_maps):
+    def forward(ctx, rois, geometry, *feature_maps):  # geometry: (strides, P, sr)
         ctx.save_for_backward(rois)
         ctx.geometry = geometry
         ctx.shapes = [tuple(f.shape) for f in feature_maps]
@@ -400,7 +397,8 @@ def multiscale_roi_align_batched(
 
     Args:
       feature_maps: up to 4 (B, H_l, W_l, C) NHWC maps, finest first (p2..p5),
-        one dtype, float32 or bfloat16.
+        one dtype, float32 or bfloat16.  On CUDA exactly 4, with the
+        canonical scale 224 at level 4 (the kernels' pyramid).
       rois: (B, R, 4) float32 boxes [x1, y1, x2, y2] in input pixels.
       strides: the maps' strides, e.g. (4, 8, 16, 32).
       output_size, sampling_ratio: as in roi_align_batched (aligned=False).
@@ -428,12 +426,17 @@ def multiscale_roi_align_batched(
     if output_size < 1 or sampling_ratio < 1:
         raise ValueError("multiscale_roi_align: output_size and sampling_ratio must be >= 1")
     rois = rois.detach()
-    geometry = (tuple(int(s) for s in strides), output_size, sampling_ratio,
-                canonical_scale, canonical_level)
+    geometry = (tuple(int(s) for s in strides), output_size, sampling_ratio)
     if rois.device.type == "cpu":
-        return multiscale_roi_align_batched_plain(maps, rois, *geometry)
+        return multiscale_roi_align_batched_plain(maps, rois, *geometry, canonical_scale,
+                                                  canonical_level)
     if rois.device.type != "cuda":
         raise ValueError(f"multiscale_roi_align: unsupported device {rois.device}")
+    if len(maps) != _KERNEL_LEVELS or (canonical_scale, canonical_level) != (224, 4):
+        raise NotImplementedError(
+            f"multiscale_roi_align: the CUDA kernels pool the detector's pyramid, 4 maps p2..p5 "
+            f"with canonical scale 224 at level 4; got {len(maps)} maps, "
+            f"{canonical_scale} at level {canonical_level}")
     if not (rois.is_contiguous() and all(m.is_contiguous() for m in maps)):
         raise ValueError("multiscale_roi_align: contiguous NHWC maps and rois required")
     return _MultiscaleRoIAlignCuda.apply(rois, geometry, *maps)

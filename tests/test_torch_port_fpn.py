@@ -33,6 +33,7 @@ from faster_rcnn_pytorch_multimodal_tpu.ops.roi_align import (  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu.training import optim as j_optim  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch import config as t_config  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.models import detector as t_det  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import Bottleneck  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import filter_detections as t_filter  # noqa: E402
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (  # noqa: E402
     multiscale_roi_align_batched,
@@ -407,12 +408,9 @@ def test_fpn_forward_test_end_to_end(serving):
 # -- the training step ---------------------------------------------------------
 
 
-def _train_batch(cfg, seed=2):
+def _train_batch(cfg, seed=1):
     """tests/test_torch_port_train.py's batch (GT boxes jittered from the JAX
-    proposals) on frames from `seed`.  With the frames of seed 1 one unit of
-    c4 (channel 233) sits at 0 within float32 rounding, so its ReLU passes
-    gradient in one backend only and that channel's leaves differ by ~4e-3
-    of max|g|; seed 2 has no such tie (3.1e-4 at most)."""
+    proposals) on frames from `seed`."""
     rng = np.random.RandomState(seed)
     x = rng.randint(0, 256, (B, H, W, 3)).astype(np.uint8)
     window = np.array([[0, W, 0, H], [0, W - 40, 0, H - 24]], np.float32)
@@ -429,6 +427,66 @@ def _train_batch(cfg, seed=2):
     return {"data": x, "gt_boxes": gt, "gt_mask": mask, "window": window}, variables
 
 
+def _relu_ties(cfg, variables, model, data):
+    """The backbone's ReLU units whose input has a different sign in the JAX
+    package and in the port: (layer, block, the conv feeding the ReLU
+    (conv3: the residual ReLU), channel, JAX input, port input, max|JAX
+    input| of that ReLU).  Such a unit sits at 0 within float32 rounding,
+    and its ReLU passes gradient in one backend only."""
+    _, state = j_det.FasterRCNN(cfg=cfg, num_classes=K).apply(
+        variables, jnp.asarray(data), method=j_det.FasterRCNN.features,
+        capture_intermediates=True, mutable=["intermediates"])
+    j_bb = state["intermediates"]["backbone"]
+    t_out, hooks = {}, []
+    blocks = [(n, m) for n, m in model.backbone.named_modules() if isinstance(m, Bottleneck)]
+    for name, m in blocks:
+        hooks.append(m.register_forward_pre_hook(
+            lambda _m, args, name=name: t_out.__setitem__((name, "in"), args[0])))
+        for k in ("bn1", "bn2", "bn3") + (("downsample",) if m.downsample is not None else ()):
+            hooks.append(getattr(m, k).register_forward_hook(
+                lambda _m, _a, out, key=(name, k): t_out.__setitem__(key, out)))
+    with torch.no_grad():
+        model.features(_t(data))
+    for h in hooks:
+        h.remove()
+    ties = []
+    for name, m in blocks:
+        layer, i = name.split(".")
+        j_blk = j_bb[layer][f"block{i}"]
+        j_of = lambda k, blk=j_blk: np.asarray(blk[k]["__call__"][0])  # noqa: E731
+        if m.downsample is not None:
+            j_id, t_id = j_of("downsample_bn"), t_out[(name, "downsample")]
+        else:
+            j_id = np.asarray(j_bb[layer][f"block{int(i) - 1}"]["__call__"][0])
+            t_id = t_out[(name, "in")]
+        relus = {"conv1": (j_of("bn1"), t_out[(name, "bn1")]),
+                 "conv2": (j_of("bn2"), t_out[(name, "bn2")]),
+                 "conv3": (j_of("bn3") + j_id, t_out[(name, "bn3")] + t_id)}
+        for conv, (jx, tx) in relus.items():
+            tx = _nhwc(tx)
+            assert np.abs(tx - jx).max() <= 1e-4 * np.abs(jx).max(), (name, conv)
+            for at in np.argwhere((jx > 0) != (tx > 0)):
+                ties.append((layer, int(i), conv, int(at[3]), float(jx[tuple(at)]),
+                             float(tx[tuple(at)]), float(np.abs(jx).max())))
+    return ties
+
+
+def _tie_rows(ties):
+    """{leaf: output channels} whose gradient a ReLU tie moves: the feeding
+    conv's channel; for the residual ReLU, that channel of conv3 in its
+    block and every earlier block of the layer, and of the layer's
+    downsample, which the identity path joins."""
+    rows = {}
+    for layer, i, conv, c, *_ in ties:
+        names = [f"backbone.{layer}.{i}.{conv}.weight"]
+        if conv == "conv3":
+            names = [f"backbone.{layer}.{k}.conv3.weight" for k in range(i + 1)]
+            names.append(f"backbone.{layer}.0.downsample.0.weight")
+        for n in names:
+            rows.setdefault(n, set()).add(c)
+    return rows
+
+
 @pytest.fixture(scope="module")
 def train_run():
     cfg, tcfg = _cfgs(TRAINING)
@@ -436,14 +494,41 @@ def train_run():
     j = tt._jax_run(cfg, variables, batch, jax.random.PRNGKey(3))
     n = (H // 4) * (W // 4) * cfg.num_anchors
     draws = tt.jax_draws(j.step_rng, B, n, j.n_rois, G)
-    return types.SimpleNamespace(cfg=cfg, tcfg=tcfg, batch=batch, variables=variables, j=j,
-                                 draws=draws)
+    run = types.SimpleNamespace(cfg=cfg, tcfg=tcfg, batch=batch, variables=variables, j=j,
+                                draws=draws)
+    run.ties = _relu_ties(cfg, variables, _port(run), batch["data"])
+    run.tie_rows = _tie_rows(run.ties)
+    return run
 
 
 def _port(run):
     model = t_det.FasterRCNN(run.tcfg, K)
     load_flax_variables(model, run.variables)
     return model
+
+
+def _torch_layout(w):
+    return np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else (w.T if w.ndim == 2 else w)
+
+
+def _assert_close_but_ties(name, got, want, atol, tie_rows):
+    """got vs want within atol, leaving out the output channels that a ReLU
+    tie moves (tie_rows)."""
+    rows = sorted(tie_rows.get(name, ()))
+    np.testing.assert_allclose(np.delete(got, rows, 0), np.delete(want, rows, 0), atol=atol,
+                               err_msg=name)
+
+
+def test_fpn_train_relu_ties_are_few_and_at_zero(train_run):
+    """The units whose ReLU gate differs between the two backends are few,
+    and each sits at 0 within 1e-5 of its ReLU's max|input| (float32 convs
+    summed in different orders), not at a port fault.  On these frames
+    there is one: c4 (layer3's last block), channel 233."""
+    ties = train_run.ties
+    assert len(ties) <= 4, ties
+    for layer, i, conv, c, jx, tx, scale in ties:
+        assert max(abs(jx), abs(tx)) <= 1e-5 * scale, (layer, i, conv, c, jx, tx, scale)
+    assert sum(len(v) for v in train_run.tie_rows.values()) <= 32
 
 
 def test_fpn_train_lanes_and_labels_identical(train_run):
@@ -465,7 +550,8 @@ def test_fpn_train_lanes_and_labels_identical(train_run):
 def test_fpn_train_losses_and_gradients(train_run):
     """The four losses within rtol 1e-4; every trainable leaf's gradient,
     fpn.*, backbone.layer4.* and tail.t_fc* among them, within 1e-3 of its
-    max."""
+    max, leaving out only the output channels that a ReLU tie moves
+    (test_fpn_train_relu_ties_are_few_and_at_zero)."""
     model = _port(train_run)
     t_optim.DetectorSGD(model, train_run.tcfg)
     losses, _ = tt._forward(model, train_run)
@@ -476,7 +562,13 @@ def test_fpn_train_losses_and_gradients(train_run):
     trained = {n for n, p in model.named_parameters() if p.requires_grad}
     for prefix in ("fpn.", "backbone.layer4.", "tail.t_fc1.", "tail.t_fc3."):
         assert any(n.startswith(prefix) for n in trained), prefix
-    tt._assert_grads_close(model, train_run.j.g_total, min_leaves=60)
+    assert set(train_run.tie_rows) <= trained
+    for name in trained:
+        p, want = dict(model.named_parameters())[name], _torch_layout(train_run.j.g_total[name])
+        got = np.zeros_like(want) if p.grad is None else p.grad.numpy()
+        _assert_close_but_ties(name, got, want, 1e-3 * np.abs(want).max() + 1e-12,
+                               train_run.tie_rows)
+    assert len(trained) >= 60
 
 
 def test_fpn_one_train_step_matches_make_train_step(train_run):
@@ -490,11 +582,10 @@ def test_fpn_one_train_step_matches_make_train_step(train_run):
                                rtol=1e-4)
     moved = 0
     for name, p in model.named_parameters():
-        w = train_run.j.new_params[name]
-        w = np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else (w.T if w.ndim == 2 else w)
+        w = _torch_layout(train_run.j.new_params[name])
         want, got = w - start[name].numpy(), (p.detach() - start[name]).numpy()
         atol = 1e-3 * np.abs(want).max() + 1e-6 * np.abs(start[name].numpy()).max()
-        np.testing.assert_allclose(got, want, atol=atol, err_msg=name)
+        _assert_close_but_ties(name, got, want, atol, train_run.tie_rows)
         moved += bool(np.abs(want).max() > 0)
     # all but fpn.aalayer4.bias: never applied, so no gradient, and no decay on
     # biases (its weight moves by weight decay alone)

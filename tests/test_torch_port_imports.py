@@ -300,7 +300,7 @@ def test_multiscale_roi_align_kernel_matches_twin(cuda, dtype, c, tol):
     before = _build.LAUNCH_COUNTS["roi_align_multiscale"]
     got = multiscale_roi_align_batched([m.to(cuda) for m in maps], rois.to(cuda), STRIDES)
     _out, levels = _multiscale_roi_align_cuda([m.to(cuda) for m in maps], rois.to(cuda), STRIDES,
-                                              7, 2, 224, 4)
+                                              7, 2)
     torch.cuda.synchronize()
     assert _build.LAUNCH_COUNTS["roi_align_multiscale"] == before + 2
     want_levels = roi_levels(rois, 4)
@@ -343,3 +343,21 @@ def test_multiscale_roi_align_backward_kernel_matches_twin(cuda, dtype, c, tol, 
         assert err <= tol * float(want.abs().max()), level
     if p5:
         assert float(cpu[3].grad.abs().max()) > 0 and float(cpu[0].grad.abs().max()) == 0
+
+
+@pytest.mark.cuda
+def test_multiscale_roi_align_cuda_takes_only_the_detector_pyramid(cuda):
+    """The kernels are built for p2..p5 with the LevelMapper's 224 at level
+    4; any other pyramid raises on the card (the CPU twin takes 1-4 maps)."""
+    rng = np.random.RandomState(5)
+    maps = [torch.from_numpy(rng.normal(size=(1,) + hw + (8,)).astype(np.float32)).to(cuda)
+            for hw in FPN_HW]
+    rois = torch.from_numpy(_fpn_rois(rng, 1, 4)).to(cuda)
+    before = _build.LAUNCH_COUNTS["roi_align_multiscale"]
+    with pytest.raises(NotImplementedError, match="4 maps"):
+        multiscale_roi_align_batched(maps[:3], rois, STRIDES[:3])
+    with pytest.raises(NotImplementedError, match="224"):
+        multiscale_roi_align_batched(maps, rois, STRIDES, canonical_scale=112)
+    assert _build.LAUNCH_COUNTS["roi_align_multiscale"] == before
+    out = multiscale_roi_align_batched([m.cpu() for m in maps[:3]], rois.cpu(), STRIDES[:3])
+    assert out.shape == (1, 4, 7, 7, 8)
