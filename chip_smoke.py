@@ -55,15 +55,28 @@ non-zero and never prints its last line):
      BatchLoader (voxelize_bev on the card) and inference.evaluate, one
      warm-up batch then 3 batches.  Outputs finite, proposals in every
      frame, voxelize_bev, NMS and RoI align launched.
- 10. the FPN slices at res101, float32, one 256x320 frame, serving and
+ 10. the BEV training slice at res101, float32, one synthetic 400 x 350 x 15
+     raster with 7-DoF GT, as phase 6: card against CPU on the same draws,
+     equal samples, losses within rtol 1e-3, leaf gradients within 1e-3 *
+     max|g|.
+ 11. the BEV training path: the BEV config (the JAX bench's bev_config:
+     frozen BN, RPN_POST_NMS_TOP_N 2000, NMS_PRE_TRAIN 1024, MAX_GT 64),
+     bf16, batch 8 of synthetic LiDAR frames through the BatchLoader
+     (voxelize_bev on the card), one warm-up step then 10 steps.  Every loss
+     finite; voxelize_bev, NMS, RoI align and its backward launched.
+ 12. the rotated BEV serving path: phase 9 with TEST.ROTATED_NMS and
+     TEST.NMS_THRESH 0.3.  The rotated NMS kernel must launch once a batch
+     and the axis-aligned one that much less than in phase 9; ms, frames/s
+     and peak memory beside phase 9's.
+ 13. the FPN slices at res101, float32, one 256x320 frame, serving and
      training, card against CPU as in phases 4 and 6 (the pyramid p2..p5 in
      place of the C4 map; the FPN, layer4 and FCTail among the leaves).
- 11. the FPN serving path: the FPN config (the image config with USE_FPN and
+ 14. the FPN serving path: the FPN config (the image config with USE_FPN and
      multiscale pooling: the RPN on p2 at stride 4, 768,000 anchors a frame)
      at test settings, bf16, batch 8, 512x960, one warm-up batch then 3
      batches.  The multiscale RoI-align kernel must have launched and the
      single-level one not.
- 12. the FPN training path: the FPN config, bf16, batch 8, one warm-up step
+ 15. the FPN training path: the FPN config, bf16, batch 8, one warm-up step
      then 10 steps; the multiscale kernel and its backward must have
      launched.  Then anchor_target alone at (8, 768000 anchors, 64 GT):
      time and peak memory.
@@ -72,13 +85,21 @@ the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
 1e-5 / 1e-2 * max|F| (its bound reads only the tap rows the RoIs hit on
 their levels), the backward at dOut (8, 256, 7, 7, 256) within
-1e-5 / 1e-2 * max|dF| of each level, and once with every RoI on p5.
-Each path (5, 7, 9, 11, 12) runs with the launch counts set to 0 just before
-it and read just after.  Then one JSON line describing the kernels (each
-kernel's `launches` is the count on the newest path that runs it: BEV
-serving, training for the RoI-align backward, FPN serving and FPN training
-for the multiscale kernels; `launches_by_path` has all five), the
-nvidia-smi name/power line, and the result line {"ok": true, "device": ...}.
+1e-5 / 1e-2 * max|dF| of each level, and once with every RoI on p5; and the
+rotated NMS at the BEV final filter's shape, (16, 300) -> 100 @ 0.3, on
+rotated boxes in voxel units, half of them clustered: its IoU kernel within
+5e-5 of the twin's IoU (and on edge cases: identical, nested, shared edge,
+90 degrees, zero width, disjoint), its keeps identical to the twin's on
+every problem where no kept lane's pair lies within 1e-4 of the threshold,
+and on every problem a tolerant greedy check against the twin's IoU matrix
+(`greedy_violations`).
+Each path (5, 7, 9, 11, 12, 14, 15) runs with the launch counts set to 0
+just before it and read just after.  Then one JSON line describing the
+kernels (each kernel's `launches` is the count on the newest path that runs
+it: BEV training for the voxelizer, NMS, RoI align and its backward, rotated
+BEV serving for the rotated NMS, FPN serving and FPN training for the
+multiscale kernels; `launches_by_path` has all seven), the nvidia-smi
+name/power line, and the result line {"ok": true, "device": ...}.
 
 Imports nothing of JAX; needs the repository checkout around it.
 """
@@ -126,6 +147,8 @@ FPN_MAP_HW = ((128, 240), (64, 120), (32, 60), (16, 30))  # p2..p5 of a 512x960 
 C_FPN = 256
 # the raster grid follows TRAIN.SCALES[0] in the loader; serving sets both
 BEV_SERVING_OVERRIDES = SERVING_OVERRIDES + ("TEST.SCALES", "(0.5,)", "COMPUTE_DTYPE", "bfloat16")
+# rotated NMS in the final filter at the quality recipe's threshold (tools/quality_run.py:219-222)
+ROTATED_OVERRIDES = ("TEST.ROTATED_NMS", "True", "TEST.NMS_THRESH", "0.3")
 
 
 def make_config(*overrides):
@@ -144,8 +167,11 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def smi_name_power() -> str:
@@ -252,6 +278,58 @@ def nms_pairs(scores, valid, idx, ok):
     return pairs
 
 
+def score_order(scores, valid):
+    """Lanes of one problem in NMS order: descending score, stable, invalid
+    lanes last (the wrappers' sort)."""
+    return np.argsort(-np.where(valid, scores, -1e30).astype(np.float64), kind="stable")
+
+
+def near_threshold(iou, valid, thr, tol, rows) -> bool:
+    """Whether one of the lanes `rows` (a reference's kept lanes: only their
+    rows decide a greedy NMS) has an IoU within tol of thr with another
+    valid lane of the problem (iou: (N, N) over the input lanes)."""
+    near = (np.abs(iou - thr) <= tol) & valid[:, None] & valid[None, :]
+    np.fill_diagonal(near, False)
+    return bool(near[rows].any())
+
+
+def greedy_violations(iou, scores, valid, idx, ok, thr, tol, max_out) -> list:
+    """How one problem's keep slots (idx, ok) break greedy NMS by more than
+    tol against iou (N, N), the IoU of every lane (row) with every later one
+    (column): walking the lanes in score order, a kept lane has no earlier
+    kept lane with IoU > thr + tol, a valid lane not kept has an earlier kept
+    lane with IoU > thr - tol, and the slots hold the first min(count, M)
+    kept lanes in order, M = min(N, max_out).  Returns messages, [] when it
+    passes."""
+    n = len(scores)
+    m = min(n, max_out)
+    order = score_order(scores, valid)
+    pos = np.empty(n, np.int64)
+    pos[order] = np.arange(n)
+    count = int(ok.sum())
+    bad = []
+    if not ok[:count].all():
+        bad.append("valid slots are not a prefix")
+    kept = idx[:count].astype(np.int64)
+    if not valid[kept].all():
+        bad.append("an invalid lane was kept")
+    if (np.diff(pos[kept]) <= 0).any():
+        bad.append("kept lanes are not in score order")
+    last = pos[kept[-1]] if count == m and count else n - 1
+    is_kept = np.zeros(n, bool)
+    is_kept[kept] = True
+    before = []
+    for lane in order[:last + 1]:
+        best = float(iou[before, lane].max()) if before else 0.0
+        if is_kept[lane]:
+            if best > thr + tol:
+                bad.append(f"lane {lane} kept under IoU {best}")
+            before.append(lane)
+        elif valid[lane] and best <= thr - tol:
+            bad.append(f"lane {lane} dropped at best IoU {best}")
+    return bad
+
+
 def check_nms(name, g, n, thr, max_out, rng):
     import torch
 
@@ -280,6 +358,183 @@ def check_nms(name, g, n, thr, max_out, rng):
           f"({int(ok.sum())} kept); kernel {spread(t)}, plain twin on the card {plain_ms} ms, "
           f"bound {bound} ms ({by}; {pairs} IoU pairs)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+
+
+def rotated_boxes(rng, g, n):
+    """g problems of n rotated BEV boxes [xc, yc, l, w, ry] in voxel units:
+    centers over the 400-voxel raster, l 8-25, w 4-10, any heading; the
+    first half jittered copies of the second half's centers, so that many
+    pairs overlap."""
+    b = np.stack([rng.uniform(0, 400, (g, n)), rng.uniform(0, 400, (g, n)),
+                  rng.uniform(8, 25, (g, n)), rng.uniform(4, 10, (g, n)),
+                  rng.uniform(-np.pi, np.pi, (g, n))], -1)
+    h = n // 2
+    b[:, :h, :2] = b[:, n - h:, :2] + rng.uniform(-6, 6, (g, h, 2))
+    return b.astype(np.float32)
+
+
+# float32 operations of csrc/nms.cu's rotated IoU, counted from its code
+# (rot_intersection, rot_iou): both quads' corners relative to a's center
+# (2 x (2 + 16)); per clip edge the edge vector (2) and the first signed
+# distance (5), 5 per vertex tested, 8 per crossing point; the shoelace 4 a
+# vertex + 1; the union and the division 3.  Per box loaded (sincosf ~40, the
+# half axes, the area) ~47, twice a block for 64 rows and 64 columns.
+ROT_CORNER_OPS, ROT_EDGE_OPS, ROT_VERTEX_OPS, ROT_CROSS_OPS = 36, 7, 5, 8
+ROT_SHOELACE_OPS, ROT_IOU_OPS, ROT_LOAD_OPS = 4, 3, 47
+
+
+def rot_corners_rel(boxes, origin):
+    """(P, 4) x and y of rotated boxes (P, 5) relative to origin (P, 2), in
+    float32 and the kernel's corner order."""
+    s, c = np.sin(boxes[:, 4]), np.cos(boxes[:, 4])
+    hl, hw = np.float32(0.5) * boxes[:, 2], np.float32(0.5) * boxes[:, 3]
+    ux, uy, vx, vy = hl * c, hl * s, -hw * s, hw * c
+    dx, dy = boxes[:, 0] - origin[:, 0], boxes[:, 1] - origin[:, 1]
+    x = np.stack([dx + ux - vx, dx + ux + vx, dx - ux + vx, dx - ux - vx], 1)
+    y = np.stack([dy + uy - vy, dy + uy + vy, dy - uy + vy, dy - uy - vy], 1)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def rotated_pair_ops(a, b) -> int:
+    """float32 operations the rotated IoU kernel spends on the pairs (a[p],
+    b[p]) of (P, 5) float32 boxes: Sutherland-Hodgman as in rot_intersection,
+    vectorized over the pairs, counting the vertices and crossings each
+    stage meets (a stage is skipped once the polygon is empty)."""
+    p = len(a)
+    px, py = rot_corners_rel(a, a[:, :2])
+    bx, by = rot_corners_rel(b, a[:, :2])
+    n = np.full(p, 4)
+    ops = p * (ROT_CORNER_OPS + ROT_IOU_OPS)
+    for k in range(4):
+        live = n > 0
+        ops += int(live.sum()) * ROT_EDGE_OPS + int(n.sum()) * ROT_VERTEX_OPS
+        ox, oy = bx[:, k:k + 1], by[:, k:k + 1]
+        ex, ey = bx[:, (k + 1) % 4][:, None] - ox, by[:, (k + 1) % 4][:, None] - oy
+        slots = np.arange(px.shape[1])[None]
+        on = slots < n[:, None]
+        cs = ex * (py - oy) - ey * (px - ox)
+        prev = np.where(slots == 0, np.maximum(n, 1)[:, None] - 1, slots - 1)
+        ss = np.take_along_axis(cs, prev, 1)
+        sx, sy = np.take_along_axis(px, prev, 1), np.take_along_axis(py, prev, 1)
+        cross = on & ((cs >= 0) != (ss >= 0))
+        keep = on & (cs >= 0)
+        ops += int(cross.sum()) * ROT_CROSS_OPS
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = np.where(cross, ss / (ss - cs), 0).astype(np.float32)
+        qx = np.zeros((p, 2 * px.shape[1]), np.float32)
+        qy = np.zeros_like(qx)
+        step = cross.astype(np.int64) + keep
+        at = np.cumsum(step, 1) - step
+        r, i = np.nonzero(cross)
+        qx[r, at[r, i]] = sx[r, i] + t[r, i] * (px[r, i] - sx[r, i])
+        qy[r, at[r, i]] = sy[r, i] + t[r, i] * (py[r, i] - sy[r, i])
+        r, i = np.nonzero(keep)
+        qx[r, at[r, i] + cross[r, i]] = px[r, i]
+        qy[r, at[r, i] + cross[r, i]] = py[r, i]
+        n = np.minimum(step.sum(1), 16)
+        px, py = qx[:, :16], qy[:, :16]
+    ops += int(n[n >= 3].sum()) * ROT_SHOELACE_OPS + int((n >= 3).sum())
+    return ops
+
+
+def rotated_nms_ops(boxes) -> int:
+    """float32 operations of the rotated NMS mask on (G, N, 5) score-sorted
+    boxes: every upper-triangle pair (row i, column j > i) once, plus the
+    boxes each 64-thread block loads."""
+    g, n = boxes.shape[:2]
+    i, j = np.triu_indices(n, 1)
+    ops = sum(rotated_pair_ops(bb[i], bb[j]) for bb in boxes)
+    blocks = -(-n // 64)
+    return ops + g * blocks * (blocks + 1) // 2 * 128 * ROT_LOAD_OPS
+
+
+ROTATED_EDGE_CASES = np.array([
+    [100, 100, 20, 8, 0.3], [100, 100, 20, 8, 0.3],  # identical: 1
+    [100, 100, 10, 4, 0.3],  # inside 0 at a quarter of its area: 0.25
+    [100, 108, 20, 8, 0.0],  # shares an edge with 8: 0
+    [100, 100, 20, 8, np.pi / 2],  # 8 turned by 90 degrees: 64 / 256
+    [100, 100, 20, 0, 0.1],  # zero width: 0
+    [300, 300, 10, 5, 1.0],  # disjoint from all: 0
+    [130, 100, 20, 8, 0.0],  # disjoint from 8: 0
+    [100, 100, 20, 8, 0.0],
+], np.float32)
+
+
+def check_rotated(g, n, thr, max_out, rng, tol=1e-4):
+    """K4: the rotated IoU kernel's matrix against the twin's (max |dIoU| <=
+    5e-5, edge cases by value), and the rotated NMS kernel's keeps against
+    the twin's: identical on every problem where no kept lane's pair lies
+    within tol of the threshold, and the tolerant greedy check against the
+    twin's IoU matrix on every problem.  Twin on the card."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import nms, nms_plain
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.rotated_iou import (
+        rotated_iou_matrix,
+        rotated_iou_matrix_plain,
+    )
+
+    boxes = rotated_boxes(rng, g, n)
+    scores = rng.uniform(size=(g, n)).astype(np.float32)
+    scores[1] = np.round(scores[1] * 8) / 8  # ties
+    valid = np.ones((g, n), bool)
+    valid[2] = rng.uniform(size=n) < 0.7  # invalid lanes
+    db, ds, dv = (torch.from_numpy(a).cuda() for a in (boxes, scores, valid))
+    got = rotated_iou_matrix(db, db)
+    want = rotated_iou_matrix_plain(db, db)
+    torch.cuda.synchronize()
+    iou_err = float((got - want).abs().max())
+    overlapping = int((want > 0.05).sum()) - g * n
+    e = torch.from_numpy(ROTATED_EDGE_CASES).cuda()
+    ge, we = rotated_iou_matrix(e, e).cpu().numpy(), rotated_iou_matrix_plain(e, e).cpu().numpy()
+    edge_err = float(np.abs(ge - we).max())
+    edges = {"identical": float(ge[0, 1]), "inside": float(ge[0, 2]),
+             "shared edge": float(abs(ge[3, 8])), "90 deg": float(ge[4, 8]),
+             "zero width": float(np.abs(ge[5]).max()), "disjoint": float(np.delete(ge[6], 6).max())}
+    edge_ok = (abs(edges["identical"] - 1) <= 1e-6 and abs(edges["inside"] - 0.25) <= 1e-6
+               and edges["shared edge"] <= 1e-6 and abs(edges["90 deg"] - 0.25) <= 1e-6
+               and edges["zero width"] <= 1e-6 and edges["disjoint"] == 0)
+    if not iou_err <= 5e-5 or not edge_err <= 5e-5 or not edge_ok:
+        raise AssertionError(f"rotated_iou: max |dIoU| {iou_err}, edge cases {edge_err} {edges}")
+
+    idx, ok = nms(db, ds, thr, max_out, dv, rotated=True)
+    torch.cuda.synchronize()
+    want_idx, want_ok = (t.cpu().numpy() for t in nms_plain(db, ds, thr, max_out, dv, rotated=True))
+    idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
+    iou_np = want.cpu().numpy()
+    near = bad = 0
+    for i in range(g):
+        rows = want_idx[i][want_ok[i]]
+        if near_threshold(iou_np[i], valid[i], thr, tol, rows):
+            near += 1
+        elif not (np.array_equal(idx[i], want_idx[i]) and np.array_equal(ok[i], want_ok[i])):
+            raise AssertionError(f"nms_rotated problem {i}: keeps differ from the twin's, and no "
+                                 f"kept lane's pair lies within {tol} of {thr}")
+        broken = greedy_violations(iou_np[i], scores[i], valid[i], idx[i], ok[i], thr, tol, max_out)
+        if broken:
+            bad += 1
+            print(f"nms_rotated problem {i}: {broken[:5]}")
+    if bad:
+        raise AssertionError(f"nms_rotated: {bad} problems fail the tolerant greedy check")
+    t = kernel_ms(lambda: nms(db, ds, thr, max_out, dv, rotated=True), 20)
+    plain_ms = cuda_ms(lambda: nms_plain(db, ds, thr, max_out, dv, rotated=True), 2)
+    iou_t = kernel_ms(lambda: rotated_iou_matrix(db, db), 20)
+    order = np.argsort(-np.where(valid, scores, -1e30), 1, kind="stable")
+    ops = rotated_nms_ops(np.take_along_axis(boxes, order[..., None], 1))
+    pairs = g * n * (n - 1) // 2
+    col_blocks = -(-n // 64)
+    words = g * sum(col_blocks - i // 64 for i in range(n))
+    bound, by = bound_ms(g * n * 20 + words * 8, ops)
+    print(f"rotated_iou ({g}, {n}, 5)^2 -> ({g}, {n}, {n}): max |dIoU| vs twin {iou_err} (limit "
+          f"5e-5), {overlapping} overlapping pairs (IoU > 0.05); edge cases {edges}, max |dIoU| "
+          f"{edge_err}; kernel {spread(iou_t)}")
+    print(f"nms_rotated ({g}, {n}) -> {max_out} @ {thr}: {int(ok.sum())} kept; identical keeps on "
+          f"the {g - near} problems without a kept lane's pair within {tol} of {thr} ({near} "
+          f"with one); the tolerant greedy check passes on all {g}; kernel {spread(t)}, plain "
+          f"twin on the card {plain_ms} ms, bound {bound} ms ({by}: {pairs} upper-triangle pairs, "
+          f"{ops} float32 operations counted from the kernel's code, {ops / pairs} a pair)")
+    return {"max_abs_err": iou_err, "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "near_problems": near, "iou_ms": iou_t["ms"]}
 
 
 def serving_rois(rng, b, r, frame_hw=FRAME_HW):
@@ -756,10 +1011,60 @@ FPN_TRAIN_LEAVES = TRAIN_LEAVES[:4] + (
 LOSSES = ("rpn_cross_entropy", "rpn_loss_box", "cross_entropy", "loss_box")
 
 
+def train_slice_batch(cfg, cpu, rng):
+    """One training frame for the train slice and its GT, jittered copies of
+    some of the CPU model's proposals (so proposals are sampled as fg):
+    image: a random 256x320 frame, (1, G, 5) GT; lidar: a synthetic 400 x 350
+    x 15 raster (the voxelizer's twin), (1, G, 8) 7-DoF GT on the proposals'
+    footprints and their 3D anchors' z and h, turned by up to 0.3 rad."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.voxelize import raster_kwargs, voxelize_bev
+
+    lidar = cfg.net_type == "lidar"
+    if lidar:
+        frame = SyntheticDataset(cfg, num_frames=1, mode="train", seed=7).frame(0)
+        pts = torch.from_numpy(frame["points"])[None]
+        x = voxelize_bev(pts, torch.ones(pts.shape[:2], dtype=torch.bool),
+                         **raster_kwargs(cfg, float(cfg.train.scales[0])))
+        win = torch.from_numpy(frame["window"])[None]
+    else:
+        h, w = SLICE_HW
+        x = torch.from_numpy(rng.randint(0, 256, (1, h, w, 3)).astype(np.uint8))
+        win = torch.tensor([[0.0, float(w), 0.0, float(h)]])
+    with torch.no_grad():
+        feat = cpu.features(x)
+        fm = cpu.rpn_map(feat)
+        anchors, anchors_3d = cpu.anchor_grids(fm.shape[1], fm.shape[2], "cpu", "train")
+        rois, _scores, valid, src = cpu._propose_batch(cpu.rpn_scores(feat), anchors, win, "train")
+    pick = torch.nonzero(valid[0])[:, 0][::9][:6]
+    props, n = rois[0][pick], len(pick)
+    mask = torch.zeros((1, cfg.static.max_gt), dtype=torch.bool)
+    mask[0, :n] = True
+    if not lidar:
+        gt = torch.zeros((1, cfg.static.max_gt, 5))
+        gt[0, :n, :4] = props + torch.from_numpy(rng.uniform(-2, 2, (n, 4)).astype(np.float32))
+        gt[0, :n, 4] = 1
+        return x, win, gt, mask
+    a3d = anchors_3d[src[0][pick]]
+    jitter = lambda lo, hi, *shape: torch.from_numpy(  # noqa: E731
+        rng.uniform(lo, hi, (n,) + shape).astype(np.float32))
+    gt = torch.zeros((1, cfg.static.max_gt, 8))
+    gt[0, :n, 0:2] = (props[:, :2] + props[:, 2:]) / 2 + jitter(-1, 1, 2)
+    gt[0, :n, 2] = a3d[:, 2]
+    gt[0, :n, 3:5] = (props[:, 2:] - props[:, :2]) * jitter(0.9, 1.1, 2)
+    gt[0, :n, 5] = a3d[:, 5]
+    gt[0, :n, 6] = jitter(-0.3, 0.3)
+    gt[0, :n, 7] = 1
+    return x, win, gt, mask
+
+
 def check_train_slice(cfg_base):
-    """res101 float32 training forward and backward on one 256x320 frame:
-    card against CPU, on the same draws; the card's second stage pinned to
-    the CPU's proposal lanes (its boxes still come from the card's deltas)."""
+    """res101 float32 training forward and backward on one frame (image
+    256x320, or a 400 x 350 x 15 BEV raster with 7-DoF GT): card against
+    CPU, on the same draws; the card's second stage pinned to the CPU's
+    proposal lanes (its boxes still come from the card's deltas)."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.config import cfg_from_list
@@ -777,22 +1082,7 @@ def check_train_slice(cfg_base):
     gpu, _ = create_train_state(cfg, 2, "cuda", seed=1)
     scale_terminators(cpu), scale_terminators(gpu)
     rng = np.random.RandomState(3)
-    h, w = SLICE_HW
-    x = torch.from_numpy(rng.randint(0, 256, (1, h, w, 3)).astype(np.uint8))
-    win = torch.tensor([[0.0, float(w), 0.0, float(h)]])
-    # GT: jittered copies of some CPU proposals, so proposals are sampled as fg
-    with torch.no_grad():
-        feat = cpu.features(x)
-        fm = cpu.rpn_map(feat)
-        anchors = cpu.anchors(fm.shape[1], fm.shape[2], "cpu", "train")
-        rois, _scores, valid, _src = cpu._propose_batch(cpu.rpn_scores(feat), anchors, win, "train")
-    props = rois[0][valid[0]][::9][:6]
-    n = len(props)
-    gt = torch.zeros((1, cfg.static.max_gt, 5))
-    gt[0, :n, :4] = props + torch.from_numpy(rng.uniform(-2, 2, (n, 4)).astype(np.float32))
-    gt[0, :n, 4] = 1
-    mask = torch.zeros((1, cfg.static.max_gt), dtype=torch.bool)
-    mask[0, :n] = True
+    x, win, gt, mask = train_slice_batch(cfg, cpu, rng)
     batch = {"data": x, "gt_boxes": gt, "gt_mask": mask, "window": win}
     draws = draw_train_keys(cpu, batch, torch.Generator().manual_seed(4))
     c_losses, c_aux = cpu.forward_train(x, gt, mask, win, draws)
@@ -823,7 +1113,8 @@ def check_train_slice(cfg_base):
         grad_err[name] = float((gg.cpu() - cg).abs().max()) / scale
         checks[f"grad {name}"] = scale > 0 and grad_err[name] <= 1e-3
     labels = c_aux.proposal_targets.labels
-    print(f"train slice {'FPN ' if cfg.use_fpn else ''}{cfg.net_variant} fp32 {h}x{w}: losses cpu "
+    kind = "BEV " if cfg.net_type == "lidar" else "FPN " if cfg.use_fpn else ""
+    print(f"train slice {kind}{cfg.net_variant} fp32 {tuple(x.shape)}: losses cpu "
           f"{ {k: float(c_losses[k].detach()) for k in LOSSES} }, relative errors {loss_err} "
           f"(rpn losses unpinned, second stage pinned); sampled RoIs fg {int((labels > 0).sum())} "
           f"bg {int((labels == 0).sum())}; gradient error / max|g| per leaf {grad_err}")
@@ -834,7 +1125,8 @@ def check_train_slice(cfg_base):
 
 def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd")):
     """The training path: warm-up step, then TRAIN_STEPS steps, counted; the
-    kernels in `need` must have launched."""
+    kernels in `need` must have launched.  Image frames are 512x960; a lidar
+    config's loader rasterizes synthetic LiDAR frames on the card."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
@@ -857,8 +1149,11 @@ def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd")):
     peak = torch.cuda.max_memory_allocated()
     ms = np.asarray(res["ms"])
     finite = all(np.isfinite(v) for losses in warm["losses"] + res["losses"] for v in losses.values())
-    name = "FPN training" if cfg.use_fpn else "training"
-    print(f"{name} {cfg.net_variant} {cfg.compute_dtype} {FRAME_HW[0]}x{FRAME_HW[1]} batch {B} ({smi}): "
+    lidar = cfg.net_type == "lidar"
+    name = "BEV training" if lidar else "FPN training" if cfg.use_fpn else "training"
+    frames = (f"raster {tuple(loader.peek()['data'].shape)}" if lidar
+              else f"{FRAME_HW[0]}x{FRAME_HW[1]}")
+    print(f"{name} {cfg.net_variant} {cfg.compute_dtype} {frames} batch {B} ({smi}): "
           f"warm-up step {warm['ms'][0]} ms; ms/step {res['ms']}; mean {float(ms.mean())} ms, "
           f"median {float(np.median(ms))} ms, {B / (float(ms.mean()) / 1e3)} frames/s, "
           f"peak memory {peak / 2**30} GiB")
@@ -1005,8 +1300,10 @@ def check_bev_slice(cfg_base):
         raise AssertionError(f"BEV slice card vs CPU out of tolerance: {failed}")
 
 
-def run_bev_serving(cfg, smi):
-    """The BEV serving path: warm-up batch, then 3 batches, counted."""
+def run_bev_serving(cfg, smi, need=("voxelize_bev", "nms", "roi_align")):
+    """The BEV serving path: warm-up batch, then 3 batches, counted; the
+    kernels in `need` must have launched.  Returns the launches and the
+    batch's ms, frames/s and peak memory."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
@@ -1037,20 +1334,23 @@ def run_bev_serving(cfg, smi):
     raster = np.asarray(res["raster_ms"][1:])
     ms = np.asarray(res["detect_ms"][1:]) + np.asarray(res["filter_ms"][1:]) + raster
     shape = tuple(warm["data"].shape)
-    print(f"BEV serving {cfg.net_variant} {cfg.compute_dtype} raster {shape} batch {B} "
+    name = "rotated BEV serving" if cfg.test.rotated_nms else "BEV serving"
+    print(f"{name} {cfg.net_variant} {cfg.compute_dtype} raster {shape} batch {B} "
           f"({smi}): voxelize ms/batch {res['raster_ms']}, detect ms/batch {res['detect_ms']}, "
           f"filter ms/batch {res['filter_ms']}; batches 2-3 mean {float(ms.mean())} ms/batch, "
           f"{B * len(ms) / (float(ms.sum()) / 1e3)} frames/s; peak memory {peak / 2**30} GiB; "
           f"random-weight mAP ({res['eval_type']} @ {res['iou_thresh']}) {res['mAP']}")
-    print(f"BEV serving: outputs finite {res['finite']}, fewest proposals in a frame "
+    print(f"{name} (final NMS {'rotated' if cfg.test.rotated_nms else 'axis-aligned'} @ "
+          f"{cfg.test.nms_thresh}): outputs finite {res['finite']}, fewest proposals in a frame "
           f"{res['min_proposals']}, kernel launches {launches}")
     if not res["finite"]:
-        raise AssertionError("BEV serving: non-finite outputs")
+        raise AssertionError(f"{name}: non-finite outputs")
     if not res["min_proposals"] or res["min_proposals"] <= 0:
-        raise AssertionError("BEV serving: a frame has no valid proposal")
-    if not all(launches[k] > 0 for k in ("voxelize_bev", "nms", "roi_align")):
-        raise AssertionError(f"BEV serving: a kernel never launched: {launches}")
-    return launches
+        raise AssertionError(f"{name}: a frame has no valid proposal")
+    if not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"{name}: a kernel never launched: {launches}")
+    return launches, {"ms": float(ms.mean()), "fps": B * len(ms) / (float(ms.sum()) / 1e3),
+                      "peak_gib": peak / 2**30}
 
 
 def main() -> int:
@@ -1085,6 +1385,8 @@ def main() -> int:
 
     image_cfg = make_config(IMAGE_OVERRIDES)
     bev_cfg = make_config(BEV_OVERRIDES, BEV_SERVING_OVERRIDES)
+    bev_train_cfg = make_config(BEV_OVERRIDES)
+    bev_rotated_cfg = make_config(BEV_OVERRIDES, BEV_SERVING_OVERRIDES, ROTATED_OVERRIDES)
 
     phase("kernels vs plain twins")
     rng = np.random.RandomState(0)
@@ -1093,6 +1395,7 @@ def main() -> int:
     nms_train = check_nms("train proposals", B, 4096, 0.7, 2000, rng)
     nms_bev = check_nms("BEV proposals", B, BEV_ANCHORS, 0.7, 300, rng)
     nms_bev_filter = check_nms("BEV final filter", 2 * B, 300, 0.6, 100, rng)
+    nms_rot = check_rotated(2 * B, 300, 0.3, 100, rng)
     roi = check_roi_align(rng, (H_FEAT, W_FEAT))
     roi_bev = check_roi_align(rng, BEV_FEAT_HW)
     roi_bwd = check_roi_align_backward(rng)
@@ -1120,7 +1423,27 @@ def main() -> int:
     check_bev_slice(bev_cfg)
 
     phase("BEV serving path")
-    bev_serving = run_bev_serving(bev_cfg, smi)
+    bev_serving, bev_stats = run_bev_serving(bev_cfg, smi)
+
+    phase("BEV training slice: card vs CPU")
+    check_train_slice(bev_train_cfg)
+
+    phase("BEV training path")
+    bev_training = run_training(bev_train_cfg, smi,
+                                need=("voxelize_bev", "nms", "roi_align", "roi_align_bwd"))
+
+    phase("rotated BEV serving path")
+    bev_rotated, rot_stats = run_bev_serving(
+        bev_rotated_cfg, smi, need=("voxelize_bev", "nms", "nms_rotated", "roi_align"))
+    # the final filter's NMS moves from the axis-aligned kernel to the rotated one
+    if not (bev_rotated["nms_rotated"] == bev_serving["nms"] - bev_rotated["nms"] > 0):
+        raise AssertionError(f"rotated BEV serving: launches {bev_rotated} against the "
+                             f"axis-aligned path's {bev_serving}")
+    print(f"rotated vs axis-aligned BEV serving, one call ({smi}): {rot_stats['ms']} vs "
+          f"{bev_stats['ms']} ms/batch, {rot_stats['fps']} vs {bev_stats['fps']} frames/s, peak "
+          f"memory {rot_stats['peak_gib']} vs {bev_stats['peak_gib']} GiB; filter NMS launches "
+          f"moved: nms {bev_serving['nms']} -> {bev_rotated['nms']}, nms_rotated "
+          f"{bev_rotated['nms_rotated']}")
 
     fpn_cfg = make_config(IMAGE_OVERRIDES, FPN_OVERRIDES)
     fpn_serving_cfg = make_config(IMAGE_OVERRIDES, FPN_OVERRIDES, SERVING_OVERRIDES)
@@ -1143,7 +1466,8 @@ def main() -> int:
     measure_anchor_targets(fpn_cfg, smi)
 
     paths = {"serving": serving, "training": training, "bev_serving": bev_serving,
-             "fpn_serving": fpn_serving, "fpn_training": fpn_training}
+             "fpn_serving": fpn_serving, "fpn_training": fpn_training,
+             "bev_training": bev_training, "bev_rotated_serving": bev_rotated}
 
     def entry(name, source, replaces, path, measured):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -1154,22 +1478,27 @@ def main() -> int:
 
     nms_err = max(r["max_abs_err"] for r in (nms_prop, nms_filter, nms_train, nms_bev, nms_bev_filter))
     kernels = {"kernels": [
-        entry("voxelize_bev", "voxelize.cu", "ops/voxelize.py:39", "bev_serving", vox),
-        entry("nms", "nms.cu", "ops/nms.py:53", "bev_serving", {**nms_bev, "max_abs_err": nms_err}),
-        entry("roi_align", "roi_align.cu", "ops/roi_align.py:122", "bev_serving",
+        entry("voxelize_bev", "voxelize.cu", "ops/voxelize.py:39", "bev_training", vox),
+        entry("nms", "nms.cu", "ops/nms.py:53", "bev_training",
+              {**nms_bev, "max_abs_err": nms_err}),
+        entry("roi_align", "roi_align.cu", "ops/roi_align.py:122", "bev_training",
               roi_bev[torch.bfloat16]),
-        entry("roi_align_bwd", "roi_align.cu", "ops/roi_align.py:122 (VJP)", "training",
+        entry("roi_align_bwd", "roi_align.cu", "ops/roi_align.py:122 (VJP)", "bev_training",
               roi_bwd[torch.bfloat16]),
         entry("roi_align_multiscale", "roi_align.cu", "ops/roi_align.py:208", "fpn_serving",
               ms_fwd[torch.bfloat16]),
         entry("roi_align_multiscale_bwd", "roi_align.cu", "ops/roi_align.py:208 (VJP)",
               "fpn_training", ms_bwd[torch.bfloat16]),
+        entry("nms_rotated", "nms.cu", "ops/rotated_iou.py:93 (via ops/nms.py:164)",
+              "bev_rotated_serving",
+              {k: nms_rot[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}),
     ]}
     print("timed at: voxelize_bev (8, 32768) -> (8, 400, 350, 15); nms (8, 1100) -> 300; "
           "roi_align bf16 (8, 25, 22, 1024) x 300; roi_align_bwd bf16 dOut (8, 256, 7, 7, 1024); "
           "roi_align_multiscale bf16 p2..p5 of 512x960 x (8, 300) rois of 16-900 px; "
-          "roi_align_multiscale_bwd bf16 dOut (8, 256, 7, 7, 256); library_ms null: no single "
-          "PyTorch call computes these functions (torchvision's nms, roi_align and "
+          "roi_align_multiscale_bwd bf16 dOut (8, 256, 7, 7, 256); nms_rotated (16, 300) -> 100 "
+          "@ 0.3 (max_abs_err: its IoU kernel against the twin's IoU); library_ms null: no "
+          "single PyTorch call computes these functions (torchvision's nms, roi_align and "
           "MultiScaleRoIAlign are not installed)")
     print(f"also: voxelize_bev (8, 180000) -> 800 x 700: {vox_waymo}; nms (8, 2048) -> 300: "
           f"{nms_prop}; (16, 300) -> 100: {nms_filter}; (8, 4096) -> 2000: {nms_train}; "
@@ -1178,7 +1507,9 @@ def main() -> int:
           f"{roi_bev[torch.float32]}; roi_align backward fp32 {roi_bwd[torch.float32]}; "
           f"roi_align_multiscale fp32 {ms_fwd[torch.float32]}; its backward fp32 "
           f"{ms_bwd[torch.float32]}; backward with every RoI on p5: fp32 "
-          f"{ms_bwd_p5[torch.float32]}, bf16 {ms_bwd_p5[torch.bfloat16]}")
+          f"{ms_bwd_p5[torch.float32]}, bf16 {ms_bwd_p5[torch.bfloat16]}; rotated_iou (16, 300)^2 "
+          f"kernel {nms_rot['iou_ms']} ms; nms_rotated problems with a kept lane's pair near the "
+          f"threshold {nms_rot['near_problems']}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Faster R-CNN detector: C4 image serving and training, LiDAR BEV serving,
-FPN image serving and training.
+"""Faster R-CNN detector: C4 image serving and training, LiDAR BEV serving
+and training, FPN image serving and training.
 
 Port of faster_rcnn_pytorch_multimodal_tpu/models/detector.py without
 uncertainty: `build_anchor_grid` (image and lidar branches), `feat_stride`,
@@ -17,7 +17,11 @@ For LiDAR (NET_TYPE lidar) the input is the (B, Y, X, slices + 3) BEV raster,
 the stem takes that many channels, the RPN regresses the BEV AABB footprints
 of the 3D anchors, and the second stage decodes 7-DoF boxes against each
 proposal's 3D anchor (`lidar_3d_bbox_transform_inv`, no clipping).  LiDAR
-training is not ported yet.
+training (JAX :636-649, :680-754, :829-839) takes (B, G, 8) 7-DoF GT boxes:
+both target layers compare BEV boxes (the GT's axis-aligned envelope), the
+second-stage targets encode the 7-DoF GT against each RoI and its 3D anchor
+(the true GT box is the anchor of an appended GT RoI), and the box loss
+takes the sine of the heading residual with per-element weights.
 
 `forward_train` runs in two stages that tests can drive apart: the RPN stage
 (features, anchor targets, RPN losses) and the second stage, which takes the
@@ -69,6 +73,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.box_transform import (
     clip_boxes,
     lidar_3d_bbox_transform_inv,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.iou import bbox_3d_to_bev_aabb
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.losses import cross_entropy, smooth_l1_loss
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import nms
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -226,12 +231,8 @@ def check_supported(cfg: Config, training: bool = False) -> None:
     lidar = cfg.net_type == "lidar"
     if cfg.net_type not in ("image", "lidar"):
         problems.append(f"NET_TYPE {cfg.net_type!r}")
-    if lidar and training:
-        problems.append("NET_TYPE 'lidar' in training (serving only)")
     if lidar and cfg.use_lidar_fpn:
         problems.append("USE_LIDAR_FPN")
-    if lidar and cfg.test.rotated_nms:
-        problems.append("TEST.ROTATED_NMS (rotated IoU kernel)")
     if cfg.use_fpn and lidar:
         problems.append("USE_FPN with NET_TYPE 'lidar'")
     if cfg.use_fpn and cfg.pooling_mode != "multiscale":
@@ -421,20 +422,30 @@ class FasterRCNN(nn.Module):
         `image_hw`: the sizes of TrainDraws' keys.  The RPN's map is
         ceil(H / s) x ceil(W / s) at the feature stride s (16 for C4, 4 for
         p2 of FPN); R counts the appended GT boxes when
-        TRAIN.USE_GT."""
+        TRAIN.USE_GT.  Lidar rasters give ceil(Y / 16) x ceil(X / 16) cells of
+        num_anchors_3d lanes (ANCHOR_SUBSTRIDE's sub-cells included)."""
         stride = feat_stride(self.cfg)
         n = -(-image_hw[0] // stride) * -(-image_hw[1] // stride) * self.cfg.num_anchors
         c = self.cfg.train
         r = min(self.cfg.static.nms_pre_train, c.rpn_pre_nms_top_n, n, c.rpn_post_nms_top_n)
         return n, r + (max_gt if c.use_gt else 0)
 
+    def gt_bev(self, gt_boxes: torch.Tensor) -> torch.Tensor:
+        """The (B, G, 5) boxes [x1, y1, x2, y2, cls] the target layers compare
+        with: image GT as it is; for lidar the BEV envelope of the (B, G, 8)
+        7-DoF GT [xc, yc, zc, l, w, h, ry, cls] and its class."""
+        if self.cfg.net_type != "lidar":
+            return gt_boxes
+        return torch.cat([bbox_3d_to_bev_aabb(gt_boxes[..., :7]), gt_boxes[..., 7:8]], dim=-1)
+
     def rpn_train(self, feat, gt_boxes, gt_mask, window, draws: TrainDraws, scale_idx=None):
-        """RPN stage: scores, train-phase anchors, anchor targets and the two
-        RPN losses, over the sampled anchor lanes only."""
+        """RPN stage: scores, the train-phase anchor grids (BEV, 3D), anchor
+        targets and the two RPN losses, over the sampled anchor lanes only."""
         c = self.cfg
         rpn_out = self.rpn_scores(feat)
         m = self.rpn_map(feat)
-        anchors = self.anchors(m.shape[1], m.shape[2], m.device, "train", scale_idx)
+        grids = self.anchor_grids(m.shape[1], m.shape[2], m.device, "train", scale_idx)
+        anchors = grids[0]
         if draws.anchor_fg.shape != rpn_out["fg_prob"].shape:
             raise ValueError(
                 f"forward_train: anchor keys {tuple(draws.anchor_fg.shape)} for "
@@ -442,7 +453,7 @@ class FasterRCNN(nn.Module):
             )
         pos_ov, neg_ov = effective_rpn_overlaps(c)
         at = anchor_target(
-            anchors, gt_boxes, gt_mask, window, draws.anchor_fg, draws.anchor_bg,
+            anchors, self.gt_bev(gt_boxes), gt_mask, window, draws.anchor_fg, draws.anchor_bg,
             rpn_batchsize=c.train.rpn_batchsize, fg_fraction=c.train.rpn_fg_fraction,
             positive_overlap=pos_ov, negative_overlap=neg_ov,
             clobber_positives=c.train.rpn_clobber_positives,
@@ -459,7 +470,7 @@ class FasterRCNN(nn.Module):
                 at.bbox_inside_weights, at.bbox_outside_weights, sum_axes=(1, 2),
             ),
         }
-        return rpn_out, anchors, at, losses
+        return rpn_out, grids, at, losses
 
     def select_proposals(self, rpn_out, anchors, window) -> Tuple[torch.Tensor, torch.Tensor]:
         """Train-phase proposal lanes (B, P) and their validity: top
@@ -470,42 +481,54 @@ class FasterRCNN(nn.Module):
         return src, valid
 
     def second_stage_train(
-        self, feat, rpn_out, anchors, window, proposal_src, proposal_valid,
+        self, feat, rpn_out, grids, window, proposal_src, proposal_valid,
         gt_boxes, gt_mask, gt_boxes_dc, dc_mask, draws: TrainDraws,
     ) -> Tuple[Dict[str, torch.Tensor], ProposalTargets]:
         """Second stage on given proposal lanes: their boxes, rebuilt from
         the RPN deltas (the gradient path of the JAX package's proposals),
         plus the GT boxes with TRAIN.USE_GT; RoI sampling and targets; the
-        RoI head; the classification and box losses."""
+        RoI head; the classification and box losses.  grids: the train-phase
+        (BEV, 3D) anchor grids; for lidar each proposal's 3D anchor is its
+        lane's, an appended GT box's its true 7-DoF box."""
         c = self.cfg
+        lidar = c.net_type == "lidar"
+        anchors, anchors_3d = grids
+        gt_bev = self.gt_bev(gt_boxes)
         rois = clip_boxes(
             bbox_transform_inv(anchors[proposal_src], gather_lanes(rpn_out["deltas"], proposal_src)),
             window,
         )
         valid = proposal_valid
+        roi_a3d = anchors_3d[proposal_src] if lidar else None
         if c.train.use_gt:
-            gt4 = gt_boxes[..., :4]
+            gt4 = gt_bev[..., :4]
             if c.train.use_gt_noise:
-                gw = gt_boxes[..., 2] - gt_boxes[..., 0]
-                gh = gt_boxes[..., 3] - gt_boxes[..., 1]
+                gw = gt_bev[..., 2] - gt_bev[..., 0]
+                gh = gt_bev[..., 3] - gt_bev[..., 1]
                 gt4 = gt4 + draws.gt_noise * 0.03 * torch.stack([gw, gh, gw, gh], dim=-1)
             rois = torch.cat([rois, gt4], dim=1)
             valid = torch.cat([valid, gt_mask], dim=1)
+            if lidar:
+                roi_a3d = torch.cat([roi_a3d, gt_boxes[..., :7]], dim=1)
         if draws.roi_fg.shape != valid.shape:
             raise ValueError(
                 f"forward_train: roi keys {tuple(draws.roi_fg.shape)} for "
                 f"{tuple(valid.shape)} proposals"
             )
         device = rois.device
+        tc = c.train
         pt = proposal_target(
-            rois, valid, gt_boxes, gt_mask, gt_boxes_dc, dc_mask, draws.roi_fg, draws.roi_bg,
-            torch.tensor(c.train.image_bbox_normalize_means, device=device),
-            torch.tensor(c.train.image_bbox_normalize_stds, device=device),
+            rois, valid, gt_bev, gt_mask, gt_boxes_dc, dc_mask, draws.roi_fg, draws.roi_bg,
+            torch.tensor(tc.lidar_bbox_normalize_means if lidar else tc.image_bbox_normalize_means,
+                         device=device),
+            torch.tensor(tc.lidar_bbox_normalize_stds if lidar else tc.image_bbox_normalize_stds,
+                         device=device),
             num_classes=self.num_classes, num_bbox_elem=c.num_bbox_elem,
-            roi_batch_size=c.train.roi_batch_size, fg_fraction=c.train.fg_fraction,
-            fg_thresh=c.train.fg_thresh, bg_thresh_hi=c.train.bg_thresh_hi,
-            bg_thresh_lo=c.train.bg_thresh_lo, ignore_dc=c.train.ignore_dc,
-            dc_thresh=c.train.dc_thresh,
+            roi_batch_size=tc.roi_batch_size, fg_fraction=tc.fg_fraction,
+            fg_thresh=tc.fg_thresh, bg_thresh_hi=tc.bg_thresh_hi,
+            bg_thresh_lo=tc.bg_thresh_lo, ignore_dc=tc.ignore_dc,
+            dc_thresh=tc.dc_thresh, anchors_3d=roi_a3d,
+            true_gt_boxes=gt_boxes if lidar else None,
         )
         det = self.roi_head(feat, pt.rois)
         b, s = pt.labels.shape
@@ -513,7 +536,8 @@ class FasterRCNN(nn.Module):
             "cross_entropy": cross_entropy(det["cls_score"].reshape(b * s, -1), pt.labels.reshape(-1)),
             "loss_box": smooth_l1_loss(
                 det["bbox_pred"], pt.bbox_targets, pt.bbox_inside_weights,
-                pt.bbox_outside_weights, sum_axes=(2,),
+                pt.bbox_outside_weights, lidar_det=lidar, en_ry_sin=c.lidar.en_ry_sin,
+                reg_loss_weight=c.lidar.reg_loss_weight, sum_axes=(2,),
             ),
         }
         return losses, pt
@@ -532,8 +556,9 @@ class FasterRCNN(nn.Module):
     ) -> Tuple[Dict[str, torch.Tensor], TrainAux]:
         """Training forward -> (float32 loss dict with total_loss, TrainAux).
 
-        images (B, H, W, 3), gt_boxes (B, G, 5), gt_mask (B, G), window
-        (B, 4); gt_boxes_dc (B, D, 4) and dc_mask (B, D) feed TRAIN.IGNORE_DC.
+        images (B, H, W, 3) or BEV rasters, gt_boxes (B, G, 5) or for lidar
+        (B, G, 8) 7-DoF, gt_mask (B, G), window (B, 4); gt_boxes_dc
+        (B, D, 4) and dc_mask (B, D) feed TRAIN.IGNORE_DC.
         `proposals` = (src, valid) pins the second stage to those anchor
         lanes instead of the NMS's own choice."""
         b = gt_boxes.shape[0]
@@ -541,14 +566,14 @@ class FasterRCNN(nn.Module):
             gt_boxes_dc = torch.zeros((b, 1, 4), device=gt_boxes.device)
             dc_mask = torch.zeros((b, 1), dtype=torch.bool, device=gt_boxes.device)
         feat = self.features(images)
-        rpn_out, anchors, at, losses = self.rpn_train(
+        rpn_out, grids, at, losses = self.rpn_train(
             feat, gt_boxes, gt_mask, window, draws, scale_idx)
         src = valid = pt = None
         if self.cfg.enable_full_net:
             src, valid = proposals if proposals is not None else self.select_proposals(
-                rpn_out, anchors, window)
+                rpn_out, grids[0], window)
             det_losses, pt = self.second_stage_train(
-                feat, rpn_out, anchors, window, src, valid, gt_boxes, gt_mask,
+                feat, rpn_out, grids, window, src, valid, gt_boxes, gt_mask,
                 gt_boxes_dc, dc_mask, draws)
             losses.update(det_losses)
         else:

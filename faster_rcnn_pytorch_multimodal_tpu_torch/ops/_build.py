@@ -37,7 +37,8 @@ LIB_NAME = "libfrcnn_kernels.so"
 # kernel and nowhere else, so a run can show that it went through the kernel.
 LAUNCH_COUNTS = {
     "nms": 0, "roi_align": 0, "roi_align_bwd": 0, "voxelize_bev": 0,
-    "roi_align_multiscale": 0, "roi_align_multiscale_bwd": 0,
+    "roi_align_multiscale": 0, "roi_align_multiscale_bwd": 0, "nms_rotated": 0,
+    "rotated_iou": 0,
 }
 
 
@@ -114,6 +115,10 @@ def library() -> ctypes.CDLL:
     p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.frcnn_nms.argtypes = [p, p, p, i, i, f, i, p, p, p, p]
     lib.frcnn_nms.restype = i
+    lib.frcnn_nms_rotated.argtypes = [p, p, p, i, i, f, i, p, p, p, p]
+    lib.frcnn_nms_rotated.restype = i
+    lib.frcnn_rotated_iou.argtypes = [p, p, i, i, i, p, p]
+    lib.frcnn_rotated_iou.restype = i
     lib.frcnn_roi_align_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]
     lib.frcnn_roi_align_fwd.restype = i
     lib.frcnn_roi_align_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]

@@ -1,10 +1,10 @@
 """Box encode/decode and clipping on tensors, polymorphic over leading dims.
 
 Port of faster_rcnn_pytorch_multimodal_tpu/ops/box_transform.py:21-88 (2D)
-and :96-157 (`_roi_bev_geometry`, `lidar_3d_bbox_transform_inv`).  Keeps
-the reference's diagonal-normalized dx/dy (divided by sqrt(w^2 + h^2), not by
-w and h) and the +1 widths (parity waiver 2): checkpoints are only
-compatible with this variant.
+and :96-157 (`_roi_bev_geometry`, `lidar_3d_bbox_transform` and its
+inverse).  Keeps the reference's diagonal-normalized dx/dy (divided by
+sqrt(w^2 + h^2), not by w and h) and the +1 widths (parity waiver 2):
+checkpoints are only compatible with this variant.
 """
 
 from __future__ import annotations
@@ -93,6 +93,30 @@ def _roi_bev_geometry(rois: torch.Tensor):
     ctr_y = rois[..., 1] + widths / 2.0
     diag = torch.sqrt(lengths**2 + widths**2)
     return lengths, widths, ctr_x, ctr_y, diag
+
+
+def lidar_3d_bbox_transform(
+    ex_rois: torch.Tensor, ex_anchors: torch.Tensor, gt_rois: torch.Tensor
+) -> torch.Tensor:
+    """Encode 7-DoF GT (..., 7) [xc, yc, zc, l, w, h, ry] against (BEV RoI
+    (..., 4), 3D anchor (..., 7)) pairs -> (..., 7) targets: xy offsets over
+    the RoI's diagonal, log l and w over the RoI's +1 lengths, z and h
+    against the anchor, the raw GT heading."""
+    lengths, widths, cx, cy, diag = _roi_bev_geometry(ex_rois)
+    anc_z = ex_anchors[..., 2]
+    anc_h = ex_anchors[..., 5]
+    return torch.stack(
+        [
+            (gt_rois[..., 0] - cx) / diag,
+            (gt_rois[..., 1] - cy) / diag,
+            (gt_rois[..., 2] - anc_z) / anc_h,
+            torch.log(gt_rois[..., 3] / lengths),
+            torch.log(gt_rois[..., 4] / widths),
+            torch.log(gt_rois[..., 5] / anc_h),
+            gt_rois[..., 6],
+        ],
+        dim=-1,
+    )
 
 
 def lidar_3d_bbox_transform_inv(

@@ -2,11 +2,12 @@
 
 Port of faster_rcnn_pytorch_multimodal_tpu/ops/filter.py:33-145: the image
 path and the lidar path, whose NMS runs on the axis-aligned BEV footprint
-center +- (l, w) / 2 and ignores the heading (:61-78).  The rotated-NMS
-option (TEST.ROTATED_NMS) needs the rotated IoU kernel, which is not ported:
-it raises.  The JAX package vmaps a per-class NMS over classes, one frame at
-a time; here every (frame, class) pair is one problem of a single batched
-NMS launch.  `to_per_class_lists` is the host-side numpy conversion, copied.
+center +- (l, w) / 2 and ignores the heading (:67-78), or with rotated_nms
+(TEST.ROTATED_NMS, :61-66) on the rotated footprint [xc, yc, l, w, ry] of
+each 7-DoF box, through the rotated NMS kernel.  The JAX package vmaps a
+per-class NMS over classes, one frame at a time; here every (frame, class)
+pair is one problem of a single batched NMS launch.  `to_per_class_lists`
+is the host-side numpy conversion, copied.
 """
 
 from __future__ import annotations
@@ -39,10 +40,6 @@ def filter_detections(
     (E), scores, valid and src_idx (index into the S rois).  Class 0
     (background) lanes are always invalid.
     """
-    if rotated_nms:
-        raise NotImplementedError(
-            "filter_detections: rotated NMS (TEST.ROTATED_NMS) needs the rotated IoU "
-            "kernel, which is not ported")
     if bbox_elem != (7 if is_lidar else 4):
         raise ValueError(f"filter_detections: bbox_elem {bbox_elem} with is_lidar={is_lidar}")
     k = cls_prob.shape[-1]
@@ -52,13 +49,18 @@ def filter_detections(
     boxes = pred_boxes.reshape(pred_boxes.shape[:-1] + (k, bbox_elem)).transpose(-2, -3)
     not_bg = torch.arange(k, device=cls_prob.device) > 0
     valid = roi_valid[..., None, :] & (scores > thresh) & not_bg[:, None]
-    if is_lidar:
+    rotated = is_lidar and rotated_nms
+    if rotated:
+        # 7-DoF [xc, yc, zc, l, w, h, ry] -> BEV [xc, yc, l, w, ry]
+        nms_boxes = boxes[..., [0, 1, 3, 4, 6]]
+    elif is_lidar:
         half_l, half_w = boxes[..., 3] / 2.0, boxes[..., 4] / 2.0
         nms_boxes = torch.stack([boxes[..., 0] - half_l, boxes[..., 1] - half_w,
                                  boxes[..., 0] + half_l, boxes[..., 1] + half_w], dim=-1)
     else:
         nms_boxes = boxes[..., :4]
-    keep, keep_valid = nms(nms_boxes.contiguous(), scores, nms_thresh, max_dets, valid=valid)
+    keep, keep_valid = nms(nms_boxes.contiguous(), scores, nms_thresh, max_dets, valid=valid,
+                           rotated=rotated)
     keep = keep.long()
     kept_scores = torch.gather(scores, -1, keep)
     return {

@@ -3,9 +3,10 @@ targets, for a batch of frames.
 
 Port of faster_rcnn_pytorch_multimodal_tpu/ops/targets.py (`_rank_within`,
 `AnchorTargets`, `effective_rpn_overlaps`, `anchor_target`,
-`expand_anchor_targets`, `ProposalTargets`, `proposal_target`), image
-branch.  The JAX package vmaps each function over frames; here the frame
-dimension is written out, so every argument and result has a leading B.
+`expand_anchor_targets`, `ProposalTargets`, `proposal_target`), the image
+and the lidar branch.  The JAX package vmaps each function over frames; here
+the frame dimension is written out, so every argument and result has a
+leading B.
 
 Randomness enters as tensors: each function takes the uniform keys that the
 JAX package draws inside it (`jax.random.uniform`), so a test can feed the
@@ -24,11 +25,14 @@ back into the RPN deltas through the proposals (ROADMAP fault F1).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from faster_rcnn_pytorch_multimodal_tpu_torch.ops.box_transform import bbox_transform
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.box_transform import (
+    bbox_transform,
+    lidar_3d_bbox_transform,
+)
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.iou import bbox_overlaps
 
 _EPS = 1.1920929e-07  # float32 machine epsilon, the reference's floor on per-GT best IoU
@@ -187,6 +191,7 @@ class ProposalTargets(NamedTuple):
     bbox_inside_weights: torch.Tensor  # (B, S, E * K)
     bbox_outside_weights: torch.Tensor  # (B, S, E * K)
     valid: torch.Tensor  # (B, S) bool, False only where a frame has no candidate
+    anchors_3d: Optional[torch.Tensor] = None  # (B, S, 7) lidar: each RoI's 3D anchor
 
 
 def proposal_target(
@@ -210,6 +215,8 @@ def proposal_target(
     bg_thresh_lo: float = 0.0,
     ignore_dc: bool = False,
     dc_thresh: float = 0.5,
+    anchors_3d: Optional[torch.Tensor] = None,
+    true_gt_boxes: Optional[torch.Tensor] = None,
 ) -> ProposalTargets:
     """Sample ROI_BATCH_SIZE RoIs a frame and build per-class targets.
 
@@ -223,6 +230,11 @@ def proposal_target(
       fg_keys, bg_keys: (B, R) uniform draws ranking the fg and bg
         candidates (the JAX package's `_rank_within` draws).
       normalize_means, normalize_stds: (E,) target normalization.
+      anchors_3d, true_gt_boxes: lidar only (JAX :276-281, :339-349): the
+        proposals' (B, R, 7) 3D anchors and the (B, G, 8) 7-DoF GT
+        [xc, yc, zc, l, w, h, ry, cls].  The overlaps stay on the BEV boxes
+        (rois, gt_boxes); the targets encode the matched 7-DoF GT against
+        each sampled RoI and its anchor (lidar_3d_bbox_transform).
 
     When a frame has only fg candidates every slot is fg, drawn with
     replacement by wrapping the ranked list; likewise only bg.
@@ -270,7 +282,13 @@ def proposal_target(
     labels = torch.where(is_fg_slot & slot_valid, labels, 0.0).long()
 
     out_rois = gather_lanes(rois, keep)
-    targets = bbox_transform(out_rois, gather_lanes(gt_boxes[..., :4], assigned))
+    out_anchors = None
+    if true_gt_boxes is not None:
+        out_anchors = gather_lanes(anchors_3d, keep)
+        matched = gather_lanes(true_gt_boxes[..., :7], assigned)
+        targets = lidar_3d_bbox_transform(out_rois, out_anchors, matched)
+    else:
+        targets = bbox_transform(out_rois, gather_lanes(gt_boxes[..., :4], assigned))
     targets = (targets - normalize_means) / normalize_stds
 
     # the E-of-E*K per-class layout; a label outside [0, K) has no slot
@@ -282,4 +300,5 @@ def proposal_target(
     bbox_inside = (cls_onehot[..., None] * fg_slot[..., None, None]) * torch.ones(e, device=device)
     bbox_inside = bbox_inside.reshape(b, s, k * e)
     bbox_outside = (bbox_inside > 0).float()
-    return ProposalTargets(labels, out_rois, bbox_targets, bbox_inside, bbox_outside, slot_valid)
+    return ProposalTargets(labels, out_rois, bbox_targets, bbox_inside, bbox_outside, slot_valid,
+                           out_anchors)

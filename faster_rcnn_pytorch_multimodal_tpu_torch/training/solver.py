@@ -53,15 +53,19 @@ def cast_for_compute(model: FasterRCNN) -> Dict[str, torch.Tensor]:
     return {k: v.to(dtype) if v.dtype == torch.float32 else v for k, v in named}
 
 
-def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> Dict[str, object]:
-    """A loader batch on `device`: arrays become tensors, scale_idx an int;
-    keys starting with '_' (loader bookkeeping) are dropped."""
+def batch_to_device(batch: Mapping[str, object], device: torch.device) -> Dict[str, object]:
+    """A loader batch on `device`: arrays become tensors, tensors (a lidar
+    batch's raster, made on the loader's device) move if they are elsewhere,
+    scale_idx an int; keys starting with '_' (loader bookkeeping) are
+    dropped."""
     out: Dict[str, object] = {}
     for k, v in batch.items():
         if k.startswith("_"):
             continue
         if k == "scale_idx":
             out[k] = int(v)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.to(device, non_blocking=True)
         else:
             out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
     return out

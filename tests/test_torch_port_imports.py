@@ -33,12 +33,18 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (  # noqa: E4
     roi_align_batched_plain,
     roi_levels,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.rotated_iou import (  # noqa: E402
+    rotated_iou_matrix,
+    rotated_iou_matrix_plain,
+)
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.voxelize import (  # noqa: E402
     voxelize_bev,
     voxelize_bev_plain,
 )
 
 REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402
 
 _IMPORT_ALL = """
 import importlib.util, pkgutil, sys
@@ -113,6 +119,19 @@ def test_cpu_tensors_run_the_twin_without_launching():
     want = voxelize_bev_plain(pts, valid, **GRID)
     assert torch.equal(bev, want)
     assert bev.shape == (2, 200, 175, 15)
+    assert _build.LAUNCH_COUNTS == before
+
+
+def test_rotated_cpu_runs_the_twin_without_launching():
+    """nms(rotated=True) and rotated_iou_matrix on CPU tensors: the twin."""
+    rng = np.random.RandomState(6)
+    boxes = torch.from_numpy(chip_smoke.rotated_boxes(rng, 2, 90))
+    scores = torch.from_numpy(rng.uniform(size=(2, 90)).astype(np.float32))
+    before = dict(_build.LAUNCH_COUNTS)
+    idx, ok = nms(boxes, scores, 0.3, 30, rotated=True)
+    want_idx, want_ok = nms_plain(boxes, scores, 0.3, 30, rotated=True)
+    assert torch.equal(idx, want_idx) and torch.equal(ok, want_ok)
+    assert torch.equal(rotated_iou_matrix(boxes, boxes), rotated_iou_matrix_plain(boxes, boxes))
     assert _build.LAUNCH_COUNTS == before
 
 
@@ -361,3 +380,63 @@ def test_multiscale_roi_align_cuda_takes_only_the_detector_pyramid(cuda):
     assert _build.LAUNCH_COUNTS["roi_align_multiscale"] == before
     out = multiscale_roi_align_batched([m.cpu() for m in maps[:3]], rois.cpu(), STRIDES[:3])
     assert out.shape == (1, 4, 7, 7, 8)
+
+
+@pytest.mark.cuda
+def test_rotated_iou_kernel_matches_twin(cuda):
+    """The rotated IoU kernel within 5e-5 of the twin on clustered voxel-unit
+    boxes and on the edge cases (identical 1, nested 0.25, shared edge 0,
+    90 degrees 0.25, zero width 0, disjoint 0)."""
+    rng = np.random.RandomState(7)
+    boxes = torch.from_numpy(chip_smoke.rotated_boxes(rng, 3, 150))
+    others = torch.from_numpy(chip_smoke.rotated_boxes(rng, 3, 70))
+    before = _build.LAUNCH_COUNTS["rotated_iou"]
+    got = rotated_iou_matrix(boxes.to(cuda), others.to(cuda)).cpu()
+    assert _build.LAUNCH_COUNTS["rotated_iou"] == before + 1
+    want = rotated_iou_matrix_plain(boxes, others)
+    assert got.shape == (3, 150, 70) and float((got - want).abs().max()) <= 5e-5
+    e = torch.from_numpy(chip_smoke.ROTATED_EDGE_CASES)
+    ge = rotated_iou_matrix(e.to(cuda), e.to(cuda)).cpu()
+    assert float((ge - rotated_iou_matrix_plain(e, e)).abs().max()) <= 5e-5
+    assert abs(float(ge[0, 1]) - 1) <= 1e-6 and abs(float(ge[0, 2]) - 0.25) <= 1e-6
+    assert abs(float(ge[3, 8])) <= 1e-6 and abs(float(ge[4, 8]) - 0.25) <= 1e-6
+    assert float(ge[5].abs().max()) <= 1e-6 and float(ge[6, :6].max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,thr,max_out", [(16, 300, 0.3, 100), (4, 130, 0.6, 50)])
+def test_rotated_nms_kernel_matches_twin(cuda, g, n, thr, max_out):
+    """Rotated NMS keeps: the tolerant greedy check against the twin's IoU on
+    every problem, identical to the twin's keeps where no kept lane's pair
+    lies within 1e-4 of the threshold."""
+    rng = np.random.RandomState(n)
+    boxes = chip_smoke.rotated_boxes(rng, g, n)
+    scores = rng.uniform(size=(g, n)).astype(np.float32)
+    scores[0] = np.round(scores[0] * 4) / 4  # ties
+    valid = rng.uniform(size=(g, n)) < 0.8
+    tb, ts, tv = (torch.from_numpy(a) for a in (boxes, scores, valid))
+    before = _build.LAUNCH_COUNTS["nms_rotated"]
+    idx, ok = nms(tb.to(cuda), ts.to(cuda), thr, max_out, tv.to(cuda), rotated=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["nms_rotated"] == before + 1
+    idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
+    want_idx, want_ok = (t.numpy() for t in nms_plain(tb, ts, thr, max_out, tv, rotated=True))
+    iou = rotated_iou_matrix_plain(tb, tb).numpy()
+    for i in range(g):
+        assert chip_smoke.greedy_violations(iou[i], scores[i], valid[i], idx[i], ok[i], thr, 1e-4,
+                                            max_out) == [], i
+        if not chip_smoke.near_threshold(iou[i], valid[i], thr, 1e-4, want_idx[i][want_ok[i]]):
+            assert np.array_equal(idx[i], want_idx[i]) and np.array_equal(ok[i], want_ok[i]), i
+
+
+@pytest.mark.cuda
+def test_rotated_nms_rejects_bad_inputs_on_the_card(cuda):
+    """float32 boxes of 5 values on one device, or it raises; it never runs
+    the twin on the card."""
+    boxes, scores = torch.zeros(2, 8, 5, device=cuda), torch.zeros(2, 8, device=cuda)
+    with pytest.raises(TypeError):
+        nms(boxes.double(), scores.double(), 0.3, 4, rotated=True)
+    with pytest.raises(ValueError):
+        nms(boxes, scores.cpu(), 0.3, 4, rotated=True)
+    with pytest.raises(ValueError):
+        nms(boxes[..., :4], scores, 0.3, 4, rotated=True)

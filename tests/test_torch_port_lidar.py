@@ -215,21 +215,30 @@ def test_lidar_filter_keeps_equal_jax():
             np.testing.assert_array_equal(got[k][i].numpy(), np.asarray(want[k]), err_msg=k)
         kept += int(np.asarray(want["valid"]).sum())
     assert 0 < kept < B * 100
-    with pytest.raises(NotImplementedError):
-        t_filter(_t(cls_prob), _t(pred), _t(roi_valid), **kw, rotated_nms=True)
+    # TEST.ROTATED_NMS: the rotated footprints [xc, yc, l, w, ry], equal to JAX too
+    got = t_filter(_t(cls_prob), _t(pred), _t(roi_valid), **kw, rotated_nms=True)
+    for i in range(B):
+        want = j_filter(jnp.asarray(cls_prob[i]), jnp.asarray(pred[i]), jnp.asarray(roi_valid[i]),
+                        **kw, rotated_nms=True)
+        for k in ("valid", "src_idx", "boxes", "scores"):
+            np.testing.assert_array_equal(got[k][i].numpy(), np.asarray(want[k]), err_msg=k)
+    assert 0 < int(got["valid"].sum()) < B * 100
 
 
 @pytest.mark.parametrize("extra,training", [
-    ((), True),
+    (("RESNET.FIXED_BLOCKS", "-1"), True),
     (("USE_LIDAR_FPN", "True"), False),
-    (("TEST.ROTATED_NMS", "True"), False),
+    (("UC.EN_BBOX_ALEATORIC", "True"), True),
     (("RESNET.FIXED_BLOCKS", "-1"), False),
 ])
 def test_unported_lidar_options_raise(extra, training):
     _, cfg = _cfgs(*extra)
     with pytest.raises(NotImplementedError):
         t_det.check_supported(cfg, training=training)
-    t_det.check_supported(_cfgs()[1])  # lidar serving is ported
+    # lidar serving, with rotated NMS too, and lidar training are ported
+    t_det.check_supported(_cfgs()[1])
+    t_det.check_supported(_cfgs("TEST.ROTATED_NMS", "True")[1])
+    t_det.check_supported(_cfgs()[1], training=True)
 
 
 # -- the whole slice -------------------------------------------------------------
@@ -386,6 +395,16 @@ def test_slice_end_to_end(bev_run):
     """Raw points to final detections, unpinned: 95% of the JAX proposals
     reappear at IoU >= 0.99, each proposal's 3D anchor matches, and the final
     detections match in count and footprint."""
+    _slice_end_to_end(bev_run, rotated_nms=False, nms_thresh=0.6)
+
+
+def test_slice_end_to_end_rotated_nms(bev_run):
+    """The same with TEST.ROTATED_NMS at the quality recipe's threshold 0.3:
+    the final filter through the rotated NMS."""
+    _slice_end_to_end(bev_run, rotated_nms=True, nms_thresh=0.3)
+
+
+def _slice_end_to_end(bev_run, rotated_nms, nms_thresh):
     m, j = bev_run.t_model, bev_run.j_out
     with torch.no_grad():
         x = voxelize_bev(_t(bev_run.pts), _t(bev_run.valid), **bev_run.grid)
@@ -410,7 +429,7 @@ def test_slice_end_to_end(bev_run):
     assert matched >= 0.95 * total
 
     kw = dict(num_classes=K, bbox_elem=7, max_dets=100, thresh=_split_thresh(j["cls_prob"]),
-              nms_thresh=0.6, is_lidar=True)
+              nms_thresh=nms_thresh, is_lidar=True, rotated_nms=rotated_nms)
     got = t_filter(out["cls_prob"], out["bbox_pred"], out["roi_valid"], **kw)
     n_dets = 0
     for i in range(B):

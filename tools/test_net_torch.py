@@ -15,6 +15,7 @@ checkpoints of the JAX package are not read here.
 
     python tools/test_net_torch.py --db synthetic --net res101 --net_type image --max_frames 16
     python tools/test_net_torch.py --db synthetic --net res101 --net_type lidar --scale 0.5 --max_frames 16
+    python tools/test_net_torch.py --db synthetic --net res101 --net_type lidar --scale 0.5 --max_frames 16 --set TEST.ROTATED_NMS True TEST.NMS_THRESH 0.3
     python tools/test_net_torch.py --db synthetic --net res101 --net_type image --en_fpn 1 --max_frames 16
 """
 

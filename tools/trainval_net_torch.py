@@ -1,17 +1,19 @@
 #!/usr/bin/env python
-"""Train the PyTorch port of the image detector (C4, or with --en_fpn 1 FPN)
-on one device.
+"""Train the PyTorch port of the detector (C4 on images or LiDAR BEV
+rasters, or with --en_fpn 1 the FPN image detector) on one device.
 
 The flags are tools/trainval_net.py's, plus --device (the port's cli module);
---iters defaults to 20.  The loop is faster_rcnn_pytorch_multimodal_tpu_torch.
-training.solver.train: BatchLoader -> H2D -> random draws -> forward_train
--> backward -> the JAX package's SGD chain, each step timed with CUDA events
-on a card.  Weights are randomly initialized from the config's RNG_SEED;
-pretrained weights, snapshots, resume, the val cycle and LiDAR training are
-not ported yet and raise.
+--iters defaults to 20 and --net_type to image.  The loop is
+faster_rcnn_pytorch_multimodal_tpu_torch.training.solver.train: BatchLoader
+(for lidar: points up, `voxelize_bev` on the device) -> H2D -> random draws
+-> forward_train -> backward -> the JAX package's SGD chain, each step timed
+with CUDA events on a card.  Weights are randomly initialized from the
+config's RNG_SEED; pretrained weights, snapshots, resume and the val cycle
+are not ported yet and raise.
 
     python tools/trainval_net_torch.py --db synthetic --net res101 --net_type image --iters 20 --batch_size 8
     python tools/trainval_net_torch.py --db synthetic --net res101 --net_type image --en_fpn 1 --iters 20 --batch_size 8
+    python tools/trainval_net_torch.py --db synthetic --net res101 --net_type lidar --scale 0.5 --iters 20 --batch_size 8
 """
 
 from __future__ import annotations
