@@ -12,10 +12,12 @@ non-zero and never prints its last line):
   3. kernels vs their plain PyTorch twins at the shapes of the paths: NMS
      at (8, 2048) -> 300 @ 0.7, (16, 300) -> 100 @ 0.6 (image serving),
      (8, 4096) -> 2000 @ 0.7 (training), (8, 1100) -> 300 @ 0.7 and
-     (16, 300) -> 100 @ 0.6 (BEV serving) must keep identical lanes; RoI
-     align at features (8, 32, 60, 1024) and (8, 25, 22, 1024) x 300 rois
-     within 1e-5 * max|F| (float32) and 1e-2 * max|F| (bfloat16, rounded
-     output); the RoI-align backward at (8, 32, 60, 1024) x 256 rois within
+     (16, 300) -> 100 @ 0.6 (BEV serving), (8, 1024) -> 1024 slots @ 0.7
+     (BEV training) must keep identical lanes; RoI align at features
+     (8, 32, 60, 1024) and (8, 25, 22, 1024) x 300 rois and (8, 25, 22,
+     1024) x 256 (BEV training) within 1e-5 * max|F| (float32) and 1e-2 *
+     max|F| (bfloat16, rounded output); the RoI-align backward at
+     (8, 32, 60, 1024) and (8, 25, 22, 1024) x 256 rois within
      1e-5 * max|dF| (float32) and 1e-2 * max|dF| (bfloat16) of the twin's
      autograd gradient (float32 atomics add in a different order on every
      run); the BEV voxelizer at (8, 32768) points -> 400 x 350 x 15 and
@@ -98,7 +100,8 @@ just before it and read just after.  Then one JSON line describing the
 kernels (each kernel's `launches` is the count on the newest path that runs
 it: BEV training for the voxelizer, NMS, RoI align and its backward, rotated
 BEV serving for the rotated NMS, FPN serving and FPN training for the
-multiscale kernels; `launches_by_path` has all seven), the nvidia-smi
+multiscale kernels; its times, error and bound are from phase 3 at that
+path's shapes; `launches_by_path` has all seven), the nvidia-smi
 name/power line, and the result line {"ok": true, "device": ...}.
 
 Imports nothing of JAX; needs the repository checkout around it.
@@ -373,79 +376,14 @@ def rotated_boxes(rng, g, n):
     return b.astype(np.float32)
 
 
-# float32 operations of csrc/nms.cu's rotated IoU, counted from its code
-# (rot_intersection, rot_iou): both quads' corners relative to a's center
-# (2 x (2 + 16)); per clip edge the edge vector (2) and the first signed
-# distance (5), 5 per vertex tested, 8 per crossing point; the shoelace 4 a
-# vertex + 1; the union and the division 3.  Per box loaded (sincosf ~40, the
-# half axes, the area) ~47, twice a block for 64 rows and 64 columns.
-ROT_CORNER_OPS, ROT_EDGE_OPS, ROT_VERTEX_OPS, ROT_CROSS_OPS = 36, 7, 5, 8
-ROT_SHOELACE_OPS, ROT_IOU_OPS, ROT_LOAD_OPS = 4, 3, 47
-
-
-def rot_corners_rel(boxes, origin):
-    """(P, 4) x and y of rotated boxes (P, 5) relative to origin (P, 2), in
-    float32 and the kernel's corner order."""
-    s, c = np.sin(boxes[:, 4]), np.cos(boxes[:, 4])
-    hl, hw = np.float32(0.5) * boxes[:, 2], np.float32(0.5) * boxes[:, 3]
-    ux, uy, vx, vy = hl * c, hl * s, -hw * s, hw * c
-    dx, dy = boxes[:, 0] - origin[:, 0], boxes[:, 1] - origin[:, 1]
-    x = np.stack([dx + ux - vx, dx + ux + vx, dx - ux + vx, dx - ux - vx], 1)
-    y = np.stack([dy + uy - vy, dy + uy + vy, dy - uy + vy, dy - uy - vy], 1)
-    return x.astype(np.float32), y.astype(np.float32)
-
-
-def rotated_pair_ops(a, b) -> int:
-    """float32 operations the rotated IoU kernel spends on the pairs (a[p],
-    b[p]) of (P, 5) float32 boxes: Sutherland-Hodgman as in rot_intersection,
-    vectorized over the pairs, counting the vertices and crossings each
-    stage meets (a stage is skipped once the polygon is empty)."""
-    p = len(a)
-    px, py = rot_corners_rel(a, a[:, :2])
-    bx, by = rot_corners_rel(b, a[:, :2])
-    n = np.full(p, 4)
-    ops = p * (ROT_CORNER_OPS + ROT_IOU_OPS)
-    for k in range(4):
-        live = n > 0
-        ops += int(live.sum()) * ROT_EDGE_OPS + int(n.sum()) * ROT_VERTEX_OPS
-        ox, oy = bx[:, k:k + 1], by[:, k:k + 1]
-        ex, ey = bx[:, (k + 1) % 4][:, None] - ox, by[:, (k + 1) % 4][:, None] - oy
-        slots = np.arange(px.shape[1])[None]
-        on = slots < n[:, None]
-        cs = ex * (py - oy) - ey * (px - ox)
-        prev = np.where(slots == 0, np.maximum(n, 1)[:, None] - 1, slots - 1)
-        ss = np.take_along_axis(cs, prev, 1)
-        sx, sy = np.take_along_axis(px, prev, 1), np.take_along_axis(py, prev, 1)
-        cross = on & ((cs >= 0) != (ss >= 0))
-        keep = on & (cs >= 0)
-        ops += int(cross.sum()) * ROT_CROSS_OPS
-        with np.errstate(divide="ignore", invalid="ignore"):
-            t = np.where(cross, ss / (ss - cs), 0).astype(np.float32)
-        qx = np.zeros((p, 2 * px.shape[1]), np.float32)
-        qy = np.zeros_like(qx)
-        step = cross.astype(np.int64) + keep
-        at = np.cumsum(step, 1) - step
-        r, i = np.nonzero(cross)
-        qx[r, at[r, i]] = sx[r, i] + t[r, i] * (px[r, i] - sx[r, i])
-        qy[r, at[r, i]] = sy[r, i] + t[r, i] * (py[r, i] - sy[r, i])
-        r, i = np.nonzero(keep)
-        qx[r, at[r, i] + cross[r, i]] = px[r, i]
-        qy[r, at[r, i] + cross[r, i]] = py[r, i]
-        n = np.minimum(step.sum(1), 16)
-        px, py = qx[:, :16], qy[:, :16]
-    ops += int(n[n >= 3].sum()) * ROT_SHOELACE_OPS + int((n >= 3).sum())
-    return ops
-
-
-def rotated_nms_ops(boxes) -> int:
-    """float32 operations of the rotated NMS mask on (G, N, 5) score-sorted
-    boxes: every upper-triangle pair (row i, column j > i) once, plus the
-    boxes each 64-thread block loads."""
-    g, n = boxes.shape[:2]
-    i, j = np.triu_indices(n, 1)
-    ops = sum(rotated_pair_ops(bb[i], bb[j]) for bb in boxes)
-    blocks = -(-n // 64)
-    return ops + g * blocks * (blocks + 1) // 2 * 128 * ROT_LOAD_OPS
+# float32 operations that every pair of csrc/nms.cu's rotated IoU costs at
+# least, counted from its code (rot_intersection, rot_iou): both quads'
+# corners relative to a's center, 2 x (2 + 16); the first clip stage, which
+# no pair skips: the edge vector (2), the first signed distance (5) and 5 per
+# vertex of a's quad (4 x 5); the union and the division (3).  Later clip
+# stages, crossings and the shoelace depend on the pair and are left out, so
+# pairs x ROT_PAIR_OPS undercounts the work: a valid bound.
+ROT_PAIR_OPS = 36 + 2 + 5 + 4 * 5 + 3
 
 
 ROTATED_EDGE_CASES = np.array([
@@ -519,9 +457,8 @@ def check_rotated(g, n, thr, max_out, rng, tol=1e-4):
     t = kernel_ms(lambda: nms(db, ds, thr, max_out, dv, rotated=True), 20)
     plain_ms = cuda_ms(lambda: nms_plain(db, ds, thr, max_out, dv, rotated=True), 2)
     iou_t = kernel_ms(lambda: rotated_iou_matrix(db, db), 20)
-    order = np.argsort(-np.where(valid, scores, -1e30), 1, kind="stable")
-    ops = rotated_nms_ops(np.take_along_axis(boxes, order[..., None], 1))
-    pairs = g * n * (n - 1) // 2
+    pairs = g * n * (n - 1) // 2  # the mask kernel's upper triangle
+    ops = pairs * ROT_PAIR_OPS
     col_blocks = -(-n // 64)
     words = g * sum(col_blocks - i // 64 for i in range(n))
     bound, by = bound_ms(g * n * 20 + words * 8, ops)
@@ -531,8 +468,8 @@ def check_rotated(g, n, thr, max_out, rng, tol=1e-4):
     print(f"nms_rotated ({g}, {n}) -> {max_out} @ {thr}: {int(ok.sum())} kept; identical keeps on "
           f"the {g - near} problems without a kept lane's pair within {tol} of {thr} ({near} "
           f"with one); the tolerant greedy check passes on all {g}; kernel {spread(t)}, plain "
-          f"twin on the card {plain_ms} ms, bound {bound} ms ({by}: {pairs} upper-triangle pairs, "
-          f"{ops} float32 operations counted from the kernel's code, {ops / pairs} a pair)")
+          f"twin on the card {plain_ms} ms, bound {bound} ms ({by}: {pairs} upper-triangle pairs x "
+          f"{ROT_PAIR_OPS} float32 operations, the least a pair costs in the kernel's code)")
     return {"max_abs_err": iou_err, "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "near_problems": near, "iou_ms": iou_t["ms"]}
 
@@ -554,7 +491,7 @@ def roi_align_flops(n_out: int, sr: int = 2) -> int:
     return n_out * sr * sr * 4 * 2
 
 
-def check_roi_align(rng, feat_hw):
+def check_roi_align(rng, feat_hw, r=R):
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -564,7 +501,7 @@ def check_roi_align(rng, feat_hw):
 
     h, w = feat_hw
     feats = rng.normal(size=(B, h, w, C_FEAT)).astype(np.float32)
-    rois = torch.from_numpy(serving_rois(rng, B, R, (h * 16, w * 16)))
+    rois = torch.from_numpy(serving_rois(rng, B, r, (h * 16, w * 16)))
     results = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
         tf = torch.from_numpy(feats).to(dtype)
@@ -589,9 +526,10 @@ def check_roi_align(rng, feat_hw):
     return results
 
 
-def check_roi_align_backward(rng):
+def check_roi_align_backward(rng, feat_hw):
     """The backward kernel against the twin's autograd gradient, both on the
-    card, at the training shapes; times of the backward alone."""
+    card, at a training path's shapes (dOut (B, R_TRAIN, 7, 7, C) onto the
+    feat_hw map); times of the backward alone."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -600,8 +538,9 @@ def check_roi_align_backward(rng):
         roi_align_batched_plain,
     )
 
-    feats = rng.normal(size=(B, H_FEAT, W_FEAT, C_FEAT)).astype(np.float32)
-    rois = torch.from_numpy(serving_rois(rng, B, R_TRAIN)).cuda()
+    h, w = feat_hw
+    feats = rng.normal(size=(B, h, w, C_FEAT)).astype(np.float32)
+    rois = torch.from_numpy(serving_rois(rng, B, R_TRAIN, (h * 16, w * 16))).cuda()
     grad_out = rng.normal(size=(B, R_TRAIN, 7, 7, C_FEAT)).astype(np.float32)
     results = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
@@ -1398,12 +1337,20 @@ def main() -> int:
     nms_rot = check_rotated(2 * B, 300, 0.3, 100, rng)
     roi = check_roi_align(rng, (H_FEAT, W_FEAT))
     roi_bev = check_roi_align(rng, BEV_FEAT_HW)
-    roi_bwd = check_roi_align_backward(rng)
+    roi_bwd = check_roi_align_backward(rng, (H_FEAT, W_FEAT))
     ms_fwd = check_multiscale_roi_align(rng)
     ms_bwd = check_multiscale_backward(rng, fpn_rois(rng, B, R_TRAIN), "16-900 px RoIs")
     ms_bwd_p5 = check_multiscale_backward(rng, p5_rois(rng, B, R_TRAIN), "every RoI on p5")
     vox_waymo = check_voxelize(rng, bev_cfg, 1.0, 180000)
     vox = check_voxelize(rng, bev_cfg, 0.5, bev_cfg.static.max_points)
+    # the BEV training path's shapes (NMS_PRE_TRAIN of the 1,100 anchors, 256
+    # RoIs a frame on the 25 x 22 map), from a stream of their own so that
+    # the checks above keep their inputs
+    rng_bev_train = np.random.RandomState(1)
+    nms_bev_train = check_nms("BEV train proposals", B, bev_train_cfg.static.nms_pre_train, 0.7,
+                              bev_train_cfg.train.rpn_post_nms_top_n, rng_bev_train)
+    roi_bev_train = check_roi_align(rng_bev_train, BEV_FEAT_HW, R_TRAIN)
+    roi_bwd_bev = check_roi_align_backward(rng_bev_train, BEV_FEAT_HW)
 
     serving_cfg = make_config(IMAGE_OVERRIDES, SERVING_OVERRIDES)
 
@@ -1476,15 +1423,16 @@ def main() -> int:
                 "launches_by_path": {k: v[name] for k, v in paths.items()},
                 **measured, "library_ms": None}
 
-    nms_err = max(r["max_abs_err"] for r in (nms_prop, nms_filter, nms_train, nms_bev, nms_bev_filter))
+    nms_err = max(r["max_abs_err"] for r in (nms_prop, nms_filter, nms_train, nms_bev,
+                                             nms_bev_filter, nms_bev_train))
     kernels = {"kernels": [
         entry("voxelize_bev", "voxelize.cu", "ops/voxelize.py:39", "bev_training", vox),
         entry("nms", "nms.cu", "ops/nms.py:53", "bev_training",
-              {**nms_bev, "max_abs_err": nms_err}),
+              {**nms_bev_train, "max_abs_err": nms_err}),
         entry("roi_align", "roi_align.cu", "ops/roi_align.py:122", "bev_training",
-              roi_bev[torch.bfloat16]),
+              roi_bev_train[torch.bfloat16]),
         entry("roi_align_bwd", "roi_align.cu", "ops/roi_align.py:122 (VJP)", "bev_training",
-              roi_bwd[torch.bfloat16]),
+              roi_bwd_bev[torch.bfloat16]),
         entry("roi_align_multiscale", "roi_align.cu", "ops/roi_align.py:208", "fpn_serving",
               ms_fwd[torch.bfloat16]),
         entry("roi_align_multiscale_bwd", "roi_align.cu", "ops/roi_align.py:208 (VJP)",
@@ -1493,8 +1441,10 @@ def main() -> int:
               "bev_rotated_serving",
               {k: nms_rot[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}),
     ]}
-    print("timed at: voxelize_bev (8, 32768) -> (8, 400, 350, 15); nms (8, 1100) -> 300; "
-          "roi_align bf16 (8, 25, 22, 1024) x 300; roi_align_bwd bf16 dOut (8, 256, 7, 7, 1024); "
+    print("timed at the shapes of the path each entry's launches come from: voxelize_bev "
+          "(8, 32768) -> (8, 400, 350, 15); nms (8, 1024) -> 1024 slots @ 0.7 (BEV training; "
+          "max_abs_err over every NMS shape); roi_align bf16 (8, 25, 22, 1024) x 256; "
+          "roi_align_bwd bf16 dOut (8, 256, 7, 7, 1024) -> (8, 25, 22, 1024); "
           "roi_align_multiscale bf16 p2..p5 of 512x960 x (8, 300) rois of 16-900 px; "
           "roi_align_multiscale_bwd bf16 dOut (8, 256, 7, 7, 256); nms_rotated (16, 300) -> 100 "
           "@ 0.3 (max_abs_err: its IoU kernel against the twin's IoU); library_ms null: no "
@@ -1502,9 +1452,12 @@ def main() -> int:
           "MultiScaleRoIAlign are not installed)")
     print(f"also: voxelize_bev (8, 180000) -> 800 x 700: {vox_waymo}; nms (8, 2048) -> 300: "
           f"{nms_prop}; (16, 300) -> 100: {nms_filter}; (8, 4096) -> 2000: {nms_train}; "
-          f"BEV (16, 300) -> 100: {nms_bev_filter}; roi_align (8, 32, 60, 1024): "
-          f"fp32 {roi[torch.float32]}, bf16 {roi[torch.bfloat16]}; (8, 25, 22, 1024) fp32 "
-          f"{roi_bev[torch.float32]}; roi_align backward fp32 {roi_bwd[torch.float32]}; "
+          f"BEV (8, 1100) -> 300: {nms_bev}; BEV (16, 300) -> 100: {nms_bev_filter}; "
+          f"roi_align (8, 32, 60, 1024) x 300: fp32 {roi[torch.float32]}, bf16 "
+          f"{roi[torch.bfloat16]}; (8, 25, 22, 1024) x 300: fp32 {roi_bev[torch.float32]}, bf16 "
+          f"{roi_bev[torch.bfloat16]}; x 256 fp32 {roi_bev_train[torch.float32]}; roi_align "
+          f"backward onto (8, 32, 60, 1024): fp32 {roi_bwd[torch.float32]}, bf16 "
+          f"{roi_bwd[torch.bfloat16]}; onto (8, 25, 22, 1024) fp32 {roi_bwd_bev[torch.float32]}; "
           f"roi_align_multiscale fp32 {ms_fwd[torch.float32]}; its backward fp32 "
           f"{ms_bwd[torch.float32]}; backward with every RoI on p5: fp32 "
           f"{ms_bwd_p5[torch.float32]}, bf16 {ms_bwd_p5[torch.bfloat16]}; rotated_iou (16, 300)^2 "

@@ -14,6 +14,7 @@ draws and pinned to its proposal lanes.
 
 from __future__ import annotations
 
+import contextlib
 import types
 
 import numpy as np
@@ -431,11 +432,15 @@ def _relu_ties(cfg, variables, model, data):
     """The backbone's ReLU units whose input has a different sign in the JAX
     package and in the port: (layer, block, the conv feeding the ReLU
     (conv3: the residual ReLU), channel, JAX input, port input, max|JAX
-    input| of that ReLU).  Such a unit sits at 0 within float32 rounding,
-    and its ReLU passes gradient in one backend only."""
-    _, state = j_det.FasterRCNN(cfg=cfg, num_classes=K).apply(
-        variables, jnp.asarray(data), method=j_det.FasterRCNN.features,
-        capture_intermediates=True, mutable=["intermediates"])
+    input| of that ReLU, (frame, y, x)).  Such a unit sits at 0 within
+    float32 rounding, and its ReLU passes gradient in one backend only.  The
+    JAX side is its jitted features, as in the jitted gradients: XLA's fused
+    convs round differently from eager ones and can move a unit at 0 across
+    it (a layer2 conv1 unit of the LiDAR training frames of seed 5: +9.0e-8
+    jitted, below 0 eager and in the port)."""
+    _, state = jax.jit(lambda v, x: j_det.FasterRCNN(cfg=cfg, num_classes=K).apply(
+        v, x, method=j_det.FasterRCNN.features, capture_intermediates=True,
+        mutable=["intermediates"]))(variables, jnp.asarray(data))
     j_bb = state["intermediates"]["backbone"]
     t_out, hooks = {}, []
     blocks = [(n, m) for n, m in model.backbone.named_modules() if isinstance(m, Bottleneck)]
@@ -467,24 +472,47 @@ def _relu_ties(cfg, variables, model, data):
             assert np.abs(tx - jx).max() <= 1e-4 * np.abs(jx).max(), (name, conv)
             for at in np.argwhere((jx > 0) != (tx > 0)):
                 ties.append((layer, int(i), conv, int(at[3]), float(jx[tuple(at)]),
-                             float(tx[tuple(at)]), float(np.abs(jx).max())))
+                             float(tx[tuple(at)]), float(np.abs(jx).max()),
+                             tuple(int(v) for v in at[:3])))
     return ties
 
 
-def _tie_rows(ties):
-    """{leaf: output channels} whose gradient a ReLU tie moves: the feeding
-    conv's channel; for the residual ReLU, that channel of conv3 in its
-    block and every earlier block of the layer, and of the layer's
-    downsample, which the identity path joins."""
-    rows = {}
-    for layer, i, conv, c, *_ in ties:
-        names = [f"backbone.{layer}.{i}.{conv}.weight"]
-        if conv == "conv3":
-            names = [f"backbone.{layer}.{k}.conv3.weight" for k in range(i + 1)]
-            names.append(f"backbone.{layer}.0.downsample.0.weight")
-        for n in names:
-            rows.setdefault(n, set()).add(c)
-    return rows
+@contextlib.contextmanager
+def _pinned_ties(model, ties):
+    """Within the block, the port's input to each tied ReLU unit (_relu_ties)
+    takes the JAX package's sign: a constant is added to the feeding BN's
+    output at that unit (bn3's for the residual ReLU, whose input adds the
+    block's identity), of the size of the unit's float32 rounding.  The
+    gradient still flows through the BN, and the unit's gate, and so the
+    gradient every leaf below it gets, is the one of JAX's step."""
+    hooks, identity = [], {}
+    for layer, i, conv, c, jx, _tx, _scale, (b, y, x) in ties:
+        block = model.backbone.get_submodule(f"{layer}.{i}")
+        at = (b, c, y, x)
+        if conv == "conv3" and block.downsample is not None:
+            hooks.append(block.downsample.register_forward_hook(
+                lambda _m, _a, out, key=block: identity.__setitem__(key, out.detach())))
+        elif conv == "conv3":
+            hooks.append(block.register_forward_pre_hook(
+                lambda _m, args, key=block: identity.__setitem__(key, args[0].detach())))
+
+        def pin(_m, _a, out, block=block, residual=conv == "conv3", at=at, jx=jx):
+            base = identity[block][at] if residual else out.new_zeros(())
+            v = out[at].detach()
+            d = torch.tensor(jx, dtype=out.dtype) - (v + base)
+            toward = torch.tensor(np.inf if jx > 0 else -np.inf, dtype=out.dtype)
+            while ((v + d) + base > 0) != (jx > 0):  # the block's float32 order
+                d = torch.nextafter(d, toward)
+            delta = torch.zeros_like(out)
+            delta[at] = d
+            return out + delta
+
+        hooks.append(getattr(block, "bn" + conv[-1]).register_forward_hook(pin))
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 @pytest.fixture(scope="module")
@@ -497,7 +525,6 @@ def train_run():
     run = types.SimpleNamespace(cfg=cfg, tcfg=tcfg, batch=batch, variables=variables, j=j,
                                 draws=draws)
     run.ties = _relu_ties(cfg, variables, _port(run), batch["data"])
-    run.tie_rows = _tie_rows(run.ties)
     return run
 
 
@@ -511,14 +538,6 @@ def _torch_layout(w):
     return np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else (w.T if w.ndim == 2 else w)
 
 
-def _assert_close_but_ties(name, got, want, atol, tie_rows):
-    """got vs want within atol, leaving out the output channels that a ReLU
-    tie moves (tie_rows)."""
-    rows = sorted(tie_rows.get(name, ()))
-    np.testing.assert_allclose(np.delete(got, rows, 0), np.delete(want, rows, 0), atol=atol,
-                               err_msg=name)
-
-
 def test_fpn_train_relu_ties_are_few_and_at_zero(train_run):
     """The units whose ReLU gate differs between the two backends are few,
     and each sits at 0 within 1e-5 of its ReLU's max|input| (float32 convs
@@ -526,9 +545,8 @@ def test_fpn_train_relu_ties_are_few_and_at_zero(train_run):
     there is one: c4 (layer3's last block), channel 233."""
     ties = train_run.ties
     assert len(ties) <= 4, ties
-    for layer, i, conv, c, jx, tx, scale in ties:
-        assert max(abs(jx), abs(tx)) <= 1e-5 * scale, (layer, i, conv, c, jx, tx, scale)
-    assert sum(len(v) for v in train_run.tie_rows.values()) <= 32
+    for layer, i, conv, c, jx, tx, scale, at in ties:
+        assert max(abs(jx), abs(tx)) <= 1e-5 * scale, (layer, i, conv, c, jx, tx, scale, at)
 
 
 def test_fpn_train_lanes_and_labels_identical(train_run):
@@ -550,11 +568,12 @@ def test_fpn_train_lanes_and_labels_identical(train_run):
 def test_fpn_train_losses_and_gradients(train_run):
     """The four losses within rtol 1e-4; every trainable leaf's gradient,
     fpn.*, backbone.layer4.* and tail.t_fc* among them, within 1e-3 of its
-    max, leaving out only the output channels that a ReLU tie moves
-    (test_fpn_train_relu_ties_are_few_and_at_zero)."""
+    max, each ReLU tie given JAX's gate (_pinned_ties;
+    test_fpn_train_relu_ties_are_few_and_at_zero)."""
     model = _port(train_run)
     t_optim.DetectorSGD(model, train_run.tcfg)
-    losses, _ = tt._forward(model, train_run)
+    with _pinned_ties(model, train_run.ties):
+        losses, _ = tt._forward(model, train_run)
     for k in tt.LOSSES + ("total_loss",):
         np.testing.assert_allclose(float(losses[k]), train_run.j.losses[k], rtol=1e-4, err_msg=k)
     assert all(train_run.j.losses[k] > 0 for k in tt.LOSSES)
@@ -562,12 +581,11 @@ def test_fpn_train_losses_and_gradients(train_run):
     trained = {n for n, p in model.named_parameters() if p.requires_grad}
     for prefix in ("fpn.", "backbone.layer4.", "tail.t_fc1.", "tail.t_fc3."):
         assert any(n.startswith(prefix) for n in trained), prefix
-    assert set(train_run.tie_rows) <= trained
     for name in trained:
         p, want = dict(model.named_parameters())[name], _torch_layout(train_run.j.g_total[name])
         got = np.zeros_like(want) if p.grad is None else p.grad.numpy()
-        _assert_close_but_ties(name, got, want, 1e-3 * np.abs(want).max() + 1e-12,
-                               train_run.tie_rows)
+        np.testing.assert_allclose(got, want, atol=1e-3 * np.abs(want).max() + 1e-12,
+                                   err_msg=name)
     assert len(trained) >= 60
 
 
@@ -577,7 +595,8 @@ def test_fpn_one_train_step_matches_make_train_step(train_run):
     step = t_solver.make_train_step(model, t_optim.DetectorSGD(model, train_run.tcfg))
     tb = {k: _t(v) for k, v in train_run.batch.items()}
     pin = (_t(train_run.j.src).long(), _t(train_run.j.valid))
-    losses, _ = step(tb, train_run.draws, pin)
+    with _pinned_ties(model, train_run.ties):
+        losses, _ = step(tb, train_run.draws, pin)
     np.testing.assert_allclose(float(losses["total_loss"]), train_run.j.losses["total_loss"],
                                rtol=1e-4)
     moved = 0
@@ -585,7 +604,7 @@ def test_fpn_one_train_step_matches_make_train_step(train_run):
         w = _torch_layout(train_run.j.new_params[name])
         want, got = w - start[name].numpy(), (p.detach() - start[name]).numpy()
         atol = 1e-3 * np.abs(want).max() + 1e-6 * np.abs(start[name].numpy()).max()
-        _assert_close_but_ties(name, got, want, atol, train_run.tie_rows)
+        np.testing.assert_allclose(got, want, atol=atol, err_msg=name)
         moved += bool(np.abs(want).max() > 0)
     # all but fpn.aalayer4.bias: never applied, so no gradient, and no decay on
     # biases (its weight moves by weight decay alone)

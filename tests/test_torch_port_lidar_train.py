@@ -51,9 +51,8 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.utils.convert import (  # noqa: E4
     load_flax_variables,
 )
 from tests.test_torch_port_fpn import (  # noqa: E402
-    _assert_close_but_ties,
+    _pinned_ties,
     _relu_ties,
-    _tie_rows,
     _torch_layout,
 )
 from tests.test_torch_port_train import (  # noqa: E402
@@ -63,7 +62,10 @@ from tests.test_torch_port_train import (  # noqa: E402
 )
 
 B, K, G, SCALE = 2, 2, 8, 0.25
-FRAMES_SEED = 6
+# the synthetic frames' seeds; on seed 5 one layer2 ReLU unit sits at 0
+# within rounding and takes a different gate in JAX's jitted step than in the
+# port (_relu_ties), which _pinned_ties reconciles
+FRAMES_SEEDS = (5, 6)
 LOSSES = ("rpn_cross_entropy", "rpn_loss_box", "cross_entropy", "loss_box")
 OVERRIDES = (
     "NET_TYPE", "lidar",
@@ -211,7 +213,7 @@ def _stages(m, images, window):
     return rois, a3d, valid, src
 
 
-def _batch(cfg, tcfg, seed=FRAMES_SEED):
+def _batch(cfg, tcfg, seed):
     """Two synthetic rasters (rasterized as the JAX loader does), windows,
     the shared weights and 7-DoF GT on some JAX proposals."""
     db = SyntheticDataset(tcfg, num_frames=B, mode="train", seed=seed)
@@ -307,10 +309,10 @@ def _jax_run(cfg, variables, batch, rng):
     )
 
 
-@pytest.fixture(scope="module")
-def run():
+@pytest.fixture(scope="module", params=FRAMES_SEEDS, ids=lambda seed: f"frames{seed}")
+def run(request):
     cfg, tcfg = _cfg(), _tcfg()
-    batch, variables = _batch(cfg, tcfg)
+    batch, variables = _batch(cfg, tcfg, request.param)
     j = _jax_run(cfg, variables, batch, jax.random.PRNGKey(3))
     model = t_det.FasterRCNN(tcfg, K)
     n, r = model.train_lane_counts(batch["data"].shape[1:3], G)
@@ -318,7 +320,7 @@ def run():
     draws = jax_draws(j.step_rng, B, n, r, G)
     ties = _relu_ties(cfg, variables, _port(tcfg, variables), batch["data"])
     return types.SimpleNamespace(cfg=cfg, tcfg=tcfg, batch=batch, variables=variables, j=j,
-                                 draws=draws, ties=ties, tie_rows=_tie_rows(ties))
+                                 draws=draws, ties=ties)
 
 
 def _port(cfg, variables):
@@ -336,9 +338,12 @@ def _pin(run):
 
 
 def _forward(model, run):
+    """forward_train on the JAX draws and proposal lanes, each ReLU tie given
+    JAX's gate."""
     tb = _tensors(run.batch)
-    return model.forward_train(tb["data"], tb["gt_boxes"], tb["gt_mask"], tb["window"],
-                               run.draws, proposals=_pin(run))
+    with _pinned_ties(model, run.ties):
+        return model.forward_train(tb["data"], tb["gt_boxes"], tb["gt_mask"], tb["window"],
+                                   run.draws, proposals=_pin(run))
 
 
 def test_lanes_samples_and_targets_identical(run):
@@ -370,14 +375,16 @@ def test_relu_ties_are_few_and_at_zero(run):
     """The backbone units whose ReLU gate differs between the two backends
     (test_torch_port_fpn._relu_ties) are few, and each sits at 0 within 1e-5
     of its ReLU's max|input|, not at a port fault."""
+    print(f"ReLU ties (layer, block, conv, channel, JAX input, port input, max|input|, at): "
+          f"{run.ties}")
     assert len(run.ties) <= 4, run.ties
-    for layer, i, conv, c, jx, tx, scale in run.ties:
-        assert max(abs(jx), abs(tx)) <= 1e-5 * scale, (layer, i, conv, c, jx, tx, scale)
+    for layer, i, conv, c, jx, tx, scale, at in run.ties:
+        assert max(abs(jx), abs(tx)) <= 1e-5 * scale, (layer, i, conv, c, jx, tx, scale, at)
 
 
 def test_losses_and_gradients(run):
     """Losses within rtol 1e-4; every trainable leaf's gradient within
-    1e-3 * its max, leaving out only the output channels a ReLU tie moves."""
+    1e-3 * its max, each ReLU tie given JAX's gate."""
     model = _port(run.tcfg, run.variables)
     DetectorSGD(model, run.tcfg)
     losses, _ = _forward(model, run)
@@ -387,10 +394,14 @@ def test_losses_and_gradients(run):
     assert all(run.j.losses[k] > 0 for k in LOSSES)
     losses["total_loss"].backward()
     trained = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    worst = (0.0, None)
     for name, p in trained:
         want = _torch_layout(run.j.g_total[name])
         got = np.zeros_like(want) if p.grad is None else p.grad.numpy()
-        _assert_close_but_ties(name, got, want, 1e-3 * np.abs(want).max() + 1e-12, run.tie_rows)
+        np.testing.assert_allclose(got, want, atol=1e-3 * np.abs(want).max() + 1e-12,
+                                   err_msg=name)
+        worst = max(worst, (float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12)), name))
+    print(f"largest gradient error / max|g|: {worst[0]} ({worst[1]})")
     assert len(trained) >= 50
 
 
@@ -413,18 +424,19 @@ def test_loss_box_reaches_the_rpn_through_the_proposals(run):
 def test_one_train_step_matches_make_train_step(run):
     """Port make_train_step vs JAX make_train_step: each trainable leaf's
     update within 1e-3 * its max plus float32 rounding of the parameter,
-    leaving out the output channels a ReLU tie moves."""
+    each ReLU tie given JAX's gate."""
     model = _port(run.tcfg, run.variables)
     start = {k: v.clone() for k, v in model.state_dict().items()}
     step = t_solver.make_train_step(model, DetectorSGD(model, run.tcfg))
-    losses, _ = step(_tensors(run.batch), run.draws, _pin(run))
+    with _pinned_ties(model, run.ties):
+        losses, _ = step(_tensors(run.batch), run.draws, _pin(run))
     np.testing.assert_allclose(float(losses["total_loss"]), run.j.losses["total_loss"], rtol=1e-4)
     moved = 0
     for name, p in model.named_parameters():
         w = _torch_layout(run.j.new_params[name])
         want, got = w - start[name].numpy(), (p.detach() - start[name]).numpy()
         atol = 1e-3 * np.abs(want).max() + 1e-6 * np.abs(start[name].numpy()).max()
-        _assert_close_but_ties(name, got, want, atol, run.tie_rows)
+        np.testing.assert_allclose(got, want, atol=atol, err_msg=name)
         moved += bool(np.abs(want).max() > 0)
     assert moved == sum(p.requires_grad for p in model.parameters()) >= 50
 
