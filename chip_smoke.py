@@ -13,20 +13,24 @@ non-zero and never prints its last line):
      at (8, 2048) -> 300 @ 0.7, (16, 300) -> 100 @ 0.6 (image serving),
      (8, 4096) -> 2000 @ 0.7 (training), (8, 1100) -> 300 @ 0.7 and
      (16, 300) -> 100 @ 0.6 (BEV serving), (8, 1024) -> 1024 slots @ 0.7
-     (BEV training) must keep identical lanes; RoI align at features
+     (BEV training) must keep identical lanes (each check also prints the
+     mask and scan kernels' device times apart, from torch.profiler); RoI
+     align at features
      (8, 32, 60, 1024) and (8, 25, 22, 1024) x 300 rois and (8, 25, 22,
      1024) x 256 (BEV training) within 1e-5 * max|F| (float32) and 1e-2 *
      max|F| (bfloat16, rounded output); the RoI-align backward at
-     (8, 32, 60, 1024) and (8, 25, 22, 1024) x 256 rois within
-     1e-5 * max|dF| (float32) and 1e-2 * max|dF| (bfloat16) of the twin's
-     autograd gradient (float32 atomics add in a different order on every
-     run); the BEV voxelizer at (8, 32768) points -> 400 x 350 x 15 and
+     (8, 32, 60, 1024) and (8, 25, 22, 1024) x 256 rois: every element
+     within the sum-order limit of the twin's autograd gradient on CPU
+     copies (sum_order_tolerance: 64 float32 eps times the summed
+     magnitudes of its contributions, plus one bf16 ulp for bfloat16; the
+     max|dF|-relative error is printed beside it), and two runs bitwise
+     equal; the BEV
+     voxelizer at (8, 32768) points -> 400 x 350 x 15 and
      (8, 180000) -> 800 x 700 x 15, with points on cell and slice
      boundaries, invalid lanes, points out of range, over-full voxels and an
      all-invalid frame: height and density channels equal, the meta
      channels within 1e-5 (float sums in atomic order).  Forward results are
-     compared with the twins on CPU copies, the backward with the twin on
-     the card.  Each kernel's time is device time (CUDA events, the median
+     compared with the twins on CPU copies, the backwards too.  Each kernel's time is device time (CUDA events, the median
      of 5 windows queued while the card sleeps, so the host's launch time is
      not in it: kernel_ms), beside the twin's time on the card (back to
      back, host included) and the least time the card could take (the
@@ -86,8 +90,8 @@ Phase 3 also holds the multiscale RoI-align kernels against their twins at
 the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
 1e-5 / 1e-2 * max|F| (its bound reads only the tap rows the RoIs hit on
-their levels), the backward at dOut (8, 256, 7, 7, 256) within
-1e-5 / 1e-2 * max|dF| of each level, and once with every RoI on p5; and the
+their levels), the backward at dOut (8, 256, 7, 7, 256) within the
+sum-order limit on every level, and once with every RoI on p5; and the
 rotated NMS at the BEV final filter's shape, (16, 300) -> 100 @ 0.3, on
 rotated boxes in voxel units, half of them clustered: its IoU kernel within
 5e-5 of the twin's IoU (and on edge cases: identical, nested, shared edge,
@@ -130,6 +134,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 IOU_FLOPS = 13  # float32 operations of one IoU pair in the NMS mask
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's 1.98 GHz: the host queues a window meanwhile
+EPS32 = 2.0 ** -23  # float32 machine epsilon
+# sum_order_tolerance's factor: float32 rounding errors of a sum of up to
+# ~1e4 contributions, random in sign, stay several standard deviations below
+# 64 eps times the sum of their magnitudes, in either summation order
+SUM_ORDER_FACTOR = 64
+BF16_ULP = 2.0 ** -7  # one bfloat16 ulp, relative to the value it rounds
 
 # The image and BEV configurations of the JAX package's bench (bench.py:196-228):
 # Waymo front camera at scale 0.5, and Waymo BEV at scale 0.5 (400 x 350 x 15).
@@ -171,6 +181,42 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 _T0 = time.perf_counter()
+
+
+def sum_order_tolerance(twin_fn, inputs, grad_out, out_dtype=None) -> list:
+    """Per-element limits for holding a gradient that sums the twin's
+    contributions in another order (float32 atomics, a tile gather) to the
+    twin's gradient: SUM_ORDER_FACTOR x EPS32 x S, where S is the twin's
+    gradient of |grad_out| taken in float32, per element the sum of the
+    magnitudes of every contribution to it; for a bfloat16 gradient plus one
+    bf16 ulp of the float32 gradient and of that limit (each side rounds
+    once).  twin_fn(list of float32 inputs) -> output; returns one limit
+    tensor per input."""
+    import torch
+
+    xs = [x.detach().float().requires_grad_(True) for x in inputs]
+    out = twin_fn(xs)
+    g = grad_out.float()
+    sums = torch.autograd.grad(out, xs, g.abs(), retain_graph=True)
+    grads = torch.autograd.grad(out, xs, g) if out_dtype == torch.bfloat16 else sums
+    limits = []
+    for s_, d in zip(sums, grads):
+        lim = SUM_ORDER_FACTOR * EPS32 * s_
+        if out_dtype == torch.bfloat16:
+            lim = lim + BF16_ULP * (d.abs() + lim)
+        limits.append(lim)
+    return limits
+
+
+def limit_ratio(got, want, limit) -> float:
+    """The largest |got - want| / limit over the elements: at most 1 passes
+    (an element with a zero limit must be equal)."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    ratio = torch.where(limit > 0, diff / limit.clamp_min(1e-30),
+                        torch.where(diff > 0, torch.full_like(diff, float("inf")), diff))
+    return float(ratio.max()) if ratio.numel() else 0.0
 
 
 def phase(name: str) -> None:
@@ -236,6 +282,31 @@ def kernel_ms(fn, reps: int, windows: int = 5) -> dict:
                              f"longer than the card's {sleep_ms} ms sleep")
     return {"ms": times[len(times) // 2], "min": times[0], "max": times[-1], "windows": windows,
             "host_queue_ms": max(host), "sleep_ms": sleep_ms}
+
+
+def profile_kernels(fn, reps: int, *names) -> dict:
+    """Device milliseconds per call of the CUDA kernels fn() launches whose
+    name holds each of `names`, from torch.profiler's per-kernel totals over
+    reps calls (after one warm-up call): {name: ms}, 0 where the profiler
+    saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        for n in names:
+            if n in e.key:
+                out[n] += us / 1e3 / reps
+    return out
 
 
 def spread(t: dict) -> str:
@@ -353,14 +424,19 @@ def check_nms(name, g, n, thr, max_out, rng):
         raise AssertionError(f"nms {name}: chain keeps {chain_kept}")
     t = kernel_ms(lambda: nms(db, ds, thr, max_out, dv), 50)
     ms = t["ms"]
+    split = profile_kernels(lambda: nms(db, ds, thr, max_out, dv), 10, "nms_mask_kernel",
+                            "nms_scan_kernel")
     plain_ms = cuda_ms(lambda: nms_plain(db, ds, thr, max_out, dv), 2)
     m = idx.shape[-1]
     pairs = nms_pairs(scores, valid, want_idx.numpy(), want_ok.numpy())
     bound, by = bound_ms(g * n * (16 + 4 + 1) + g * m * (4 + 1), pairs * IOU_FLOPS)
     print(f"nms {name} ({g}, {n}) -> {max_out} @ {thr}: identical keeps "
-          f"({int(ok.sum())} kept); kernel {spread(t)}, plain twin on the card {plain_ms} ms, "
-          f"bound {bound} ms ({by}; {pairs} IoU pairs)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+          f"({int(ok.sum())} kept); kernel {spread(t)}, of it per call (torch.profiler) the mask "
+          f"kernel {split['nms_mask_kernel']} ms and the staged block scan "
+          f"{split['nms_scan_kernel']} ms (the rest: the wrapper's sort and casts); plain twin on "
+          f"the card {plain_ms} ms, bound {bound} ms ({by}; {pairs} IoU pairs)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "mask_ms": split["nms_mask_kernel"], "scan_ms": split["nms_scan_kernel"]}
 
 
 def rotated_boxes(rng, g, n):
@@ -455,6 +531,8 @@ def check_rotated(g, n, thr, max_out, rng, tol=1e-4):
     if bad:
         raise AssertionError(f"nms_rotated: {bad} problems fail the tolerant greedy check")
     t = kernel_ms(lambda: nms(db, ds, thr, max_out, dv, rotated=True), 20)
+    split = profile_kernels(lambda: nms(db, ds, thr, max_out, dv, rotated=True), 10,
+                            "nms_rotated_mask_kernel", "nms_scan_kernel")
     plain_ms = cuda_ms(lambda: nms_plain(db, ds, thr, max_out, dv, rotated=True), 2)
     iou_t = kernel_ms(lambda: rotated_iou_matrix(db, db), 20)
     pairs = g * n * (n - 1) // 2  # the mask kernel's upper triangle
@@ -467,11 +545,15 @@ def check_rotated(g, n, thr, max_out, rng, tol=1e-4):
           f"{edge_err}; kernel {spread(iou_t)}")
     print(f"nms_rotated ({g}, {n}) -> {max_out} @ {thr}: {int(ok.sum())} kept; identical keeps on "
           f"the {g - near} problems without a kept lane's pair within {tol} of {thr} ({near} "
-          f"with one); the tolerant greedy check passes on all {g}; kernel {spread(t)}, plain "
+          f"with one); the tolerant greedy check passes on all {g}; kernel {spread(t)}, of it "
+          f"per call (torch.profiler) the rotated mask kernel "
+          f"{split['nms_rotated_mask_kernel']} ms and the staged block scan "
+          f"{split['nms_scan_kernel']} ms; plain "
           f"twin on the card {plain_ms} ms, bound {bound} ms ({by}: {pairs} upper-triangle pairs x "
           f"{ROT_PAIR_OPS} float32 operations, the least a pair costs in the kernel's code)")
     return {"max_abs_err": iou_err, "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "near_problems": near, "iou_ms": iou_t["ms"]}
+            "bound_by": by, "near_problems": near, "iou_ms": iou_t["ms"],
+            "mask_ms": split["nms_rotated_mask_kernel"], "scan_ms": split["nms_scan_kernel"]}
 
 
 def serving_rois(rng, b, r, frame_hw=FRAME_HW):
@@ -527,9 +609,15 @@ def check_roi_align(rng, feat_hw, r=R):
 
 
 def check_roi_align_backward(rng, feat_hw):
-    """The backward kernel against the twin's autograd gradient, both on the
-    card, at a training path's shapes (dOut (B, R_TRAIN, 7, 7, C) onto the
-    feat_hw map); times of the backward alone."""
+    """The backward kernel against the twin's autograd gradient on CPU
+    copies, at a training path's shapes (dOut (B, R_TRAIN, 7, 7, C) onto
+    the feat_hw map): every element within the sum-order limit
+    (sum_order_tolerance), and two runs bitwise equal (the tile gather sums
+    in a fixed order); times of the backward alone.  Not the twin on the
+    card: there PyTorch divides by the Python int P through a float32
+    reciprocal, so the twin's sample coordinates differ from the kernel's
+    (and the CPU twin's) in the last bit, which moves a near-integer tap's
+    small weight far more than summation order does."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -543,30 +631,40 @@ def check_roi_align_backward(rng, feat_hw):
     rois = torch.from_numpy(serving_rois(rng, B, R_TRAIN, (h * 16, w * 16))).cuda()
     grad_out = rng.normal(size=(B, R_TRAIN, 7, 7, C_FEAT)).astype(np.float32)
     results = {}
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+    for dtype in (torch.float32, torch.bfloat16):
         f = torch.from_numpy(feats).to(dtype).cuda().requires_grad_(True)
         g = torch.from_numpy(grad_out).to(dtype).cuda()
         (got,) = torch.autograd.grad(roi_align_batched(f, rois, 1.0 / 16), f, g)
-        plain_out = roi_align_batched_plain(f, rois, 1.0 / 16)
-        (want,) = torch.autograd.grad(plain_out, f, g, retain_graph=True)
-        torch.cuda.synchronize()
-        want = want.float()
-        gmax = float(want.abs().max())
-        err = float((got.float() - want).abs().max())
-        if got.dtype != dtype or not err <= tol * gmax:
-            raise AssertionError(f"roi_align backward {dtype}: max err {err} > {tol} * {gmax}")
         shape, fd = tuple(f.shape), f.dtype
+        again = _roi_align_bwd_cuda(g, rois, shape, fd, 1.0 / 16, 7, 2, False)
+        torch.cuda.synchronize()
+        got, again = got.cpu(), again.cpu()
+        f_cpu, g_cpu, r_cpu = f.detach().cpu().requires_grad_(True), g.cpu(), rois.cpu()
+        (want,) = torch.autograd.grad(roi_align_batched_plain(f_cpu, r_cpu, 1.0 / 16), f_cpu, g_cpu)
+        (limit,) = sum_order_tolerance(
+            lambda xs: roi_align_batched_plain(xs[0], r_cpu, 1.0 / 16), [f_cpu], g_cpu, dtype)
+        plain_out = roi_align_batched_plain(f, rois, 1.0 / 16)
+        gmax = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        ratio = limit_ratio(got, want, limit)
+        bitwise = torch.equal(got, again)
+        if got.dtype != dtype or not ratio <= 1.0 or not bitwise:
+            raise AssertionError(f"roi_align backward {dtype}: max |dF - twin| / limit {ratio}, "
+                                 f"max err {err} ({err / gmax} of max|dF|), two runs bitwise "
+                                 f"equal {bitwise}")
         t = kernel_ms(lambda: _roi_align_bwd_cuda(g, rois, shape, fd, 1.0 / 16, 7, 2, False), 10)
         ms = t["ms"]
         plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, f, g, retain_graph=True), 3)
         bound, by = bound_ms(g.numel() * g.element_size() + rois.numel() * 4
                              + f.numel() * f.element_size(), roi_align_flops(g.numel()))
         print(f"roi_align backward {str(dtype).split('.')[-1]} dOut {tuple(g.shape)} -> dF "
-              f"{shape}: max abs err {err} (bound {tol} * max|dF| = {tol * gmax}); kernel "
-              f"{spread(t)}, plain twin's autograd backward on the card {plain_ms} ms, "
-              f"bound {bound} ms ({by})")
+              f"{shape}: max |dF - twin| / sum-order limit {ratio} (limit {SUM_ORDER_FACTOR} x "
+              f"eps32 x the summed |contributions| of each element"
+              f"{' + one bf16 ulp' if dtype == torch.bfloat16 else ''}); max abs err {err} = "
+              f"{err / gmax} x max|dF| {gmax}; two runs bitwise equal; kernel {spread(t)}, plain "
+              f"twin's autograd backward on the card {plain_ms} ms, bound {bound} ms ({by})")
         results[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound, "bound_by": by}
+                          "bound_ms": bound, "bound_by": by, "limit_ratio": ratio}
         del plain_out
     return results
 
@@ -678,9 +776,11 @@ def check_multiscale_roi_align(rng):
 
 
 def check_multiscale_backward(rng, rois_np, label):
-    """The multiscale backward kernel against the twin's autograd gradients,
-    both on the card, at dOut (8, 256, 7, 7, 256): each level within
-    tol * max|dF| of that level; times of the backward alone."""
+    """The multiscale backward kernel against the twin's autograd gradients
+    on CPU copies (see check_roi_align_backward), at dOut (8, 256, 7, 7,
+    256): every element of each level within the sum-order limit
+    (sum_order_tolerance: float32 atomics add in run order); times of the
+    backward alone."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -695,20 +795,27 @@ def check_multiscale_backward(rng, rois_np, label):
     counts = level_counts(roi_levels(rois, len(FPN_STRIDES)))
     grad_out = rng.normal(size=(B, rois.shape[1], 7, 7, C_FPN)).astype(np.float32)
     results = {}
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+    for dtype in (torch.float32, torch.bfloat16):
         f = [torch.from_numpy(m).to(dtype).cuda().requires_grad_(True) for m in maps]
         g = torch.from_numpy(grad_out).to(dtype).cuda()
         got = torch.autograd.grad(multiscale_roi_align_batched(f, rois, FPN_STRIDES), f, g)
-        plain_out = multiscale_roi_align_batched_plain(f, rois, FPN_STRIDES)
-        want = torch.autograd.grad(plain_out, f, g, retain_graph=True)
         torch.cuda.synchronize()
+        got = [a.cpu() for a in got]
+        f_cpu = [m.detach().cpu().requires_grad_(True) for m in f]
+        g_cpu, r_cpu = g.cpu(), rois.cpu()
+        want = torch.autograd.grad(multiscale_roi_align_batched_plain(f_cpu, r_cpu, FPN_STRIDES),
+                                   f_cpu, g_cpu)
+        limits = sum_order_tolerance(
+            lambda xs: multiscale_roi_align_batched_plain(xs, r_cpu, FPN_STRIDES), f_cpu, g_cpu,
+            dtype)
+        plain_out = multiscale_roi_align_batched_plain(f, rois, FPN_STRIDES)
         errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)]
         gmax = [float(w.float().abs().max()) for w in want]
-        ok = all(a.dtype == dtype for a in got) and all(
-            e <= tol * m for e, m in zip(errs, gmax))
+        ratios = [limit_ratio(a, w, lim) for a, w, lim in zip(got, want, limits)]
+        ok = all(a.dtype == dtype for a in got) and all(r <= 1.0 for r in ratios)
         if not ok:
-            raise AssertionError(f"multiscale backward {label} {dtype}: max err per level {errs} "
-                                 f"vs {tol} * max|dF| {gmax}")
+            raise AssertionError(f"multiscale backward {label} {dtype}: max |dF - twin| / limit "
+                                 f"per level {ratios}, max err per level {errs}, max|dF| {gmax}")
         shapes, fd = [tuple(m.shape) for m in f], f[0].dtype
         t = kernel_ms(lambda: _multiscale_roi_align_bwd_cuda(
             g, rois, shapes, fd, FPN_STRIDES, 7, 2), 10)
@@ -718,12 +825,14 @@ def check_multiscale_backward(rng, rois_np, label):
                   + sum(m.numel() * m.element_size() for m in f))
         bound, by = bound_ms(nbytes, roi_align_flops(g.numel()))
         print(f"roi_align_multiscale backward {label} {str(dtype).split('.')[-1]} dOut "
-              f"{tuple(g.shape)}, RoIs per level p2..p5 {counts}: max abs err per level {errs} "
-              f"(bound {tol} * max|dF| per level {gmax}); kernel {spread(t)}, plain twin's autograd "
+              f"{tuple(g.shape)}, RoIs per level p2..p5 {counts}: max |dF - twin| / sum-order "
+              f"limit per level {ratios}; max abs err per level {errs} = "
+              f"{[e / m if m else 0.0 for e, m in zip(errs, gmax)]} x max|dF| per level {gmax}; "
+              f"kernel {spread(t)}, plain twin's autograd "
               f"backward on the card {plain_ms} ms, bound {bound} ms ({by}: dOut, the rois and "
               f"each map's gradient once)")
         results[dtype] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound, "bound_by": by}
+                          "bound_ms": bound, "bound_by": by, "limit_ratio": max(ratios)}
         del plain_out
     return results
 
@@ -1443,11 +1552,14 @@ def main() -> int:
     ]}
     print("timed at the shapes of the path each entry's launches come from: voxelize_bev "
           "(8, 32768) -> (8, 400, 350, 15); nms (8, 1024) -> 1024 slots @ 0.7 (BEV training; "
+          "the IoU mask kernel, then the keep scan in 64-row blocks staged by TMA bulk copies; "
           "max_abs_err over every NMS shape); roi_align bf16 (8, 25, 22, 1024) x 256; "
-          "roi_align_bwd bf16 dOut (8, 256, 7, 7, 1024) -> (8, 25, 22, 1024); "
+          "roi_align_bwd bf16 dOut (8, 256, 7, 7, 1024) -> (8, 25, 22, 1024) (the tile gather: "
+          "2 x 4 cells a block, sums in registers, no atomics, bitwise repeatable); "
           "roi_align_multiscale bf16 p2..p5 of 512x960 x (8, 300) rois of 16-900 px; "
           "roi_align_multiscale_bwd bf16 dOut (8, 256, 7, 7, 256); nms_rotated (16, 300) -> 100 "
-          "@ 0.3 (max_abs_err: its IoU kernel against the twin's IoU); library_ms null: no "
+          "@ 0.3 (the rotated mask kernel and the same block scan; max_abs_err: its IoU kernel "
+          "against the twin's IoU); library_ms null: no "
           "single PyTorch call computes these functions (torchvision's nms, roi_align and "
           "MultiScaleRoIAlign are not installed)")
     print(f"also: voxelize_bev (8, 180000) -> 800 x 700: {vox_waymo}; nms (8, 2048) -> 300: "

@@ -26,13 +26,20 @@
 //      stages its 64 column boxes in shared memory and each thread writes one
 //      64-bit word for its row: bit j set when column j > row i and
 //      iou(i, j) > threshold.  Fully parallel, N^2/2 IoUs per problem.
-//   2. nms_scan_kernel: one warp per problem.  The `removed` bit set (N/64
-//      words) lives in shared memory and starts as the complement of the
-//      valid lanes, so the sequential loop over rows touches only shared
-//      memory, except for a kept row, whose mask words are ORed in.  The
-//      loop stops as soon as M lanes are kept.  Kept sorted lanes are
-//      collected in shared memory and mapped through the sort order in one
-//      parallel pass at the end.
+//   2. nms_scan_kernel: one block of 256 threads per problem.  The
+//      `removed` bit set (N/64 words)
+//      lives in shared memory and starts as the complement of the valid
+//      lanes.  The scan walks the rows in blocks of 64.  The words of block
+//      j's rows from the diagonal on are copied into shared memory by one
+//      TMA bulk copy on an mbarrier, two blocks ahead (fewer where three
+//      buffers do not fit), so no kept row's words come from global memory
+//      while the scan waits.
+//      One warp resolves the block's 64 keep decisions from removed[j] and
+//      the staged diagonal words, as the fixed point of a warp-wide OR of
+//      the kept rows' diagonal words; then the warps OR the kept rows'
+//      staged words into `removed`, a share of the rows each, a word a lane.  The scan stops as soon as
+//      M lanes are kept.  The kept bits are mapped to slots and through the
+//      sort order in one parallel pass at the end.
 //
 // Axis-aligned arithmetic: every IoU step uses the round-to-nearest
 // intrinsics so that nvcc cannot contract a multiply-add into an FMA.  The
@@ -59,7 +66,7 @@
 namespace {
 
 constexpr int kBoxesPerBlock = 64;
-constexpr int kScanThreads = 32;
+constexpr size_t kScanSmemLimit = 232448 - 1024;  // sm_90's 227 KB, less the static part
 
 __device__ __forceinline__ float box_area(float4 b) {
   return __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
@@ -244,64 +251,221 @@ __global__ void rotated_iou_kernel(const float* __restrict__ a, const float* __r
   for (int j = 0; j < col_size; ++j) o[j] = rot_iou(r, cols[j]);
 }
 
-__global__ void nms_scan_kernel(const unsigned long long* __restrict__ mask,
-                                const uint8_t* __restrict__ valid,
-                                const int* __restrict__ order, int n,
-                                int col_blocks, int m, int* __restrict__ out_idx,
+using u64 = unsigned long long;
+
+constexpr int kScanThreads = 256;
+constexpr int kMaxStages = 3;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(u64* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)));
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Row block j of a problem's mask: its words from (row 0, word j) to the
+// end of its last row, one contiguous range (the scan reads only words j..
+// of each row; the words left of the diagonal in rows 1.. ride along).
+// One thread issues it as a TMA bulk copy completed on `bar`.  The copy is
+// widened to 16-byte bounds (the wrapper pads the mask by 2 words), and the
+// block lands at buffer word block_shift(...), so that both ends are
+// 16-byte aligned: word k of the block is dst[k + shift].
+__device__ __forceinline__ int block_shift(int g, int n, int col_blocks, int j) {
+  return static_cast<int>((((size_t)g * n + (size_t)j * kBoxesPerBlock) * col_blocks) & 1);
+}
+
+__device__ __forceinline__ void stage_block(u64* dst, u64* bar, const u64* mask, int g, int n,
+                                            int col_blocks, int j) {
+  const int rows = min(n - j * kBoxesPerBlock, kBoxesPerBlock);
+  const size_t block = ((size_t)g * n + (size_t)j * kBoxesPerBlock) * col_blocks;
+  const size_t first = (block + j) & ~(size_t)1;
+  const size_t end = (block + (size_t)rows * col_blocks + 1) & ~(size_t)1;
+  const unsigned bytes = static_cast<unsigned>((end - first) * sizeof(u64));
+  u64* to = dst + ((long long)first - (long long)block + (long long)(block & 1));  // first >= block - 1
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // earlier reads of the buffer
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_addr(to)),
+      "l"(mask + first), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Dynamic shared memory, 16-byte aligned: `stages` buffers of 64 x
+// col_blocks + 2 staged words, then removed[col_blocks], kept[col_blocks]
+// (each block's kept rows as bits), first_slot[col_blocks + 1] (int).
+// Block j is staged into buffer j % stages, stages - 1 blocks ahead of the
+// scan (with one buffer: just before it), on that buffer's mbarrier.
+__global__ void nms_scan_kernel(const u64* __restrict__ mask, const uint8_t* __restrict__ valid,
+                                const int* __restrict__ order, int n, int col_blocks, int m,
+                                int stages, int* __restrict__ out_idx,
                                 uint8_t* __restrict__ out_valid) {
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* removed = smem;                       // col_blocks words
-  int* kept = reinterpret_cast<int*>(smem + col_blocks);    // m sorted lanes
+  extern __shared__ __align__(16) u64 smem[];
+  __shared__ int count_s;
+  __shared__ int kept_rows_s[kBoxesPerBlock];  // block j's kept rows, in order
+  __shared__ __align__(8) u64 bars[kMaxStages];
+  const size_t stage_words = (size_t)kBoxesPerBlock * col_blocks + 2;
+  u64* stage = smem;
+  u64* removed = stage + stages * stage_words;
+  u64* kept = removed + col_blocks;
+  int* first_slot = reinterpret_cast<int*>(kept + col_blocks);
 
   const int g = blockIdx.x;
-  const int lane = threadIdx.x;
-  const unsigned long long* gm = mask + (size_t)g * n * col_blocks;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, warps = blockDim.x >> 5;
   const uint8_t* gv = valid + (size_t)g * n;
 
-  // removed starts as "not valid": lanes past n count as removed too
-  for (int w = 0; w < col_blocks; ++w) {
-    const int i0 = w * kBoxesPerBlock + lane;
-    const int i1 = i0 + 32;
-    const unsigned lo = __ballot_sync(0xffffffffu, i0 < n && gv[i0] != 0);
-    const unsigned hi = __ballot_sync(0xffffffffu, i1 < n && gv[i1] != 0);
-    if (lane == 0) {
-      removed[w] = ~(((unsigned long long)hi << 32) | (unsigned long long)lo);
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&bars[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s + 1 < stages && s < col_blocks; ++s) {
+      stage_block(stage + s * stage_words, &bars[s], mask, g, n, col_blocks, s);
     }
   }
-  __syncwarp();
-
-  int count = 0;
-  for (int i = 0; i < n && count < m; ++i) {
-    const int blk = i / kBoxesPerBlock;
-    if ((removed[blk] >> (i % kBoxesPerBlock)) & 1ULL) continue;  // uniform
-    if (lane == 0) kept[count] = i;
-    ++count;
-    const unsigned long long* row = gm + (size_t)i * col_blocks;
-    for (int w = blk + lane; w < col_blocks; w += kScanThreads) {
-      removed[w] |= row[w];
-    }
-    __syncwarp();
+  // removed starts as "not valid": lanes past n count as removed too; a
+  // warp's ballot is half a word
+  unsigned* removed_half = reinterpret_cast<unsigned*>(removed);
+#pragma unroll 4
+  for (int half = warp; half < 2 * col_blocks; half += warps) {
+    const int i = half * 32 + lane;
+    const unsigned ok = __ballot_sync(0xffffffffu, i < n && gv[i] != 0);
+    if (lane == 0) removed_half[half] = ~ok;
   }
-  __syncwarp();
+  for (int w = t; w < col_blocks; w += blockDim.x) kept[w] = 0ULL;
+  if (t == 0) count_s = 0;
+  __syncthreads();  // the barriers are initialised before anyone waits on them
 
+  int count = 0;  // every thread's copy of count_s, updated once a block
+  int j = 0;
+  for (; j < col_blocks && count < m; ++j) {
+    const int buf = j % stages;
+    if (stages == 1) {
+      __syncthreads();  // the one buffer is free once block j - 1 is applied
+      if (t == 0) stage_block(stage, &bars[0], mask, g, n, col_blocks, j);
+    }
+    mbar_wait(&bars[buf], (j / stages) & 1);
+    __syncthreads();  // removed[j] final, block j - 1 applied
+    if (t == 0 && stages > 1 && j + stages - 1 < col_blocks) {
+      const int jn = j + stages - 1;
+      stage_block(stage + (jn % stages) * stage_words, &bars[jn % stages], mask, g, n,
+                  col_blocks, jn);
+    }
+    const u64* st = stage + buf * stage_words + block_shift(g, n, col_blocks, j);
+    if (warp == 0) {
+      // block j's keeps: the greedy set is the one fixed point of
+      // K = free & ~OR_{r in K} diag[r] (diag[r] holds only rows after r,
+      // so row i's bit is settled once the rows before it are).  Iterate
+      // from K = free, lane l holding rows l and l + 32, until K stops
+      // changing: as many rounds as the longest suppression chain, plus one.
+      const u64 d0 = st[lane * col_blocks + j];
+      const u64 d1 = st[(lane + 32) * col_blocks + j];
+      const u64 free = ~removed[j];
+      u64 bits = free;
+      for (;;) {
+        const u64 mine = (((bits >> lane) & 1ULL) ? d0 : 0ULL) |
+                         (((bits >> (lane + 32)) & 1ULL) ? d1 : 0ULL);
+        const u64 sup = ((u64)__reduce_or_sync(0xffffffffu, static_cast<unsigned>(mine >> 32))
+                         << 32) |
+                        __reduce_or_sync(0xffffffffu, static_cast<unsigned>(mine));
+        const u64 next = free & ~sup;
+        if (next == bits) break;
+        bits = next;
+      }
+      // stop at the m-th keep: drop the block's last kept rows beyond it
+      const int room = m - count;
+      while (__popcll(bits) > room) bits &= ~(1ULL << (63 - __clzll(static_cast<long long>(bits))));
+      if ((bits >> lane) & 1ULL) kept_rows_s[__popcll(bits & ((1ULL << lane) - 1ULL))] = lane;
+      if ((bits >> (lane + 32)) & 1ULL) {
+        kept_rows_s[__popcll(bits & ((1ULL << (lane + 32)) - 1ULL))] = lane + 32;
+      }
+      if (lane == 0) {
+        kept[j] = bits;
+        count_s = count + __popcll(bits);
+      }
+    }
+    __syncthreads();
+    const int block_kept = count_s - count;
+    count = count_s;
+    // OR the kept rows' words right of the diagonal into removed: warp i
+    // takes kept rows i, i + warps, ..., its lanes the words
+    if (block_kept > warp) {
+      for (int w = j + 1 + lane; w < col_blocks; w += 32) {
+        u64 acc = 0ULL;
+        for (int i = warp; i < block_kept; i += warps) acc |= st[kept_rows_s[i] * col_blocks + w];
+        if (acc) atomicOr(&removed[w], acc);
+      }
+    }
+  }
+  // the blocks staged ahead of a scan that stopped early must land before
+  // the block exits
+  const int staged = stages == 1 ? j : min(col_blocks, j + stages - 1);
+  for (int jj = j; jj < staged; ++jj) mbar_wait(&bars[jj % stages], (jj / stages) & 1);
+  __syncthreads();
+
+  if (t == 0) {
+    int s = 0;
+    for (int w = 0; w < col_blocks; ++w) {
+      first_slot[w] = s;
+      s += __popcll(kept[w]);
+    }
+    first_slot[col_blocks] = s;
+  }
+  __syncthreads();
   const int* go = order + (size_t)g * n;
   int* oi = out_idx + (size_t)g * m;
   uint8_t* ov = out_valid + (size_t)g * m;
-  for (int s = lane; s < m; s += kScanThreads) {
-    const bool ok = s < count;
-    oi[s] = ok ? go[kept[s]] : 0;
-    ov[s] = ok ? 1 : 0;
+  for (int i = t; i < n; i += blockDim.x) {
+    const int w = i / kBoxesPerBlock, r = i % kBoxesPerBlock;
+    const u64 k = kept[w];
+    if ((k >> r) & 1ULL) {
+      const int s = first_slot[w] + __popcll(k & ((1ULL << r) - 1ULL));
+      oi[s] = go[i];
+      ov[s] = 1;
+    }
+  }
+  for (int s = first_slot[col_blocks] + t; s < m; s += blockDim.x) {
+    oi[s] = 0;
+    ov[s] = 0;
   }
 }
 
-// The keep scan over the G problems' masks (both NMS entries).
+// The scan's dynamic shared memory for `stages` staged row blocks.
+size_t scan_smem_bytes(int col_blocks, int stages) {
+  return ((size_t)stages * ((size_t)kBoxesPerBlock * col_blocks + 2) + 2 * col_blocks +
+          (col_blocks + 2) / 2) * sizeof(u64);
+}
+
+// The keep scan over the G problems' masks (both NMS entries): three
+// staging buffers where they fit, else two, else one.  The mask holds 2
+// words of padding past its G x N x col_blocks.
 int launch_scan(const void* mask, const void* valid, const void* order, int g, int n,
                 int col_blocks, int m, void* out_idx, void* out_valid, cudaStream_t s) {
-  const size_t smem = col_blocks * sizeof(unsigned long long) + m * sizeof(int);
+  int stages = kMaxStages;
+  while (stages > 1 && scan_smem_bytes(col_blocks, stages) > kScanSmemLimit) --stages;
+  const size_t smem = scan_smem_bytes(col_blocks, stages);
+  if (smem > kScanSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   nms_scan_kernel<<<g, kScanThreads, smem, s>>>(
-      static_cast<const unsigned long long*>(mask),
-      static_cast<const uint8_t*>(valid), static_cast<const int*>(order), n,
-      col_blocks, m, static_cast<int*>(out_idx),
+      static_cast<const u64*>(mask), static_cast<const uint8_t*>(valid),
+      static_cast<const int*>(order), n, col_blocks, m, stages, static_cast<int*>(out_idx),
       static_cast<uint8_t*>(out_valid));
   return static_cast<int>(cudaGetLastError());
 }
@@ -310,7 +474,7 @@ int launch_scan(const void* mask, const void* valid, const void* order, int g, i
 
 // boxes: (G, N, 4) float32, score-sorted, 16-byte aligned.
 // valid: (G, N) uint8 of the sorted lanes.  order: (G, N) int32 sort order.
-// mask: scratch of G * N * ceil(N / 64) 64-bit words.
+// mask: scratch of G * N * ceil(N / 64) + 2 64-bit words, 16-byte aligned.
 // out_idx: (G, M) int32, out_valid: (G, M) uint8, M = min(N, max_out).
 // Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int frcnn_nms(const void* boxes, const void* valid, const void* order,

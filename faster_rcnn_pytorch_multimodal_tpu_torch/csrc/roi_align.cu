@@ -9,16 +9,24 @@
 // as two interpolation-matrix einsums because gathers are slow on a TPU; on
 // this card the forward is a gather and the backward the matching scatter.
 //
-// The backward at the training shapes (B 8, R 256, P 7, C 1024) issues
-// 8 x 256 x 49 x 16 x 1024 = 1.6e9 float32 atomic adds into a 63 MB
-// accumulator while it reads 206 MB of bf16 dOut, so it is bound by the
-// atomics' throughput in L2, not by bytes.  The backward therefore gives
-// each thread one channel at a time: a warp's 32 atomics then hit 32
-// consecutive floats (one 128-byte line), where 16-byte vector lanes as in
-// the forward spread them over 4-8 lines and ran 4x (float32) to 8x
-// (bfloat16) slower on the card.  Merging the repeated taps of a bin, vector
-// atomics or a gather formulation per feature cell are the next ways to
-// cut it.
+// The backward at the training shapes (B 8, R 256, P 7, C 1024) has
+// 8 x 256 x 49 x 16 x 1024 = 1.6e9 float32 channel-taps to add into the
+// feature gradient.  Spread as atomics into L2 they set its time (2.4 ms on
+// a 32 x 60 map and on a 25 x 22 one alike), so the backward is a gather
+// instead: each block owns a tile of 2 x 4 map cells of one frame and a
+// slice of channels, 4 channels a thread, and keeps the tile's float32
+// sums in registers.  No two threads write one word, so there are no
+// atomics, and every cell sums its contributions in one fixed order (RoI,
+// bin row, bin column), so the result is the same bit for bit from run to
+// run.  A block walks only the RoIs whose tap footprint meets its tile
+// (`axis_span`).  A bin's weight on cell (y, x) is wy(y) wx(x), the bin
+// row's and the bin column's summed tap weights (dense profiles over the
+// tile's rows and columns, in shared memory), so a RoI adds
+// sum_ph wy_ph (x) (sum_pw g[ph, pw] wx_pw): register FMAs, with shared
+// memory touched only for the profiles (sums in shared memory instead, one
+// read-modify-write a tap, are bound by shared-memory bandwidth).  The
+// tile is written once, in the features' dtype (bf16 rounded in the same
+// pass), every cell of it, so the gradient needs no zeroing.
 //
 // Semantics (the JAX package's, parity waiver 6): torchvision box mapping
 // with aligned=False by default (RoI size floored at 1 px on the feature
@@ -91,6 +99,27 @@ struct VecIO<__nv_bfloat16, 8> {
 #pragma unroll
     for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
     *reinterpret_cast<uint4*>(p) = t;
+  }
+};
+
+template <>
+struct VecIO<__nv_bfloat16, 4> {
+  __device__ static void load(const __nv_bfloat16* p, float (&v)[4]) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const float (&v)[4]) {
+    uint2 t;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint2*>(p) = t;
   }
 };
 
@@ -178,8 +207,8 @@ __device__ __forceinline__ void pool_bin(const T* fb, int h, int w, int c, int c
   for (int k = 0; k < VEC; ++k) acc[k] = __fdiv_rn(acc[k], count);
 }
 
-// The transpose of pool_bin for one channel ch: spreads g / (sr * sr) over
-// the bin's taps with float32 atomics (RED.ADD, the result is unused) into
+// The transpose of pool_bin for one channel ch (the multiscale backward):
+// spreads g / (sr * sr) over the bin's taps with float32 atomics (RED.ADD, the result is unused) into
 // the (h, w, c) float32 map gb.  Taps of neighbouring bins and RoIs overlap,
 // so the order of the adds, and the last bits of the sum, change from run
 // to run.  Zero-weight taps (a coordinate clamped to the edge) are skipped.
@@ -229,26 +258,226 @@ __global__ void roi_align_fwd_kernel(const T* __restrict__ feat,
   }
 }
 
+// A RoI's tap footprint on one axis: the rows (or columns) from the low tap
+// of sample 0 to the high tap of sample P * sr - 1.  The clamped sample
+// coordinate is non-decreasing in the sample index (bin >= 0 and every step
+// rounds monotonically), so lo and hi = min(lo + 1, dim - 1) are too, and
+// no tap of the RoI lies outside [lo, hi].
+__device__ __forceinline__ void axis_span(float start, float bin, int p, int sr, int dim,
+                                          int* lo, int* hi) {
+  *lo = axis_taps(start, bin, 0, sr, dim).lo;
+  *hi = axis_taps(start, bin, p * sr - 1, sr, dim).hi;
+}
+
+constexpr int kBwdTileH = 2;  // a backward block owns kBwdTileH x kBwdTileW cells
+constexpr int kBwdTileW = 4;
+constexpr int kBwdThreads = 128;  // threads of a block, VEC channels each
+constexpr int kBwdVec = 4;  // channels a thread owns where C and the pointers allow
+constexpr int kBwdSub = 16;  // kept RoIs whose tap profiles are built together
+constexpr int kBwdChunk = 8;  // bins of one bin row whose dOut is loaded together
+
+// The backward block's dynamic shared memory, in this order: the kept
+// RoIs' boxes and indices (threads each: one chunk of the frame's RoIs);
+// for kBwdSub kept RoIs, the dense tap profiles of every bin row over the
+// tile's rows and of every bin column over its columns (summed weights,
+// P x (kBwdTileH + kBwdTileW) floats), and each RoI's range of bins whose
+// profile is not zero (ph0, ph1, pw0, pw1).
+size_t bwd_smem_bytes(int threads, int p) {
+  return (size_t)threads * (sizeof(RoIBox) + sizeof(int)) +
+         (size_t)kBwdSub * p * (kBwdTileH + kBwdTileW) * sizeof(float) +
+         (size_t)kBwdSub * 4 * sizeof(int);
+}
+
+// Bin `bin`'s summed tap weights on one axis over the tile's cells
+// t0 .. t0 + N - 1 (zero where no tap lands).  Zero-weight taps (a
+// coordinate clamped to the edge, or on a cell) are skipped, as
+// scatter_bin skips them.  Returns whether a weight is not zero.
+template <int N>
+__device__ __forceinline__ bool bin_profile(float start, float bin_size, int bin, int sr, int dim,
+                                            int t0, float* out) {
+  float wt[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) wt[i] = 0.f;
+  bool any = false;
+  for (int s = 0; s < sr; ++s) {
+    const Taps tp = axis_taps(start, bin_size, bin * sr + s, sr, dim);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (tp.w_lo != 0.f && tp.lo == t0 + i) wt[i] = __fadd_rn(wt[i], tp.w_lo);
+      if (tp.w_hi != 0.f && tp.hi == t0 + i) wt[i] = __fadd_rn(wt[i], tp.w_hi);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    out[i] = wt[i];
+    any |= wt[i] != 0.f;
+  }
+  return any;
+}
+
 // Backward: the gradient with respect to the features (the RoIs get none).
-// Same grid as the forward, one channel a thread (scatter_bin).
-template <typename T>
+// Grid (tiles of the map, channel slices, frames); block: VEC consecutive
+// channels of the slice a thread, the tile's sums for them in registers.
+// A kept RoI adds to the tile sum_ph wy_ph (x) (sum_pw g[ph, pw] wx_pw):
+// the bin rows' and columns' dense profiles factor the bilinear weights.
+// Every cell of the tile is written.
+template <typename T, int VEC>
 __global__ void roi_align_bwd_kernel(const T* __restrict__ grad_out,
                                      const float* __restrict__ rois,
-                                     float* __restrict__ grad_feat,
+                                     T* __restrict__ grad_feat,
                                      int r_per_frame, int h, int w, int c,
-                                     float scale, int p, int sr, int aligned) {
-  const int bins = p * p;
-  const int br = blockIdx.x / bins;
-  const int bin = blockIdx.x % bins;
-  const int b = br / r_per_frame;
-  const RoIBox box = roi_box(rois + (size_t)br * 4, scale, p, aligned);
-  float* fb = grad_feat + (size_t)b * h * w * c;
-  const T* gb = grad_out + ((size_t)br * bins + bin) * c;
+                                     float scale, int p, int sr, int aligned,
+                                     int tiles_x) {
+  constexpr int TH = kBwdTileH, TW = kBwdTileW;
+  extern __shared__ float4 bwd_smem[];
+  __shared__ int warp_kept[32];
+  const int nt = blockDim.x;
+  const int t = threadIdx.x;
+  RoIBox* kept_box = reinterpret_cast<RoIBox*>(bwd_smem);
+  int* kept_roi = reinterpret_cast<int*>(kept_box + nt);
+  float* prof_y = reinterpret_cast<float*>(kept_roi + nt);  // [kBwdSub][p][TH]
+  float* prof_x = prof_y + kBwdSub * p * TH;                // [kBwdSub][p][TW]
+  int* range = reinterpret_cast<int*>(prof_x + kBwdSub * p * TW);  // [kBwdSub][4]
 
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    float g[1];
-    VecIO<T, 1>::load(gb + ch, g);
-    scatter_bin(fb, h, w, c, ch, box, bin / p, bin % p, sr, g[0]);
+  const int b = blockIdx.z;
+  const int ty0 = (blockIdx.x / tiles_x) * TH;
+  const int tx0 = (blockIdx.x % tiles_x) * TW;
+  const int ty1 = min(ty0 + TH, h) - 1;
+  const int tx1 = min(tx0 + TW, w) - 1;
+  const int ch = (blockIdx.y * nt + t) * VEC;
+  const bool has_ch = ch < c;
+  const int lane = t & 31, warp = t >> 5;
+  const float inv_samples = __fdiv_rn(1.f, static_cast<float>(sr * sr));
+
+  float acc[TH][TW][VEC];
+#pragma unroll
+  for (int a = 0; a < TH; ++a) {
+#pragma unroll
+    for (int e = 0; e < TW; ++e) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[a][e][v] = 0.f;
+    }
+  }
+
+  for (int base = 0; base < r_per_frame; base += nt) {
+    // keep, in RoI order, the chunk's RoIs whose footprint meets the tile
+    const int r = base + t;
+    bool meets = false;
+    RoIBox box;
+    if (r < r_per_frame) {
+      box = roi_box(rois + ((size_t)b * r_per_frame + r) * 4, scale, p, aligned);
+      int ylo, yhi, xlo, xhi;
+      axis_span(box.y1, box.bin_h, p, sr, h, &ylo, &yhi);
+      axis_span(box.x1, box.bin_w, p, sr, w, &xlo, &xhi);
+      meets = ylo <= ty1 && yhi >= ty0 && xlo <= tx1 && xhi >= tx0;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, meets);
+    if (lane == 0) warp_kept[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, kept = 0;
+    for (int k = 0; k < nt / 32; ++k) {
+      before += k < warp ? warp_kept[k] : 0;
+      kept += warp_kept[k];
+    }
+    if (meets) {
+      const int at = before + __popc(ballot & ((1u << lane) - 1u));
+      kept_box[at] = box;
+      kept_roi[at] = r;
+    }
+    __syncthreads();
+
+    for (int sub = 0; sub < kept; sub += kBwdSub) {
+      const int ns = min(kBwdSub, kept - sub);
+      // the dense profiles of every bin row and column of ns RoIs
+      for (int a = t; a < ns * 2 * p; a += nt) {
+        const int k = a / (2 * p), q = a - k * 2 * p;
+        const RoIBox& bx = kept_box[sub + k];
+        if (q < p) {
+          bin_profile<TH>(bx.y1, bx.bin_h, q, sr, h, ty0, prof_y + (k * p + q) * TH);
+        } else {
+          bin_profile<TW>(bx.x1, bx.bin_w, q - p, sr, w, tx0, prof_x + (k * p + q - p) * TW);
+        }
+      }
+      __syncthreads();
+      // each RoI's bins with taps in the tile: a contiguous range each way
+      for (int k = t; k < ns; k += nt) {
+        int ph0 = p, ph1 = -1, pw0 = p, pw1 = -1;
+        for (int q = 0; q < p; ++q) {
+          bool ny = false, nx = false;
+#pragma unroll
+          for (int i = 0; i < TH; ++i) ny |= prof_y[(k * p + q) * TH + i] != 0.f;
+#pragma unroll
+          for (int i = 0; i < TW; ++i) nx |= prof_x[(k * p + q) * TW + i] != 0.f;
+          if (ny) { ph0 = min(ph0, q); ph1 = q; }
+          if (nx) { pw0 = min(pw0, q); pw1 = q; }
+        }
+        range[4 * k] = ph0;
+        range[4 * k + 1] = ph1;
+        range[4 * k + 2] = pw0;
+        range[4 * k + 3] = pw1;
+      }
+      __syncthreads();
+      if (has_ch) {
+        for (int k = 0; k < ns; ++k) {
+          const int ph0 = range[4 * k], ph1 = range[4 * k + 1];
+          const int pw0 = range[4 * k + 2], pw1 = range[4 * k + 3];
+          if (ph0 > ph1 || pw0 > pw1) continue;
+          const T* go = grad_out + ((size_t)b * r_per_frame + kept_roi[sub + k]) * p * p * c + ch;
+          for (int ph = ph0; ph <= ph1; ++ph) {
+            // row[e] = sum_pw g[ph, pw] wx_pw[e], over this bin row
+            float row[TW][VEC];
+#pragma unroll
+            for (int e = 0; e < TW; ++e) {
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) row[e][v] = 0.f;
+            }
+            for (int pwb = pw0; pwb <= pw1; pwb += kBwdChunk) {
+              float g[kBwdChunk][VEC];
+#pragma unroll
+              for (int q = 0; q < kBwdChunk; ++q) {
+#pragma unroll
+                for (int v = 0; v < VEC; ++v) g[q][v] = 0.f;
+                if (pwb + q <= pw1) VecIO<T, VEC>::load(go + (size_t)(ph * p + pwb + q) * c, g[q]);
+              }
+#pragma unroll
+              for (int q = 0; q < kBwdChunk; ++q) {
+                if (pwb + q > pw1) break;
+                const float* wx = prof_x + (k * p + pwb + q) * TW;
+#pragma unroll
+                for (int e = 0; e < TW; ++e) {
+                  const float we = wx[e];
+#pragma unroll
+                  for (int v = 0; v < VEC; ++v) row[e][v] += g[q][v] * we;
+                }
+              }
+            }
+            const float* wy = prof_y + (k * p + ph) * TH;
+#pragma unroll
+            for (int a = 0; a < TH; ++a) {
+              const float wa = wy[a] * inv_samples;
+#pragma unroll
+              for (int e = 0; e < TW; ++e) {
+#pragma unroll
+                for (int v = 0; v < VEC; ++v) acc[a][e][v] += wa * row[e][v];
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (!has_ch) return;
+#pragma unroll
+  for (int a = 0; a < TH; ++a) {
+#pragma unroll
+    for (int e = 0; e < TW; ++e) {
+      if (ty0 + a < h && tx0 + e < w) {
+        VecIO<T, VEC>::store(grad_feat + (((size_t)b * h + ty0 + a) * w + tx0 + e) * c + ch,
+                             acc[a][e]);
+      }
+    }
   }
 }
 
@@ -278,15 +507,42 @@ int launch(const void* feat, const void* rois, void* out, int b, int h, int w,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_bwd(const void* grad_out, const void* rois, float* grad_accum, int b,
-               int h, int w, int c, int r, float scale, int p, int sr,
-               int aligned, cudaStream_t stream) {
-  const long long blocks = (long long)b * r * p * p;
-  roi_align_bwd_kernel<T><<<static_cast<unsigned>(blocks), threads_for(c, 1), 0, stream>>>(
-      static_cast<const T*>(grad_out), static_cast<const float*>(rois),
-      grad_accum, r, h, w, c, scale, p, sr, aligned);
+constexpr size_t kMaxSmemBytes = 232448;  // a block's shared memory on sm_90
+
+template <typename T, int VEC>
+int launch_bwd_vec(const void* grad_out, const void* rois, void* grad, int b, int h, int w,
+                   int c, int r, float scale, int p, int sr, int aligned, cudaStream_t stream) {
+  const int vectors = c / VEC;
+  const int threads = vectors < kBwdThreads ? ((vectors + 31) / 32) * 32 : kBwdThreads;
+  const size_t smem = bwd_smem_bytes(threads, p);
+  if (smem > kMaxSmemBytes - 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(roi_align_bwd_kernel<T, VEC>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int tiles_y = (h + kBwdTileH - 1) / kBwdTileH;
+  const int tiles_x = (w + kBwdTileW - 1) / kBwdTileW;
+  const dim3 grid(tiles_y * tiles_x, (vectors + threads - 1) / threads, b);
+  roi_align_bwd_kernel<T, VEC><<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(grad_out), static_cast<const float*>(rois), static_cast<T*>(grad),
+      r, h, w, c, scale, p, sr, aligned, tiles_x);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward: kBwdVec channels a thread where C and both pointers allow,
+// else one.
+template <typename T>
+int launch_bwd(const void* grad_out, const void* rois, void* grad, int b, int h, int w, int c,
+               int r, float scale, int p, int sr, int aligned, cudaStream_t stream) {
+  const uintptr_t bytes = kBwdVec * sizeof(T);
+  if (c % kBwdVec == 0 && reinterpret_cast<uintptr_t>(grad_out) % bytes == 0 &&
+      reinterpret_cast<uintptr_t>(grad) % bytes == 0) {
+    return launch_bwd_vec<T, kBwdVec>(grad_out, rois, grad, b, h, w, c, r, scale, p, sr, aligned,
+                                      stream);
+  }
+  return launch_bwd_vec<T, 1>(grad_out, rois, grad, b, h, w, c, r, scale, p, sr, aligned, stream);
 }
 
 // -- Multiscale (FPN) RoI align ----------------------------------------------
@@ -311,9 +567,10 @@ int launch_bwd(const void* grad_out, const void* rois, float* grad_accum, int b,
 // RoIs hit on their levels.  One block per RoI walks the RoI's 49 bins x
 // C / VEC channel vectors, so a warp reads 32 consecutive 16-byte vectors of
 // one tap row and writes one coalesced bin (at C = 256 bf16 one bin is one warp; the
-// single-level layout would give a 32-thread block).  The backward, like
-// the single-level one, gives a thread one channel, so a warp's 32 float32
-// atomics hit one 128-byte line of the mapped level's accumulator.
+// single-level layout would give a 32-thread block).  The backward gives a
+// thread one channel, so a warp's 32 float32 atomics hit one 128-byte line
+// of the mapped level's accumulator (the single-level backward's tile
+// gather is not carried over to it yet).
 
 constexpr int kLevels = 4;
 constexpr float kCanonicalScale = 224.f;
@@ -426,8 +683,8 @@ int launch_ms_bwd(const Pyramid& pyr, const void* grad_out, const void* rois, in
 }  // namespace
 
 // features: (B, H, W, C) float32 (dtype 0) or bfloat16 (dtype 1), contiguous.
-// rois: (B, R, 4) float32.  out: (B, R, P, P, C) in the features' dtype.
-// vectorized != 0 selects 16-byte channel vectors; the caller sets it only
+// rois: (B, R, 4) float32.  out: (B, R, P, P, C) in the features' dtype,
+// not empty.  vectorized != 0 selects 16-byte channel vectors; the caller sets it only
 // when C is a multiple of the vector width and every pointer is 16-byte
 // aligned.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int frcnn_roi_align_fwd(const void* features, const void* rois,
@@ -450,33 +707,22 @@ extern "C" int frcnn_roi_align_fwd(const void* features, const void* rois,
 }
 
 // grad_out: (B, R, P, P, C) in the features' dtype (0 float32, 1 bfloat16).
-// grad_accum: (B, H, W, C) float32, zeroed by the caller; the kernel adds
-// the feature gradient into it.  grad_features: (B, H, W, C) bfloat16,
-// written from grad_accum when dtype is 1 and ignored when it is 0 (the
-// accumulator is then the gradient).  Returns cudaGetLastError() after the
-// launches (0 on success).
-extern "C" int frcnn_roi_align_bwd(const void* grad_out, const void* rois,
-                                   void* grad_accum, void* grad_features,
-                                   int dtype, int b, int h, int w, int c,
-                                   int r, float spatial_scale, int p, int sr,
-                                   int aligned, void* stream) {
+// grad_features: (B, H, W, C) in the same dtype, not empty; every element
+// is written (no zeroing needed), all 0 when R is 0.  Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int frcnn_roi_align_bwd(const void* grad_out, const void* rois, void* grad_features,
+                                   int dtype, int b, int h, int w, int c, int r,
+                                   float spatial_scale, int p, int sr, int aligned, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* acc = static_cast<float*>(grad_accum);
   if (dtype == 0) {
-    return launch_bwd<float>(grad_out, rois, acc, b, h, w, c, r, spatial_scale, p, sr, aligned, s);
+    return launch_bwd<float>(grad_out, rois, grad_features, b, h, w, c, r, spatial_scale, p, sr,
+                             aligned, s);
   }
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_bwd<__nv_bfloat16>(grad_out, rois, acc, b, h, w, c, r, spatial_scale,
-                                            p, sr, aligned, s);
-  if (err != 0) return err;
-  const size_t n = (size_t)b * h * w * c;
-  const int threads = 256;
-  size_t blocks = (n + threads - 1) / threads;
-  if (blocks > 65535u * 16u) blocks = 65535u * 16u;
-  if (blocks == 0) blocks = 1;
-  cast_f32_bf16_kernel<<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-      acc, static_cast<__nv_bfloat16*>(grad_features), n);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    return launch_bwd<__nv_bfloat16>(grad_out, rois, grad_features, b, h, w, c, r, spatial_scale,
+                                     p, sr, aligned, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Multiscale forward.  features: 4 pointers to (B, H_l, W_l, C) maps,

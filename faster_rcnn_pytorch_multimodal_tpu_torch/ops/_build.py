@@ -121,7 +121,7 @@ def library() -> ctypes.CDLL:
     lib.frcnn_rotated_iou.restype = i
     lib.frcnn_roi_align_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]
     lib.frcnn_roi_align_fwd.restype = i
-    lib.frcnn_roi_align_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
+    lib.frcnn_roi_align_bwd.argtypes = [p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.frcnn_roi_align_bwd.restype = i
     lib.frcnn_voxelize_bev.argtypes = [p, p, p, p, p, p, i, i, f, f, f, f, f, f, f, i, i, i, i, i, f, p]
     lib.frcnn_voxelize_bev.restype = i

@@ -99,6 +99,16 @@ def nms_plain(boxes, scores, iou_threshold, max_out, valid=None, rotated=False):
     return _compact(keep, order, min(n, max_out))
 
 
+_SCAN_SMEM_LIMIT = 232448 - 1024  # csrc/nms.cu kScanSmemLimit
+
+
+def _scan_smem_bytes(col_blocks):
+    """csrc/nms.cu scan_smem_bytes with one staged block of 64 mask rows:
+    the least shared memory the keep scan needs (it stages up to 3 blocks
+    where they fit)."""
+    return (64 * col_blocks + 2 + 2 * col_blocks + (col_blocks + 2) // 2) * 8
+
+
 def _nms_cuda(boxes, scores, iou_threshold, max_out, valid=None, rotated=False):
     g, n = scores.shape
     if g > 65535:
@@ -107,10 +117,12 @@ def _nms_cuda(boxes, scores, iou_threshold, max_out, valid=None, rotated=False):
     sorted_boxes = sorted_boxes.contiguous()
     m = min(n, max_out)
     col_blocks = (n + 63) // 64
-    if col_blocks * 8 + m * 4 > 48 * 1024:
-        raise ValueError(f"nms: N={n}, max_out={max_out} exceed the scan's shared memory")
+    if _scan_smem_bytes(col_blocks) > _SCAN_SMEM_LIMIT:
+        raise ValueError(f"nms: N={n} exceeds the scan's shared memory (one staged row block)")
     dev = boxes.device
-    mask = torch.empty((g, n, col_blocks), dtype=torch.int64, device=dev)
+    # 2 words of padding: the scan's bulk copies round each row block out to
+    # 16-byte bounds
+    mask = torch.empty(g * n * col_blocks + 2, dtype=torch.int64, device=dev)
     out_idx = torch.empty((g, m), dtype=torch.int32, device=dev)
     out_valid = torch.empty((g, m), dtype=torch.bool, device=dev)
     valid_u8 = sorted_valid.to(torch.uint8).contiguous()

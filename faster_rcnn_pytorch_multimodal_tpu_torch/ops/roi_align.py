@@ -109,6 +109,8 @@ def _roi_align_cuda(features, rois, spatial_scale, p, sr, aligned):
     b, h, w, c = features.shape
     r = rois.shape[1]
     out = torch.empty((b, r, p, p, c), dtype=features.dtype, device=features.device)
+    if out.numel() == 0:
+        return out
     vec = _VEC_BYTES // features.element_size()
     vectorized = (
         c % vec == 0
@@ -130,21 +132,21 @@ def _roi_align_cuda(features, rois, spatial_scale, p, sr, aligned):
 
 def _roi_align_bwd_cuda(grad_out, rois, feat_shape, feat_dtype, spatial_scale, p, sr, aligned):
     """Feature gradient (B, H, W, C) in the features' dtype from the output
-    gradient (B, R, P, P, C): float32 atomics into a zeroed accumulator,
-    then (bfloat16) one rounding pass, both in the backward kernel's entry."""
+    gradient (B, R, P, P, C): the backward kernel owns tiles of the map,
+    gathers each cell's contributions in a fixed order and writes every
+    element once (bf16 rounded in the same pass), so the gradient starts
+    empty and the result is the same from run to run."""
     b, h, w, c = feat_shape
     r = rois.shape[1]
     device = grad_out.device
     grad_out = grad_out.to(feat_dtype).contiguous()
-    accum = torch.zeros(feat_shape, dtype=torch.float32, device=device)
-    grad = accum if feat_dtype == torch.float32 else torch.empty(
-        feat_shape, dtype=feat_dtype, device=device)
-    if grad_out.numel() == 0:
-        return grad.zero_()
+    grad = torch.empty(feat_shape, dtype=feat_dtype, device=device)
+    if grad.numel() == 0:
+        return grad
     lib = _build.library()
     with torch.cuda.device(device):
         err = lib.frcnn_roi_align_bwd(
-            grad_out.data_ptr(), rois.data_ptr(), accum.data_ptr(), grad.data_ptr(),
+            grad_out.data_ptr(), rois.data_ptr(), grad.data_ptr(),
             _DTYPE_CODE[feat_dtype], b, h, w, c, r,
             float(spatial_scale), p, sr, int(aligned), _build.stream_handle(device),
         )
