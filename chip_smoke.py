@@ -18,7 +18,8 @@ non-zero and never prints its last line):
      align at features
      (8, 32, 60, 1024) and (8, 25, 22, 1024) x 300 rois and (8, 25, 22,
      1024) x 256 (BEV training) within 1e-5 * max|F| (float32) and 1e-2 *
-     max|F| (bfloat16, rounded output); the RoI-align backward at
+     max|F| (bfloat16, rounded output), its time printed beside the
+     replaced kernel's (REPLACED_FWD_MS); the RoI-align backward at
      (8, 32, 60, 1024) and (8, 25, 22, 1024) x 256 rois: every element
      within the sum-order limit of the twin's autograd gradient on CPU
      copies (sum_order_tolerance: 64 float32 eps times the summed
@@ -91,7 +92,9 @@ the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
 1e-5 / 1e-2 * max|F| (its bound reads only the tap rows the RoIs hit on
 their levels), the backward at dOut (8, 256, 7, 7, 256) within the
-sum-order limit on every level, and once with every RoI on p5; and the
+sum-order limit on every level and bitwise equal over two runs, and once
+with every RoI on p5 (times beside the replaced kernel's,
+REPLACED_MS_BWD_MS); and the
 rotated NMS at the BEV final filter's shape, (16, 300) -> 100 @ 0.3, on
 rotated boxes in voxel units, half of them clustered: its IoU kernel within
 5e-5 of the twin's IoU (and on edge cases: identical, nested, shared edge,
@@ -185,7 +188,7 @@ _T0 = time.perf_counter()
 
 def sum_order_tolerance(twin_fn, inputs, grad_out, out_dtype=None) -> list:
     """Per-element limits for holding a gradient that sums the twin's
-    contributions in another order (float32 atomics, a tile gather) to the
+    contributions in another order (the backward kernels' tile gathers) to the
     twin's gradient: SUM_ORDER_FACTOR x EPS32 x S, where S is the twin's
     gradient of |grad_out| taken in float32, per element the sum of the
     magnitudes of every contribution to it; for a bfloat16 gradient plus one
@@ -573,7 +576,17 @@ def roi_align_flops(n_out: int, sr: int = 2) -> int:
     return n_out * sr * sr * 4 * 2
 
 
+# The tap-by-tap forward's device ms (bf16, fp32) at these checks' shapes,
+# before the staged forward replaced it (PERF.md section 6: chip_smoke.py on
+# an NVIDIA H100 80GB HBM3, 700.00 W)
+REPLACED_FWD_MS = {((32, 60), 300): (0.4962, 0.7252), ((25, 22), 300): (0.4949, 0.7149),
+              ((25, 22), 256): (0.4264, 0.6156)}
+
+
 def check_roi_align(rng, feat_hw, r=R):
+    """The forward kernel against the twin on CPU copies at a path's shapes,
+    values within tol * max|F|; its device time, printed beside the
+    tap-by-tap kernel's it replaced (REPLACED_FWD_MS)."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -602,7 +615,9 @@ def check_roi_align(rng, feat_hw, r=R):
                              + got.numel() * got.element_size(), roi_align_flops(got.numel()))
         print(f"roi_align {str(dtype).split('.')[-1]} features {tuple(df.shape)} rois "
               f"{tuple(dr.shape)}: max abs err {err} (bound {tol} * max|F| = {tol * fmax}); "
-              f"kernel {spread(t)}, plain twin on the card {plain_ms} ms, bound {bound} ms ({by})")
+              f"kernel {spread(t)} (the tap-by-tap kernel it replaced: "
+              f"{REPLACED_FWD_MS[(tuple(feat_hw), r)][dtype == torch.float32]} ms, PERF.md), plain "
+              f"twin on the card {plain_ms} ms, bound {bound} ms ({by})")
         results[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound, "bound_by": by}
     return results
@@ -775,12 +790,19 @@ def check_multiscale_roi_align(rng):
     return results
 
 
+# The float32-atomic multiscale backward's device ms (bf16, fp32) at these
+# checks' shapes, before the tile gather replaced it (PERF.md section 6:
+# chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W)
+REPLACED_MS_BWD_MS = {"16-900 px RoIs": (1.084, 0.8399), "every RoI on p5": (1.041, 0.7955)}
+
+
 def check_multiscale_backward(rng, rois_np, label):
     """The multiscale backward kernel against the twin's autograd gradients
     on CPU copies (see check_roi_align_backward), at dOut (8, 256, 7, 7,
     256): every element of each level within the sum-order limit
-    (sum_order_tolerance: float32 atomics add in run order); times of the
-    backward alone."""
+    (sum_order_tolerance: the per-level tile gather sums in another order
+    than the twin), and two runs bitwise equal; times of the backward
+    alone, printed beside the atomic kernel's it replaced (REPLACED_MS_BWD_MS)."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -799,8 +821,11 @@ def check_multiscale_backward(rng, rois_np, label):
         f = [torch.from_numpy(m).to(dtype).cuda().requires_grad_(True) for m in maps]
         g = torch.from_numpy(grad_out).to(dtype).cuda()
         got = torch.autograd.grad(multiscale_roi_align_batched(f, rois, FPN_STRIDES), f, g)
+        shapes, fd = [tuple(m.shape) for m in f], f[0].dtype
+        again = _multiscale_roi_align_bwd_cuda(g, rois, shapes, fd, FPN_STRIDES, 7, 2)
         torch.cuda.synchronize()
         got = [a.cpu() for a in got]
+        bitwise = all(torch.equal(a, b.cpu()) for a, b in zip(got, again))
         f_cpu = [m.detach().cpu().requires_grad_(True) for m in f]
         g_cpu, r_cpu = g.cpu(), rois.cpu()
         want = torch.autograd.grad(multiscale_roi_align_batched_plain(f_cpu, r_cpu, FPN_STRIDES),
@@ -812,11 +837,11 @@ def check_multiscale_backward(rng, rois_np, label):
         errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)]
         gmax = [float(w.float().abs().max()) for w in want]
         ratios = [limit_ratio(a, w, lim) for a, w, lim in zip(got, want, limits)]
-        ok = all(a.dtype == dtype for a in got) and all(r <= 1.0 for r in ratios)
+        ok = all(a.dtype == dtype for a in got) and all(r <= 1.0 for r in ratios) and bitwise
         if not ok:
             raise AssertionError(f"multiscale backward {label} {dtype}: max |dF - twin| / limit "
-                                 f"per level {ratios}, max err per level {errs}, max|dF| {gmax}")
-        shapes, fd = [tuple(m.shape) for m in f], f[0].dtype
+                                 f"per level {ratios}, max err per level {errs}, max|dF| {gmax}, "
+                                 f"two runs bitwise equal {bitwise}")
         t = kernel_ms(lambda: _multiscale_roi_align_bwd_cuda(
             g, rois, shapes, fd, FPN_STRIDES, 7, 2), 10)
         ms = t["ms"]
@@ -828,7 +853,9 @@ def check_multiscale_backward(rng, rois_np, label):
               f"{tuple(g.shape)}, RoIs per level p2..p5 {counts}: max |dF - twin| / sum-order "
               f"limit per level {ratios}; max abs err per level {errs} = "
               f"{[e / m if m else 0.0 for e, m in zip(errs, gmax)]} x max|dF| per level {gmax}; "
-              f"kernel {spread(t)}, plain twin's autograd "
+              f"two runs bitwise equal; kernel {spread(t)} (the float32-atomic kernel it "
+              f"replaced: {REPLACED_MS_BWD_MS[label][dtype == torch.float32]} ms, PERF.md), plain "
+              f"twin's autograd "
               f"backward on the card {plain_ms} ms, bound {bound} ms ({by}: dOut, the rois and "
               f"each map's gradient once)")
         results[dtype] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
@@ -1553,11 +1580,16 @@ def main() -> int:
     print("timed at the shapes of the path each entry's launches come from: voxelize_bev "
           "(8, 32768) -> (8, 400, 350, 15); nms (8, 1024) -> 1024 slots @ 0.7 (BEV training; "
           "the IoU mask kernel, then the keep scan in 64-row blocks staged by TMA bulk copies; "
-          "max_abs_err over every NMS shape); roi_align bf16 (8, 25, 22, 1024) x 256; "
+          "max_abs_err over every NMS shape); roi_align bf16 (8, 25, 22, 1024) x 256 (one warp a "
+          "RoI and 128 channels: each distinct tap cell staged once by cp.async into a ring of "
+          "tap rows, x-then-y sums in registers); "
           "roi_align_bwd bf16 dOut (8, 256, 7, 7, 1024) -> (8, 25, 22, 1024) (the tile gather: "
           "2 x 4 cells a block, sums in registers, no atomics, bitwise repeatable); "
           "roi_align_multiscale bf16 p2..p5 of 512x960 x (8, 300) rois of 16-900 px; "
-          "roi_align_multiscale_bwd bf16 dOut (8, 256, 7, 7, 256); nms_rotated (16, 300) -> 100 "
+          "roi_align_multiscale_bwd bf16 dOut (8, 256, 7, 7, 256) (the same tile gather over the "
+          "tiles of the four levels, 4 x 4 cells on p2 and p3, 2 x 4 on p4 and p5, after a pass "
+          "that lists each frame's RoIs by level: no atomics, no float32 accumulator, bitwise "
+          "repeatable); nms_rotated (16, 300) -> 100 "
           "@ 0.3 (the rotated mask kernel and the same block scan; max_abs_err: its IoU kernel "
           "against the twin's IoU); library_ms null: no "
           "single PyTorch call computes these functions (torchvision's nms, roi_align and "

@@ -112,7 +112,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library with every entry's signature declared."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.frcnn_nms.argtypes = [p, p, p, i, i, f, i, p, p, p, p]
     lib.frcnn_nms.restype = i
     lib.frcnn_nms_rotated.argtypes = [p, p, p, i, i, f, i, p, p, p, p]
@@ -121,15 +121,17 @@ def library() -> ctypes.CDLL:
     lib.frcnn_rotated_iou.restype = i
     lib.frcnn_roi_align_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]
     lib.frcnn_roi_align_fwd.restype = i
-    lib.frcnn_roi_align_bwd.argtypes = [p, p, p, i, i, i, i, i, i, f, i, i, i, p]
+    lib.frcnn_roi_align_bwd_scratch_bytes.argtypes = [i, i, i]
+    lib.frcnn_roi_align_bwd_scratch_bytes.restype = ctypes.c_longlong
+    lib.frcnn_roi_align_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.frcnn_roi_align_bwd.restype = i
     lib.frcnn_voxelize_bev.argtypes = [p, p, p, p, p, p, i, i, f, f, f, f, f, f, f, i, i, i, i, i, f, p]
     lib.frcnn_voxelize_bev.restype = i
-    # pointer arguments to host arrays: the maps (void*[]), heights, widths,
-    # scales and accumulator offsets, built by the wrapper with ctypes
+    # pointer arguments to host arrays: the maps or their gradients (void*[]),
+    # heights, widths and scales, built by the wrapper with ctypes
     lib.frcnn_roi_align_ms_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.frcnn_roi_align_ms_fwd.restype = i
-    lib.frcnn_roi_align_ms_bwd.argtypes = [p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, p]
+    lib.frcnn_roi_align_ms_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.frcnn_roi_align_ms_bwd.restype = i
     return lib
 

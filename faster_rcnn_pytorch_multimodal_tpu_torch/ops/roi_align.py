@@ -32,6 +32,8 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_BYTES = 16
 _KERNEL_LEVELS = 4  # the multiscale kernels' pyramid: p2..p5
+_FWD_MAX_P = 7  # csrc/roi_align.cu kFwdMaxP: bins a side of the single-level forward
+_FWD_MAX_SAMPLES = 32  # kFwdMaxSamples: P x sr, one lane a sample builds its read plan
 
 
 def _sample_coords(rois, spatial_scale, p, sr, aligned):
@@ -130,9 +132,17 @@ def _roi_align_cuda(features, rois, spatial_scale, p, sr, aligned):
     return out
 
 
+def _bwd_scratch(lib, b, r, levels, device):
+    """The backward entries' scratch: each RoI's footprint and the frames'
+    RoIs listed by level, written by their first pass."""
+    nbytes = lib.frcnn_roi_align_bwd_scratch_bytes(b, r, levels)
+    return torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
+
+
 def _roi_align_bwd_cuda(grad_out, rois, feat_shape, feat_dtype, spatial_scale, p, sr, aligned):
     """Feature gradient (B, H, W, C) in the features' dtype from the output
-    gradient (B, R, P, P, C): the backward kernel owns tiles of the map,
+    gradient (B, R, P, P, C): a first pass lists each frame's RoIs with
+    their footprints, then the backward kernel owns tiles of the map,
     gathers each cell's contributions in a fixed order and writes every
     element once (bf16 rounded in the same pass), so the gradient starts
     empty and the result is the same from run to run."""
@@ -144,9 +154,10 @@ def _roi_align_bwd_cuda(grad_out, rois, feat_shape, feat_dtype, spatial_scale, p
     if grad.numel() == 0:
         return grad
     lib = _build.library()
+    scratch = _bwd_scratch(lib, b, r, 1, device)
     with torch.cuda.device(device):
         err = lib.frcnn_roi_align_bwd(
-            grad_out.data_ptr(), rois.data_ptr(), grad.data_ptr(),
+            grad_out.data_ptr(), rois.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
             _DTYPE_CODE[feat_dtype], b, h, w, c, r,
             float(spatial_scale), p, sr, int(aligned), _build.stream_handle(device),
         )
@@ -221,6 +232,10 @@ def roi_align_batched(
         raise ValueError(f"roi_align: unsupported device {features.device}")
     if not (features.is_contiguous() and rois.is_contiguous()):
         raise ValueError("roi_align: contiguous NHWC features and rois required")
+    if output_size > _FWD_MAX_P or output_size * sampling_ratio > _FWD_MAX_SAMPLES:
+        raise ValueError(f"roi_align: the CUDA forward holds at most {_FWD_MAX_P} bins a side "
+                         f"in registers and {_FWD_MAX_SAMPLES} samples a side, got output_size "
+                         f"{output_size}, sampling_ratio {sampling_ratio}")
     return _RoIAlignCuda.apply(
         features, rois, spatial_scale, output_size, sampling_ratio, aligned
     )
@@ -337,30 +352,29 @@ def _multiscale_roi_align_cuda(feature_maps, rois, strides, p, sr):
 
 def _multiscale_roi_align_bwd_cuda(grad_out, rois, shapes, dtype, strides, p, sr):
     """The maps' gradients (a tuple of (B, H_l, W_l, C) in the maps' dtype)
-    from dOut (B, R, P, P, C): float32 atomics into one zeroed buffer that
-    holds every level's accumulator, then (bfloat16) one rounding pass,
-    both in the backward kernel's entry.  Four maps, p2..p5."""
+    from dOut (B, R, P, P, C): a first pass lists each frame's RoIs by
+    level, then the backward kernel gathers each tile of each level's map
+    from the RoIs mapped to that level, in a fixed order, and writes every
+    element once (bf16 rounded in the same pass), so the gradients start
+    empty and the result is the same from run to run.  Four maps, p2..p5."""
     device = grad_out.device
     b, _, _, c = shapes[0]
     r = rois.shape[1]
-    sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
-    offsets = [sum(sizes[:i]) for i in range(len(sizes))]
-    total = sum(sizes)
     grad_out = grad_out.to(dtype).contiguous()
-    accum = torch.zeros(total, dtype=torch.float32, device=device)
-    flat = accum if dtype == torch.float32 else torch.empty(total, dtype=dtype, device=device)
+    grads = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
+    ptrs = (ctypes.c_void_p * _KERNEL_LEVELS)(*(g.data_ptr() for g in grads))
     heights, widths, scales = _level_arrays(shapes, strides)
-    offs = (ctypes.c_longlong * _KERNEL_LEVELS)(*offsets)
     lib = _build.library()
+    scratch = _bwd_scratch(lib, b, r, _KERNEL_LEVELS, device)
     with torch.cuda.device(device):
         err = lib.frcnn_roi_align_ms_bwd(
-            grad_out.data_ptr(), rois.data_ptr(), accum.data_ptr(), _addr(offs),
-            flat.data_ptr(), total, _addr(heights), _addr(widths), _addr(scales),
-            _DTYPE_CODE[dtype], b, c, r, p, sr, _build.stream_handle(device),
+            grad_out.data_ptr(), rois.data_ptr(), _addr(ptrs), scratch.data_ptr(),
+            _addr(heights), _addr(widths), _addr(scales), _DTYPE_CODE[dtype], b, c, r, p, sr,
+            _build.stream_handle(device),
         )
     _build.check(err, "frcnn_roi_align_ms_bwd")
     _build.LAUNCH_COUNTS["roi_align_multiscale_bwd"] += 1
-    return tuple(flat[o:o + n_].view(s) for o, n_, s in zip(offsets, sizes, shapes))
+    return grads
 
 
 class _MultiscaleRoIAlignCuda(torch.autograd.Function):

@@ -13,6 +13,7 @@ This file imports no JAX, so the `cuda` tests also run where JAX is absent:
 
 from __future__ import annotations
 
+import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -398,11 +399,10 @@ def test_multiscale_roi_align_kernel_matches_twin(cuda, dtype, c, tol):
 @pytest.mark.parametrize("dtype,c,p5", [(torch.float32, 256, False), (torch.bfloat16, 256, False),
                                         (torch.float32, 12, False), (torch.float32, 256, True)])
 def test_multiscale_roi_align_backward_kernel_matches_twin(cuda, dtype, c, p5):
-    """The maps' gradients of the CUDA path (float32 atomics, one buffer for
-    the four levels, bf16 rounding pass) against the twin's autograd
-    gradients, every element of each level within chip_smoke's sum-order
-    limit; with p5 every RoI is large enough for the coarsest map, where
-    the atomics contend most."""
+    """The maps' gradients of the CUDA path (the per-level tile gather)
+    against the twin's autograd gradients, every element of each level
+    within chip_smoke's sum-order limit; with p5 every RoI is large enough
+    for the coarsest map, where the fewest tiles walk the most RoIs."""
     rng = np.random.RandomState(c + 11)
     maps = [torch.from_numpy(rng.normal(size=(2,) + hw + (c,)).astype(np.float32)).to(dtype)
             for hw in FPN_HW]
@@ -424,6 +424,112 @@ def test_multiscale_roi_align_backward_kernel_matches_twin(cuda, dtype, c, p5):
         assert chip_smoke.limit_ratio(d.grad.cpu(), w.grad, lim) <= 1.0, level
     if p5:
         assert float(cpu[3].grad.abs().max()) > 0 and float(cpu[0].grad.abs().max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,p,sr", [(torch.float32, 64, 7, 2), (torch.bfloat16, 64, 7, 2),
+                                          (torch.float32, 30, 7, 2), (torch.bfloat16, 12, 7, 2),
+                                          (torch.float32, 64, 7, 4), (torch.bfloat16, 64, 3, 1),
+                                          (torch.bfloat16, 64, 5, 3)])
+def test_roi_align_staged_forward_on_awkward_rois(cuda, dtype, c, p, sr):
+    """The staged forward (4 channels a thread where C allows, else the
+    scalar path: C 30 and 12) against the twin on CPU copies, on RoIs that
+    straddle the map's edge, lie outside it, are under a cell or cover the
+    whole 20 x 36 map (28 distinct tap columns: a ring of one row), at P x
+    sr 7 x 2 (compiled in) and 3 x 1 to 7 x 4 (read at run time; 7 x 4:
+    43 KB of staging in float32): within 1e-5 (float32) or 1e-2 (bf16) of
+    max|F|.  P 8 raises."""
+    rng = np.random.RandomState(c + p)
+    feats = torch.from_numpy(rng.normal(size=(2, 20, 36, c)).astype(np.float32)).to(dtype)
+    rois = _bwd_rois(rng, 2, 48, 20, 36)
+    before = _build.LAUNCH_COUNTS["roi_align"]
+    got = roi_align_batched(feats.to(cuda), rois.to(cuda), 1 / 16, p, sr)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["roi_align"] == before + 1
+    want = roi_align_batched_plain(feats, rois, 1 / 16, p, sr)
+    assert got.dtype == dtype and got.shape == (2, 48, p, p, c)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    fmax = float(feats.float().abs().max())
+    assert float((got.cpu().float() - want.float()).abs().max()) <= tol * fmax
+    with pytest.raises(ValueError, match="at most 7"):
+        roi_align_batched(feats.to(cuda), rois.to(cuda), 1 / 16, 8, sr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multiscale_roi_align_backward_is_bitwise_repeatable(cuda, dtype):
+    """Two runs of the multiscale backward give the same gradients bit for
+    bit (each cell sums its contributions in one fixed order)."""
+    rng = np.random.RandomState(13)
+    maps = [torch.from_numpy(rng.normal(size=(2,) + hw + (64,)).astype(np.float32)).to(dtype)
+            for hw in FPN_HW]
+    rois = torch.from_numpy(_fpn_rois(rng, 2, 96)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(2, 96, 7, 7, 64)).astype(np.float32)).to(dtype).to(cuda)
+    runs = []
+    for _ in range(2):
+        dev = [m.to(cuda).requires_grad_(True) for m in maps]
+        multiscale_roi_align_batched(dev, rois, STRIDES).backward(g)
+        runs.append([d.grad.clone() for d in dev])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(float(a.float().abs().max()) > 0 for a in runs[0])
+
+
+def _nan_like(t):
+    return torch.full_like(t, float("nan"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [40, 0])
+def test_roi_align_kernels_write_every_element(cuda, dtype, r):
+    """The forward, backward and multiscale backward entries called on
+    output buffers filled with NaN: every element is written (finite) and
+    equals the wrapper's result; with R 0 both backwards are all zeros."""
+    rng = np.random.RandomState(17 + r)
+    lib, code = _build.library(), {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    stream = _build.stream_handle(cuda)
+    feats = torch.from_numpy(rng.normal(size=(2, 20, 36, 64)).astype(np.float32)).to(dtype).to(cuda)
+    rois = (_bwd_rois(rng, 2, r, 20, 36) if r else torch.zeros(2, 0, 4)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(2, r, 7, 7, 64)).astype(np.float32)).to(dtype).to(cuda)
+    if r:
+        out = _nan_like(roi_align_batched(feats, rois, 1 / 16))
+        assert lib.frcnn_roi_align_fwd(feats.data_ptr(), rois.data_ptr(), out.data_ptr(), code, 1,
+                                       2, 20, 36, 64, r, 1 / 16, 7, 2, 0, stream) == 0
+        torch.cuda.synchronize()
+        assert bool(out.isfinite().all())
+        assert torch.equal(out, roi_align_batched(feats, rois, 1 / 16))
+    grad = _nan_like(feats)
+    scratch = torch.empty(lib.frcnn_roi_align_bwd_scratch_bytes(2, r, 1) + 1, dtype=torch.uint8,
+                          device=cuda)
+    assert lib.frcnn_roi_align_bwd(g.data_ptr(), rois.data_ptr(), grad.data_ptr(),
+                                   scratch.data_ptr(), code, 2, 20, 36, 64, r, 1 / 16, 7, 2, 0,
+                                   stream) == 0
+    f = feats.clone().requires_grad_(True)
+    roi_align_batched(f, rois, 1 / 16).backward(g)
+    maps = [torch.from_numpy(rng.normal(size=(2,) + hw + (64,)).astype(np.float32)).to(dtype)
+            .to(cuda) for hw in FPN_HW]
+    fpn_np = _fpn_rois(rng, 2, r) if r else np.zeros((2, 0, 4), np.float32)
+    fpn_rois = torch.from_numpy(fpn_np).to(cuda)
+    grads = [_nan_like(m) for m in maps]
+    ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in grads))
+    heights = (ctypes.c_int * 4)(*(hw[0] for hw in FPN_HW))
+    widths = (ctypes.c_int * 4)(*(hw[1] for hw in FPN_HW))
+    scales = (ctypes.c_float * 4)(*(1.0 / s for s in STRIDES))
+    scratch = torch.empty(lib.frcnn_roi_align_bwd_scratch_bytes(2, r, 4) + 1, dtype=torch.uint8,
+                          device=cuda)
+    assert lib.frcnn_roi_align_ms_bwd(
+        g.data_ptr(), fpn_rois.data_ptr(), ctypes.addressof(ptrs), scratch.data_ptr(),
+        ctypes.addressof(heights),
+        ctypes.addressof(widths), ctypes.addressof(scales), code, 2, 64, r, 7, 2, stream) == 0
+    dev = [m.clone().requires_grad_(True) for m in maps]
+    multiscale_roi_align_batched(dev, fpn_rois, STRIDES).backward(g)
+    torch.cuda.synchronize()
+    assert bool(grad.isfinite().all()) and torch.equal(grad, f.grad)
+    for got, d in zip(grads, dev):
+        assert bool(got.isfinite().all()) and torch.equal(got, d.grad)
+        assert r or not bool(got.any())
+    assert r or not bool(grad.any())
 
 
 @pytest.mark.cuda

@@ -2,7 +2,7 @@
 
 * The sum-order tolerance (`chip_smoke.sum_order_tolerance`): a float32
   gradient that adds the twin's contributions in another order (the
-  multiscale kernel's atomics, the single-level kernel's tile gather) is
+  backward kernels' tile gathers) is
   held to the twin per element within 64 float32 eps times the sum of the
   magnitudes of the element's contributions.  Here the twin's own float32
   gradient, with the RoIs in a permuted order, stays within that limit of
