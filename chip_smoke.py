@@ -29,8 +29,11 @@ non-zero and never prints its last line):
      voxelizer at (8, 32768) points -> 400 x 350 x 15 and
      (8, 180000) -> 800 x 700 x 15, with points on cell and slice
      boundaries, invalid lanes, points out of range, over-full voxels and an
-     all-invalid frame: height and density channels equal, the meta
-     channels within 1e-5 (float sums in atomic order).  Forward results are
+     all-invalid frame, and at both sizes once more with frame 0's points
+     all in one tile of the raster (skew_points): height and density
+     channels equal, and equal over two runs, the meta channels within
+     1e-5 (float sums in arrival order), times beside the replaced
+     kernel's (REPLACED_VOX_MS).  Forward results are
      compared with the twins on CPU copies, the backwards too.  Each kernel's time is device time (CUDA events, the median
      of 5 windows queued while the card sleeps, so the host's launch time is
      not in it: kernel_ms), beside the twin's time on the card (back to
@@ -91,7 +94,9 @@ Phase 3 also holds the multiscale RoI-align kernels against their twins at
 the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
 1e-5 / 1e-2 * max|F| (its bound reads only the tap rows the RoIs hit on
-their levels), the backward at dOut (8, 256, 7, 7, 256) within the
+their levels; times beside the replaced kernel's, REPLACED_MS_FWD_MS), and
+once with every RoI on p2, many of them wide enough for a one-row ring
+(p2_rois), the backward at dOut (8, 256, 7, 7, 256) within the
 sum-order limit on every level and bitwise equal over two runs, and once
 with every RoI on p5 (times beside the replaced kernel's,
 REPLACED_MS_BWD_MS); and the
@@ -732,13 +737,54 @@ def tap_cells(rois, levels, p=7, sr=2) -> list:
     return cells
 
 
-def check_multiscale_roi_align(rng):
+def p2_rois(rng, b, r, frame_hw=FRAME_HW):
+    """RoIs of sqrt(area) 16-110 px (all on p2) with aspects e^-1.5 .. e^1.5:
+    the widest span up to ~120 p2 columns, so many take the forward's
+    one-row ring (more than 1.5 x P x sr distinct tap columns)."""
+    side = np.exp(rng.uniform(np.log(16.0), np.log(110.0), (b, r)))
+    aspect = np.exp(rng.uniform(-1.5, 1.5, (b, r)))
+    x1 = rng.uniform(0, frame_hw[1] - 16, (b, r))
+    y1 = rng.uniform(0, frame_hw[0] - 16, (b, r))
+    return np.stack([x1, y1, x1 + side * aspect, y1 + side / aspect], -1).astype(np.float32)
+
+
+def staged_cells(rois, levels, p=7, sr=2) -> tuple[int, int]:
+    """What the forward stages, RoI by RoI on its level: (the tap cells it
+    reads, each RoI's distinct tap rows x distinct tap columns, summed; the
+    RoIs whose distinct tap columns exceed 1.5 x P x sr, for which the ring
+    holds one tap row, kFwdCap 3)."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import _sample_coords, _taps
+
+    def distinct(coords, dim):
+        lo, hi, _, _ = _taps(coords, dim)
+        taps = torch.cat([lo, hi], -1).sort(-1).values
+        return 1 + (taps[:, 1:] != taps[:, :-1]).sum(-1)
+
+    cells = one_row = 0
+    for lvl, ((h, w), stride) in enumerate(zip(FPN_MAP_HW, FPN_STRIDES)):
+        gy, gx = _sample_coords(rois[levels == lvl], 1.0 / stride, p, sr, False)
+        ny, nx = distinct(gy, h), distinct(gx, w)
+        cells += int((ny * nx).sum())
+        one_row += int((nx * 2 > 3 * p * sr).sum())
+    return cells, one_row
+
+
+# The bin-by-bin multiscale forward's device ms (bf16, fp32) at the 16-900 px
+# check's shapes, before the staged forward replaced it (PERF.md section 6:
+# chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W)
+REPLACED_MS_FWD_MS = (0.1349, 0.2321)
+
+
+def check_multiscale_roi_align(rng, rois_np=None, label="16-900 px RoIs"):
     """The multiscale forward kernel against its twin (CPU copies) at the FPN
     serving shape: every RoI on the twin's level, values within tol * max|F|.
     The kernel's time is the raw entry's device time (kernel_ms); the
     public wrapper's time back to back (cuda_ms), host included, is printed
     beside it.  The bound counts the tap rows the RoIs hit on their levels
-    (tap_cells), not the whole maps."""
+    (tap_cells), not the whole maps.  rois_np: (B, R, 4) RoIs (default
+    fpn_rois, drawn after the maps, so that every level gets some)."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -749,11 +795,14 @@ def check_multiscale_roi_align(rng):
     )
 
     maps = [rng.normal(size=(B, h, w, C_FPN)).astype(np.float32) for h, w in FPN_MAP_HW]
-    rois = torch.from_numpy(fpn_rois(rng, B, R))
+    rois = torch.from_numpy(fpn_rois(rng, B, R) if rois_np is None else rois_np)
     want_levels = roi_levels(rois, len(FPN_STRIDES))
     counts = level_counts(want_levels)
-    if min(counts) == 0:
+    if rois_np is None and min(counts) == 0:
         raise AssertionError(f"multiscale roi_align: a level got no RoI: {counts}")
+    if rois_np is not None and max(counts) != sum(counts):
+        raise AssertionError(f"multiscale roi_align {label}: RoIs on several levels: {counts}")
+    staged, one_row = staged_cells(rois, want_levels)
     cells = tap_cells(rois, want_levels)
     results = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
@@ -777,14 +826,19 @@ def check_multiscale_roi_align(rng):
         map_bytes = sum(m.numel() * m.element_size() for m in dm)
         nbytes = tap_bytes + dr.numel() * 4 + got.numel() * esize + levels.numel() * 4
         bound, by = bound_ms(nbytes, roi_align_flops(got.numel()))
-        print(f"roi_align_multiscale {str(dtype).split('.')[-1]} maps "
+        replaced = (f"the bin-by-bin kernel it replaced: "
+                    f"{REPLACED_MS_FWD_MS[dtype == torch.float32]} ms, PERF.md"
+                    if rois_np is None else "the replaced kernel was not timed on this case")
+        print(f"roi_align_multiscale {label} {str(dtype).split('.')[-1]} maps "
               f"{[tuple(m.shape) for m in dm]} rois {tuple(dr.shape)}, RoIs per level p2..p5 "
-              f"{counts}: levels equal to the twin's, max abs err {err} (bound {tol} * max|F| = "
-              f"{tol * fmax}); kernel {spread(t)}; through the public wrapper back to back "
+              f"{counts} ({one_row} with a one-row ring): levels equal to the twin's, max abs err "
+              f"{err} (bound {tol} * max|F| = {tol * fmax}); kernel {spread(t)} ({replaced}); "
+              f"through the public wrapper back to back "
               f"{wrapper_ms} ms (host included); plain twin on the card {plain_ms} ms; bound "
               f"{bound} ms ({by}: {nbytes} B = the rows of the {cells} distinct tap cells on "
               f"p2..p5, {tap_bytes} B of the maps' {map_bytes}, plus the rois, the output and "
-              f"the levels once)")
+              f"the levels once); the kernel stages {staged} tap cells ({staged * C_FPN * esize} "
+              f"B: each RoI's distinct tap rows x columns on its level)")
         results[dtype] = {"max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
                           "bound_ms": bound, "bound_by": by}
     return results
@@ -885,8 +939,33 @@ def bev_points(rng, b, p, grid):
     return pts, valid
 
 
-def check_voxelize(rng, cfg, frame_scale, p):
-    """The voxelizer kernel against its twin (CPU copy) and its time."""
+def skew_points(rng, b, p, grid):
+    """bev_points with frame 0's points all valid and all inside one 8 x 32
+    tile of the raster (cells y 24-31, x 64-95), 40 of them in one voxel:
+    one tile holds a whole frame, many times the 256 x 4 entries the
+    voxelizer's tile block takes a round."""
+    pts, valid = bev_points(rng, b, p, grid)
+    (x0, x1), (y0, y1), (z0, _) = grid["x_range"], grid["y_range"], grid["z_range"]
+    px, py = (x1 - x0) / grid["num_x"], (y1 - y0) / grid["num_y"]
+    cx, cy = 64, 24
+    pts[0, :, 0] = x0 + (cx + rng.uniform(0.001, 0.999, p) * 32) * px
+    pts[0, :, 1] = y0 + (cy + rng.uniform(0.001, 0.999, p) * 8) * py
+    pts[0, :, 2] = rng.uniform(z0, z0 + grid["num_slices"] * grid["voxel_height"], p)
+    pts[0, :40, :3] = [x0 + (cx + 5.5) * px, y0 + (cy + 2.5) * py, z0 + 0.26]
+    valid[0] = True
+    return pts, valid
+
+
+# The scatter-and-finalize voxelizer's device ms at these checks' grids, before
+# the binned tile pass replaced it (PERF.md section 6: chip_smoke.py on an
+# NVIDIA H100 80GB HBM3, 700.00 W)
+REPLACED_VOX_MS = {(400, 350): 0.1872, (800, 700): 0.7251}
+
+
+def check_voxelize(rng, cfg, frame_scale, p, skew=False):
+    """The voxelizer kernel against its twin (CPU copy) and its time: height
+    and density channels equal and equal over two runs, meta within 1e-5,
+    the all-invalid frame zero.  skew: frame 0's points all in one tile."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.voxelize import (
@@ -896,20 +975,25 @@ def check_voxelize(rng, cfg, frame_scale, p):
     )
 
     grid = raster_kwargs(cfg, frame_scale)
-    pts, valid = bev_points(rng, B, p, grid)
+    pts, valid = (skew_points if skew else bev_points)(rng, B, p, grid)
     tp, tv = torch.from_numpy(pts), torch.from_numpy(valid)
     dp, dv = tp.cuda(), tv.cuda()
     got = voxelize_bev(dp, dv, **grid)
+    again = voxelize_bev(dp, dv, **grid)
     torch.cuda.synchronize()
-    got = got.cpu()
+    got, again = got.cpu(), again.cpu()
     want = voxelize_bev_plain(tp, tv, **grid)
     s = grid["num_slices"]
     exact = torch.equal(got[..., :s + 1], want[..., :s + 1])
+    repeat = torch.equal(got[..., :s + 1], again[..., :s + 1])
     err = float((got - want).abs().max())
     meta_err = float((got[..., s + 1:] - want[..., s + 1:]).abs().max())
-    if not exact or not meta_err <= 1e-5 or bool(got[1].any()):
-        raise AssertionError(f"voxelize_bev {tuple(got.shape)}: height/density equal {exact}, "
-                             f"meta err {meta_err}, all-invalid frame zero {not bool(got[1].any())}")
+    if not exact or not repeat or not meta_err <= 1e-5 or bool(got[1].any()):
+        raise AssertionError(f"voxelize_bev {tuple(got.shape)} skew {skew}: height/density equal "
+                             f"{exact}, equal over two runs {repeat}, meta err {meta_err}, "
+                             f"all-invalid frame zero {not bool(got[1].any())}")
+    if skew and not float(want[0, 24:32, 64:96, s].max()) == 1.0:
+        raise AssertionError("voxelize_bev skew: the over-full voxel is not capped at 1.0")
     t = kernel_ms(lambda: voxelize_bev(dp, dv, **grid), 20)
     ms = t["ms"]
     plain_ms = cuda_ms(lambda: voxelize_bev_plain(dp, dv, **grid), 3)
@@ -918,10 +1002,14 @@ def check_voxelize(rng, cfg, frame_scale, p):
     n_cols = got.numel() // got.shape[-1]
     flops = dv.numel() * 11 + n_cols * (2 * s + 50)
     bound, by = bound_ms(dp.numel() * 4 + dv.numel() + got.numel() * 4, flops)
-    print(f"voxelize_bev points {tuple(dp.shape)} -> {tuple(got.shape)}: height and density "
-          f"channels equal, meta channels max err {meta_err} (limit 1e-5), filled cells "
-          f"{int((want[..., s] > 0).sum())}; kernel {spread(t)}, plain twin on the card {plain_ms} ms, "
-          f"bound {bound} ms ({by})")
+    hw = tuple(got.shape[1:3])
+    replaced = (f"the scatter-and-finalize kernel it replaced: {REPLACED_VOX_MS[hw]} ms, PERF.md"
+                if not skew else "the replaced kernel was not timed on this case")
+    print(f"voxelize_bev points {tuple(dp.shape)} -> {tuple(got.shape)}"
+          f"{' (frame 0: every point in one tile)' if skew else ''}: height and density "
+          f"channels equal, and equal over two runs; meta channels max err {meta_err} (limit "
+          f"1e-5), filled cells {int((want[..., s] > 0).sum())}; kernel {spread(t)} ({replaced}), "
+          f"plain twin on the card {plain_ms} ms, bound {bound} ms ({by})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
 
 
@@ -1487,6 +1575,12 @@ def main() -> int:
                               bev_train_cfg.train.rpn_post_nms_top_n, rng_bev_train)
     roi_bev_train = check_roi_align(rng_bev_train, BEV_FEAT_HW, R_TRAIN)
     roi_bwd_bev = check_roi_align_backward(rng_bev_train, BEV_FEAT_HW)
+    # every point of one frame in one tile of the raster, and the multiscale
+    # forward with every RoI on p2, from a third stream
+    rng_skew = np.random.RandomState(2)
+    vox_skew = check_voxelize(rng_skew, bev_cfg, 0.5, bev_cfg.static.max_points, skew=True)
+    vox_skew_waymo = check_voxelize(rng_skew, bev_cfg, 1.0, 180000, skew=True)
+    ms_fwd_p2 = check_multiscale_roi_align(rng_skew, p2_rois(rng_skew, B, R), "every RoI on p2")
 
     serving_cfg = make_config(IMAGE_OVERRIDES, SERVING_OVERRIDES)
 
@@ -1578,14 +1672,17 @@ def main() -> int:
               {k: nms_rot[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}),
     ]}
     print("timed at the shapes of the path each entry's launches come from: voxelize_bev "
-          "(8, 32768) -> (8, 400, 350, 15); nms (8, 1024) -> 1024 slots @ 0.7 (BEV training; "
+          "(8, 32768) -> (8, 400, 350, 15) (the points counting-sorted by 8 x 32 tiles of the "
+          "raster, then one block a tile sums its list in shared memory and writes its cells "
+          "once: no zeroed raster, no full-raster scratch); nms (8, 1024) -> 1024 slots @ 0.7 (BEV training; "
           "the IoU mask kernel, then the keep scan in 64-row blocks staged by TMA bulk copies; "
           "max_abs_err over every NMS shape); roi_align bf16 (8, 25, 22, 1024) x 256 (one warp a "
           "RoI and 128 channels: each distinct tap cell staged once by cp.async into a ring of "
           "tap rows, x-then-y sums in registers); "
           "roi_align_bwd bf16 dOut (8, 256, 7, 7, 1024) -> (8, 25, 22, 1024) (the tile gather: "
           "2 x 4 cells a block, sums in registers, no atomics, bitwise repeatable); "
-          "roi_align_multiscale bf16 p2..p5 of 512x960 x (8, 300) rois of 16-900 px; "
+          "roi_align_multiscale bf16 p2..p5 of 512x960 x (8, 300) rois of 16-900 px (the "
+          "single-level forward's staged body on each RoI's level); "
           "roi_align_multiscale_bwd bf16 dOut (8, 256, 7, 7, 256) (the same tile gather over the "
           "tiles of the four levels, 4 x 4 cells on p2 and p3, 2 x 4 on p4 and p5, after a pass "
           "that lists each frame's RoIs by level: no atomics, no float32 accumulator, bitwise "
@@ -1594,7 +1691,10 @@ def main() -> int:
           "against the twin's IoU); library_ms null: no "
           "single PyTorch call computes these functions (torchvision's nms, roi_align and "
           "MultiScaleRoIAlign are not installed)")
-    print(f"also: voxelize_bev (8, 180000) -> 800 x 700: {vox_waymo}; nms (8, 2048) -> 300: "
+    print(f"also: voxelize_bev (8, 180000) -> 800 x 700: {vox_waymo}; frame 0 in one tile: "
+          f"(8, 32768) -> 400 x 350 {vox_skew}, (8, 180000) -> 800 x 700 {vox_skew_waymo}; "
+          f"roi_align_multiscale every RoI on p2: bf16 {ms_fwd_p2[torch.bfloat16]}, fp32 "
+          f"{ms_fwd_p2[torch.float32]}; nms (8, 2048) -> 300: "
           f"{nms_prop}; (16, 300) -> 100: {nms_filter}; (8, 4096) -> 2000: {nms_train}; "
           f"BEV (8, 1100) -> 300: {nms_bev}; BEV (16, 300) -> 100: {nms_bev_filter}; "
           f"roi_align (8, 32, 60, 1024) x 300: fp32 {roi[torch.float32]}, bf16 "

@@ -26,6 +26,8 @@
 // column once, then combined along y into the bin row's sums in registers;
 // each bin is written once, one coalesced store a warp (bf16 rounded in the
 // same pass).  Every tap cell of the RoI is read from L2 once per block.
+// The multiscale forward runs the same body (`pool_roi_staged`) on each
+// RoI's level.
 //
 // The backward at the training shapes (B 8, R 256, P 7, C 1024) has
 // 8 x 256 x 49 x 16 x 1024 = 1.6e9 float32 channel-taps to add into the
@@ -72,8 +74,6 @@
 #include <cmath>
 
 namespace {
-
-constexpr int kMaxThreads = 256;
 
 // VEC consecutive channels <-> float registers.
 template <typename T, int VEC>
@@ -188,40 +188,6 @@ __device__ __forceinline__ RoIBox roi_box(const float* roi, float scale, int p, 
   r.bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, r.x1), min_size), static_cast<float>(p));
   r.bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, r.y1), min_size), static_cast<float>(p));
   return r;
-}
-
-// Bin (ph, pw) of VEC channels from c0: the mean over its sr x sr samples of
-// the bilinear taps into the (h, w, c) map fb.
-template <typename T, int VEC>
-__device__ __forceinline__ void pool_bin(const T* fb, int h, int w, int c, int c0,
-                                         const RoIBox& box, int ph, int pw, int sr,
-                                         float (&acc)[VEC]) {
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-  for (int iy = 0; iy < sr; ++iy) {
-    const Taps ty = axis_taps(box.y1, box.bin_h, ph * sr + iy, sr, h);
-    for (int ix = 0; ix < sr; ++ix) {
-      const Taps tx = axis_taps(box.x1, box.bin_w, pw * sr + ix, sr, w);
-      const int ys[2] = {ty.lo, ty.hi};
-      const int xs[2] = {tx.lo, tx.hi};
-      const float wys[2] = {ty.w_lo, ty.w_hi};
-      const float wxs[2] = {tx.w_lo, tx.w_hi};
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float v[VEC];
-          VecIO<T, VEC>::load(fb + ((size_t)ys[a] * w + xs[e]) * c + c0, v);
-          const float wt = wys[a] * wxs[e];
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) acc[k] += wt * v[k];
-        }
-      }
-    }
-  }
-  const float count = static_cast<float>(sr * sr);
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) acc[k] = __fdiv_rn(acc[k], count);
 }
 
 // -- cp.async: 4-, 8- and 16-byte copies from global to shared memory ------
@@ -343,8 +309,10 @@ __device__ __forceinline__ void stage_row(T* ring_slot, const T* fb, int y, cons
 }
 
 // A staged tap row interpolated at the x-samples and summed per bin column:
-// x[pw] = sum over bin pw's samples of (w_lo F[lo] + w_hi F[hi]).  P_ and
-// SR_ are P and sr where fixed at compile time (0: read p and sr).
+// x[pw] = sum over bin pw's samples of (w_lo F[lo] + w_hi F[hi]), two
+// chained FMAs a tap pair (written out: `x += a * b + c * d` compiles to a
+// multiply, an FMA and an add).  P_ and SR_ are P and sr where fixed at
+// compile time (0: read p and sr).
 template <typename T, int VEC, int P_, int SR_>
 __device__ __forceinline__ void row_bins(const T* ring_slot, const SamplePlan* xs, int p, int sr,
                                          float (&x)[kFwdMaxP][VEC]) {
@@ -363,20 +331,12 @@ __device__ __forceinline__ void row_bins(const T* ring_slot, const SamplePlan* x
         VecIO<T, VEC>::load(ring_slot + sp.lo, lo);
         VecIO<T, VEC>::load(ring_slot + sp.hi, hi);
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) x[pw][v] += sp.w_lo * lo[v] + sp.w_hi * hi[v];
+        for (int v = 0; v < VEC; ++v) x[pw][v] = fmaf(sp.w_hi, hi[v], fmaf(sp.w_lo, lo[v], x[pw][v]));
       }
     }
   }
 }
 
-// Forward.  Grid (B x R, channel slices of kFwdThreads x VEC); block: one
-// warp, one RoI, VEC consecutive channels a thread.  The warp builds the
-// RoI's read plan, a lane a sample; then each thread stages and reads only
-// its own channels of each cell, so no barrier follows.  The y-samples are
-// walked in order with the two newest computed rows' bin sums in
-// registers (a sample's taps are the newest row and the one before it, or
-// the newest twice); a row is staged `ahead` rows before it is computed.
-// P_ and SR_: as in row_bins.
 // Resident forward blocks an SM is built for: bf16 blocks fit 16 at 128
 // registers a thread; float32 blocks, with twice the staging, fit 12 at
 // up to 168 registers (capping them at 128 measured slower).
@@ -385,13 +345,21 @@ struct FwdOccupancy {
   static constexpr int kBlocks = sizeof(T) == 2 ? 16 : 12;
 };
 
+// The forward's body, shared by the single-level and the multiscale
+// forward: one RoI's (P, P) bins of the block's channel slice, VEC
+// consecutive channels a thread, from frame map `fb` (h, w, c) into the
+// RoI's output `ob` (P, P, c), at the RoI's box on that map.  The warp
+// builds the RoI's read plan, a lane a sample; then each thread stages and
+// reads only its own channels of each cell, so no barrier follows.  The
+// y-samples are walked in order with the two newest computed rows' bin
+// sums in registers (a sample's taps are the newest row and the one before
+// it, or the newest twice); a row is staged `ahead` rows before it is
+// computed.  Every lane of the warp must call it.  P_ and SR_: as in
+// row_bins.
 template <typename T, int VEC, int P_, int SR_>
-__global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kBlocks)
-    roi_align_fwd_kernel(const T* __restrict__ feat, const float* __restrict__ rois,
-                         T* __restrict__ out, int r_per_frame, int h, int w, int c, float scale,
-                         int p_arg, int sr_arg, int aligned) {
-  const int p = P_ ? P_ : p_arg;
-  const int sr = SR_ ? SR_ : sr_arg;
+__device__ __forceinline__ void pool_roi_staged(const T* __restrict__ fb, int h, int w, int c,
+                                                const RoIBox& box, T* __restrict__ ob, int p,
+                                                int sr) {
   extern __shared__ float4 fwd_smem[];
   const int samples = p * sr;
   const int cap = kFwdCap * samples;  // staged cells
@@ -401,10 +369,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kBlocks)
   int* xtap = reinterpret_cast<int*>(ys + samples);
   int* ytap = xtap + 2 * samples;
 
-  const int br = blockIdx.x;  // b * R + r
-  const int b = br / r_per_frame;
   const int t = threadIdx.x;
-  const RoIBox box = roi_box(rois + (size_t)br * 4, scale, p, aligned);
   const int nx = build_axis_plan(box.x1, box.bin_w, p, sr, w, kFwdThreads * VEC, xtap, xs);
   const int ny = build_axis_plan(box.y1, box.bin_h, p, sr, h, 1, ytap, ys);
   __syncwarp();
@@ -412,7 +377,8 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kBlocks)
   if (c0 >= c) return;
   const int slots = min(kFwdMaxSlots, cap / nx);  // >= 1
   const int ahead = slots - 1;
-  const T* fb = feat + (size_t)b * h * w * c + c0;
+  fb += c0;
+  ob += c0;
   T* mine = ring + t * VEC;
   const int row_elems = nx * kFwdThreads * VEC;
 
@@ -431,7 +397,6 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kBlocks)
   const int count = sr * sr;
   const bool count_pow2 = (count & (count - 1)) == 0;
   const float inv_count = 1.f / static_cast<float>(count);
-  T* ob = out + (size_t)br * p * p * c + c0;
   int have = -1;  // the newest computed row; its bin sums in last, its predecessor's in prev
   for (int sy = 0; sy < samples; ++sy) {
     const SamplePlan sp = ys[sy];
@@ -462,13 +427,17 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kBlocks)
 #pragma unroll
       for (int pw = 0; pw < kFwdMaxP; ++pw) {
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[pw][v] += sp.w_lo * last[pw][v] + sp.w_hi * last[pw][v];
+        for (int v = 0; v < VEC; ++v) {
+          acc[pw][v] = fmaf(sp.w_hi, last[pw][v], fmaf(sp.w_lo, last[pw][v], acc[pw][v]));
+        }
       }
     } else {
 #pragma unroll
       for (int pw = 0; pw < kFwdMaxP; ++pw) {
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[pw][v] += sp.w_lo * prev[pw][v] + sp.w_hi * last[pw][v];
+        for (int v = 0; v < VEC; ++v) {
+          acc[pw][v] = fmaf(sp.w_hi, last[pw][v], fmaf(sp.w_lo, prev[pw][v], acc[pw][v]));
+        }
       }
     }
     if (sy % sr == sr - 1) {  // the bin row is complete
@@ -489,6 +458,22 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kBlocks)
     }
   }
   cp_async_wait<0>();
+}
+
+// Forward.  Grid (B x R, channel slices of kFwdThreads x VEC); block: one
+// warp, one RoI, VEC consecutive channels a thread (pool_roi_staged).
+template <typename T, int VEC, int P_, int SR_>
+__global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kBlocks)
+    roi_align_fwd_kernel(const T* __restrict__ feat, const float* __restrict__ rois,
+                         T* __restrict__ out, int r_per_frame, int h, int w, int c, float scale,
+                         int p_arg, int sr_arg, int aligned) {
+  const int p = P_ ? P_ : p_arg;
+  const int sr = SR_ ? SR_ : sr_arg;
+  const int br = blockIdx.x;  // b * R + r
+  const int b = br / r_per_frame;
+  const RoIBox box = roi_box(rois + (size_t)br * 4, scale, p, aligned);
+  pool_roi_staged<T, VEC, P_, SR_>(feat + (size_t)b * h * w * c, h, w, c, box,
+                                   out + (size_t)br * p * p * c, p, sr);
 }
 
 // A RoI's tap footprint on one axis: the rows (or columns) from the low tap
@@ -844,12 +829,6 @@ __global__ void roi_align_bwd_kernel(const T* __restrict__ grad_out, BwdScratch 
 
 constexpr size_t kMaxSmemBytes = 232448;  // a block's shared memory on sm_90
 
-int threads_for(int c, int vec) {
-  const int vectors = c / vec;
-  const int threads = ((vectors + 31) / 32) * 32;
-  return threads > kMaxThreads ? kMaxThreads : threads;
-}
-
 // Lets `kernel` take `smem` bytes of dynamic shared memory: 0 on success.
 template <typename K>
 int allow_smem(K kernel, size_t smem) {
@@ -859,19 +838,23 @@ int allow_smem(K kernel, size_t smem) {
                                                static_cast<int>(smem)));
 }
 
-template <typename T, int VEC, int P_, int SR_>
-int launch_fwd(const void* feat, const void* rois, void* out, int b, int h, int w, int c, int r,
-               float scale, int p, int sr, int aligned, cudaStream_t stream) {
+// A forward kernel's launch: grid (the B x R RoIs, channel slices of
+// kFwdThreads x VEC), one warp a block, the staged body's shared memory.
+template <typename T, int VEC, typename Kernel, typename... Args>
+int launch_staged(Kernel kernel, long long rois, int c, int p, int sr, cudaStream_t stream,
+                  Args... args) {
   const size_t smem = fwd_smem_bytes(p, sr, VEC, sizeof(T));
-  const int err = allow_smem(roi_align_fwd_kernel<T, VEC, P_, SR_>, smem);
+  const int err = allow_smem(kernel, smem);
   if (err != 0) return err;
-  const int vectors = c / VEC;
-  const dim3 grid(static_cast<unsigned>((long long)b * r),
-                  (vectors + kFwdThreads - 1) / kFwdThreads);
-  roi_align_fwd_kernel<T, VEC, P_, SR_><<<grid, kFwdThreads, smem, stream>>>(
-      static_cast<const T*>(feat), static_cast<const float*>(rois),
-      static_cast<T*>(out), r, h, w, c, scale, p, sr, aligned);
+  const dim3 grid(static_cast<unsigned>(rois), (c / VEC + kFwdThreads - 1) / kFwdThreads);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The sizes the staged body takes: P bins a side in registers, P x sr
+// samples a side (one lane a sample builds the plan).
+bool fwd_sizes_ok(int p, int sr) {
+  return p >= 1 && p <= kFwdMaxP && sr >= 1 && p * sr <= kFwdMaxSamples;
 }
 
 // The forward: P 7 and sr 2 (the detector's) compiled in, others read at
@@ -880,13 +863,17 @@ template <typename T, int VEC>
 int launch(const void* feat, const void* rois, void* out, int b, int h, int w,
            int c, int r, float scale, int p, int sr, int aligned,
            cudaStream_t stream) {
-  if (p < 1 || p > kFwdMaxP || sr < 1 || p * sr > kFwdMaxSamples) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!fwd_sizes_ok(p, sr)) return static_cast<int>(cudaErrorInvalidValue);
+  const T* f = static_cast<const T*>(feat);
+  const float* boxes = static_cast<const float*>(rois);
+  T* o = static_cast<T*>(out);
+  const long long n = (long long)b * r;
   if (p == 7 && sr == 2) {
-    return launch_fwd<T, VEC, 7, 2>(feat, rois, out, b, h, w, c, r, scale, p, sr, aligned, stream);
+    return launch_staged<T, VEC>(roi_align_fwd_kernel<T, VEC, 7, 2>, n, c, p, sr, stream, f, boxes,
+                                 o, r, h, w, c, scale, p, sr, aligned);
   }
-  return launch_fwd<T, VEC, 0, 0>(feat, rois, out, b, h, w, c, r, scale, p, sr, aligned, stream);
+  return launch_staged<T, VEC>(roi_align_fwd_kernel<T, VEC, 0, 0>, n, c, p, sr, stream, f, boxes, o,
+                               r, h, w, c, scale, p, sr, aligned);
 }
 
 // The backwards' first pass into the scratch at `scratch`.
@@ -962,11 +949,12 @@ int launch_bwd(const void* grad_out, const void* rois, void* grad, void* scratch
 //
 // What bounds the forward at the FPN serving shapes (B 8, R 300, P 7, C
 // 256, bf16): bytes, the 60 MB output (8 x 300 x 49 x 256 x 2 B) and the
-// tap rows the RoIs hit on their levels.  One block per RoI walks the RoI's
-// 49 bins x C / VEC channel vectors, so a warp reads 32 consecutive 16-byte
-// vectors of one tap row and writes one coalesced bin (at C = 256 bf16 one
-// bin is one warp).  The single-level forward's staged read plan is not
-// carried over to it yet.
+// tap rows the RoIs hit on their levels.  It is the single-level forward
+// on the RoI's level: a block owns one RoI and one slice of kFwdThreads x
+// VEC channels, picks the level by `roi_level`, builds the RoI's box with
+// that level's scale, and runs `pool_roi_staged` on that level's map, so
+// each tap cell of the RoI is read from L2 once per block and each bin is
+// written once.
 //
 // The backward is the single-level backward's tile gather (`gather_tile`),
 // level by level: one grid over the 2 x 4 tiles of the four maps of every
@@ -977,29 +965,25 @@ int launch_bwd(const void* grad_out, const void* rois, void* grad, void* scratch
 // no atomics, no zeroed float32 accumulator, no rounding pass, and the
 // same result bit for bit from run to run.
 
-template <typename T, int VEC>
-__global__ void roi_align_ms_fwd_kernel(Pyramid pyr, const float* __restrict__ rois,
-                                        T* __restrict__ out, int* __restrict__ levels_out,
-                                        int r_per_frame, int c, int p, int sr) {
+// Forward.  Grid (B x R, channel slices of kFwdThreads x VEC); block: one
+// warp, one RoI on its level, VEC consecutive channels a thread.
+template <typename T, int VEC, int P_, int SR_>
+__global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kBlocks)
+    roi_align_ms_fwd_kernel(Pyramid pyr, const float* __restrict__ rois, T* __restrict__ out,
+                            int* __restrict__ levels_out, int r_per_frame, int c, int p_arg,
+                            int sr_arg) {
+  const int p = P_ ? P_ : p_arg;
+  const int sr = SR_ ? SR_ : sr_arg;
   const int br = blockIdx.x;  // b * R + r
   const int b = br / r_per_frame;
   const float* roi = rois + (size_t)br * 4;
   const int lvl = roi_level(roi);
-  if (threadIdx.x == 0) levels_out[br] = lvl;
+  if (threadIdx.x == 0 && blockIdx.y == 0) levels_out[br] = lvl;
   const int h = pick(pyr.h, lvl);
   const int w = pick(pyr.w, lvl);
   const RoIBox box = roi_box(roi, pick(pyr.scale, lvl), p, 0);
   const T* fb = static_cast<const T*>(pick(pyr.feat, lvl)) + (size_t)b * h * w * c;
-  const int nvec = c / VEC;
-  T* ob = out + (size_t)br * p * p * c;
-
-  for (int item = threadIdx.x; item < p * p * nvec; item += blockDim.x) {
-    const int bin = item / nvec;
-    const int c0 = (item - bin * nvec) * VEC;
-    float acc[VEC];
-    pool_bin<T, VEC>(fb, h, w, c, c0, box, bin / p, bin % p, sr, acc);
-    VecIO<T, VEC>::store(ob + (size_t)bin * c + c0, acc);
-  }
+  pool_roi_staged<T, VEC, P_, SR_>(fb, h, w, c, box, out + (size_t)br * p * p * c, p, sr);
 }
 
 // Backward: the maps' gradients.  Grid (the tiles of every level and
@@ -1047,14 +1031,21 @@ bool make_pyramid(Pyramid* pyr, const int* heights, const int* widths, const flo
   return true;
 }
 
+// The multiscale forward: P 7 and sr 2 compiled in, others read at run time.
 template <typename T, int VEC>
 int launch_ms_fwd(const Pyramid& pyr, const void* rois, void* out, void* levels_out, int b,
                   int c, int r, int p, int sr, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>(b * r);
-  roi_align_ms_fwd_kernel<T, VEC><<<blocks, threads_for(p * p * c, VEC), 0, stream>>>(
-      pyr, static_cast<const float*>(rois), static_cast<T*>(out), static_cast<int*>(levels_out),
-      r, c, p, sr);
-  return static_cast<int>(cudaGetLastError());
+  if (!fwd_sizes_ok(p, sr)) return static_cast<int>(cudaErrorInvalidValue);
+  const float* boxes = static_cast<const float*>(rois);
+  T* o = static_cast<T*>(out);
+  int* lv = static_cast<int*>(levels_out);
+  const long long n = (long long)b * r;
+  if (p == 7 && sr == 2) {
+    return launch_staged<T, VEC>(roi_align_ms_fwd_kernel<T, VEC, 7, 2>, n, c, p, sr, stream, pyr,
+                                 boxes, o, lv, r, c, p, sr);
+  }
+  return launch_staged<T, VEC>(roi_align_ms_fwd_kernel<T, VEC, 0, 0>, n, c, p, sr, stream, pyr,
+                               boxes, o, lv, r, c, p, sr);
 }
 
 template <typename T, int VEC>
@@ -1150,10 +1141,11 @@ extern "C" int frcnn_roi_align_bwd(const void* grad_out, const void* rois, void*
 // p2..p5, float32 (dtype 0) or bfloat16 (dtype 1), contiguous; heights,
 // widths, scales (1 / stride): 4 values each, host memory.  rois: (B, R, 4)
 // float32.  out: (B, R, P, P, C) in the features' dtype.  levels_out: (B, R)
-// int32, each RoI's level index 0..3.  vectorized != 0 selects 16-byte
-// channel vectors (C a multiple of the vector width, every map and the
-// output 16-byte aligned).  Returns cudaGetLastError() after the launch (0
-// on success).
+// int32, each RoI's level index 0..3.  P at most kFwdMaxP (7), P x sr at
+// most 32.  vectorized != 0 selects 4-channel vectors, as in
+// frcnn_roi_align_fwd (C a multiple of 16 bytes' channels, every map and
+// the output 16-byte aligned).  Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int frcnn_roi_align_ms_fwd(const void* const* features, const int* heights,
                                       const int* widths, const float* scales, const void* rois,
                                       void* out, void* levels_out, int dtype, int vectorized,
@@ -1164,12 +1156,13 @@ extern "C" int frcnn_roi_align_ms_fwd(const void* const* features, const int* he
   if (b * r == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return vectorized ? launch_ms_fwd<float, 4>(pyr, rois, out, levels_out, b, c, r, p, sr, s)
-                      : launch_ms_fwd<float, 1>(pyr, rois, out, levels_out, b, c, r, p, sr, s);
+    return vectorized
+               ? launch_ms_fwd<float, kFwdVec>(pyr, rois, out, levels_out, b, c, r, p, sr, s)
+               : launch_ms_fwd<float, 1>(pyr, rois, out, levels_out, b, c, r, p, sr, s);
   }
   if (dtype == 1) {
     return vectorized
-               ? launch_ms_fwd<__nv_bfloat16, 8>(pyr, rois, out, levels_out, b, c, r, p, sr, s)
+               ? launch_ms_fwd<__nv_bfloat16, kFwdVec>(pyr, rois, out, levels_out, b, c, r, p, sr, s)
                : launch_ms_fwd<__nv_bfloat16, 1>(pyr, rois, out, levels_out, b, c, r, p, sr, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -125,7 +125,9 @@ def library() -> ctypes.CDLL:
     lib.frcnn_roi_align_bwd_scratch_bytes.restype = ctypes.c_longlong
     lib.frcnn_roi_align_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.frcnn_roi_align_bwd.restype = i
-    lib.frcnn_voxelize_bev.argtypes = [p, p, p, p, p, p, i, i, f, f, f, f, f, f, f, i, i, i, i, i, f, p]
+    lib.frcnn_voxelize_scratch_bytes.argtypes = [i, i, i, i]
+    lib.frcnn_voxelize_scratch_bytes.restype = ctypes.c_longlong
+    lib.frcnn_voxelize_bev.argtypes = [p, p, p, p, i, i, f, f, f, f, f, f, f, i, i, i, i, i, f, p]
     lib.frcnn_voxelize_bev.restype = i
     # pointer arguments to host arrays: the maps or their gradients (void*[]),
     # heights, widths and scales, built by the wrapper with ctypes

@@ -327,7 +327,8 @@ def _addr(arr) -> int:
 
 def _multiscale_roi_align_cuda(feature_maps, rois, strides, p, sr):
     """The forward kernel over the four maps p2..p5 (canonical scale 224 at
-    level 4): (out (B, R, P, P, C), levels (B, R) int32)."""
+    level 4): the single-level forward's staged read plan on each RoI's
+    level.  Returns (out (B, R, P, P, C), levels (B, R) int32)."""
     b, c = feature_maps[0].shape[0], feature_maps[0].shape[-1]
     r = rois.shape[1]
     device, dtype = rois.device, feature_maps[0].dtype
@@ -455,6 +456,10 @@ def multiscale_roi_align_batched(
             f"{canonical_scale} at level {canonical_level}")
     if not (rois.is_contiguous() and all(m.is_contiguous() for m in maps)):
         raise ValueError("multiscale_roi_align: contiguous NHWC maps and rois required")
+    if output_size > _FWD_MAX_P or output_size * sampling_ratio > _FWD_MAX_SAMPLES:
+        raise ValueError(f"multiscale_roi_align: the CUDA forward holds at most {_FWD_MAX_P} bins "
+                         f"a side in registers and {_FWD_MAX_SAMPLES} samples a side, got "
+                         f"output_size {output_size}, sampling_ratio {sampling_ratio}")
     return _MultiscaleRoIAlignCuda.apply(rois, geometry, *maps)
 
 

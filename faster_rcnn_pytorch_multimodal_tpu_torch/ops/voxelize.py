@@ -26,7 +26,7 @@ channels equal the JAX loader's bit for bit.  (A direct call of the jitted
 JAX function takes the ranges as traced arguments and divides truly by
 eff_x, which puts some of the points that lie on a cell boundary in the
 next cell.)  The meta channels are float sums whose order depends on the
-backend (atomics on the card), so they agree to ~1e-6.
+backend (arrival order within a tile on the card), so they agree to ~1e-6.
 
 On a CUDA tensor `voxelize_bev` launches csrc/voxelize.cu or raises; on a CPU
 tensor it runs `voxelize_bev_plain` (scatter_reduce / index_add_ into
@@ -40,6 +40,8 @@ from typing import Tuple
 import torch
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+
+_MAX_SLICES = 111  # csrc/voxelize.cu: a tile's 2 x 256 x S voxel words in shared memory
 
 
 def _f32(v: float) -> torch.Tensor:
@@ -133,22 +135,21 @@ def voxelize_bev_plain(
 
 def _voxelize_cuda(points, valid, x_range, y_range, z_range, voxel_height,
                    num_x, num_y, num_slices, num_meta, max_pts_per_voxel):
+    """The four passes of csrc/voxelize.cu: the points counting-sorted by
+    tile of the raster, then one block a tile writes its cells once, so
+    `out` starts empty; the scratch holds the tiles' counts and offsets and
+    one rank and one 16-byte list entry a point."""
     b, p = valid.shape
     dev = points.device
-    out = torch.zeros((b, num_y, num_x, num_slices + num_meta), dtype=torch.float32, device=dev)
-    # scratch: per-voxel and per-column counts, per-column sums.  At the
-    # Waymo-size raster (8 frames x 800 x 700 x 12 slices) the voxel counts
-    # alone are 215 MB of int32; a simple kernel pays for it.
-    vox_cnt = torch.zeros((b, num_y, num_x, num_slices), dtype=torch.int32, device=dev)
-    col_cnt = torch.zeros((b, num_y, num_x), dtype=torch.int32, device=dev)
-    col_sum = torch.zeros((b, num_y, num_x, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((b, num_y, num_x, num_slices + num_meta), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    nbytes = lib.frcnn_voxelize_scratch_bytes(b, p, num_y, num_x)
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=dev)
     f32 = lambda v: float(_f32(v))  # noqa: E731
     recip = lambda v: float(_recip(v))  # noqa: E731
-    lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.frcnn_voxelize_bev(
-            points.data_ptr(), valid.data_ptr(), out.data_ptr(), vox_cnt.data_ptr(),
-            col_cnt.data_ptr(), col_sum.data_ptr(), b, p,
+            points.data_ptr(), valid.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, p,
             f32(x_range[0]), f32(y_range[0]), f32(z_range[0]),
             float(_pitch_recip(*x_range, num_x)), float(_pitch_recip(*y_range, num_y)),
             f32(voxel_height), recip(voxel_height), num_x, num_y, num_slices, num_meta,
@@ -208,6 +209,10 @@ def voxelize_bev(
         raise ValueError(f"voxelize_bev: unsupported device {points.device}")
     if not (points.is_contiguous() and valid.is_contiguous()):
         raise ValueError("voxelize_bev: contiguous points and valid required")
+    if num_slices > _MAX_SLICES or points.shape[0] * points.shape[1] >= 2**31 - 1:
+        raise ValueError(f"voxelize_bev: the CUDA kernel takes at most {_MAX_SLICES} slices (a "
+                         f"tile's voxels in shared memory) and fewer than 2^31 - 1 points, got "
+                         f"{num_slices}, {tuple(points.shape)}")
     return _voxelize_cuda(points, valid, **kw)
 
 

@@ -369,6 +369,63 @@ def test_voxelize_kernel_matches_twin(cuda):
     assert not bool(got[2].any())
 
 
+def _voxelize_against_twin(cuda, pts, valid, grid, num_meta=3):
+    """Two kernel runs against the twin: heights and density equal to the
+    twin's and to each other, the meta channels within 1e-5 (float sums in
+    arrival order).  Returns the kernel's raster on the CPU."""
+    tp, tv = torch.from_numpy(pts), torch.from_numpy(valid)
+    kw = {**grid, "num_meta": num_meta}
+    before = _build.LAUNCH_COUNTS["voxelize_bev"]
+    got = voxelize_bev(tp.to(cuda), tv.to(cuda), **kw)
+    again = voxelize_bev(tp.to(cuda), tv.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["voxelize_bev"] == before + 2
+    want = voxelize_bev_plain(tp, tv, **kw)
+    got, again = got.cpu(), again.cpu()
+    exact = grid["num_slices"] + min(num_meta, 1)
+    assert got.shape == want.shape
+    assert torch.equal(got[..., :exact], want[..., :exact])
+    assert torch.equal(got[..., :exact], again[..., :exact])
+    if num_meta >= 2:
+        assert float((got[..., exact:] - want[..., exact:]).abs().max()) <= 1e-5
+    return got
+
+
+@pytest.mark.cuda
+def test_voxelize_kernel_on_one_tile_repeats(cuda):
+    """Frame 0's 20,000 points all in one 8 x 32 tile (many rounds of the
+    tile block's list walk), 40 of them in one voxel: equal to the twin and
+    over two runs, the over-full voxel's density capped at 1.0, the
+    all-invalid frame zero."""
+    rng = np.random.RandomState(21)
+    pts, valid = chip_smoke.skew_points(rng, 3, 20000, GRID)
+    got = _voxelize_against_twin(cuda, pts, valid, GRID)
+    assert float(got[0, 24:32, 64:96, 12].max()) == 1.0
+    assert not bool(got[0, :24].any()) and not bool(got[0, :, :64].any())
+    assert not bool(got[1].any())
+
+
+@pytest.mark.cuda
+def test_voxelize_kernel_at_800x700(cuda):
+    """The Waymo-size raster (the BEV config at frame scale 1.0)."""
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.voxelize import raster_kwargs
+
+    grid = raster_kwargs(chip_smoke.make_config(chip_smoke.BEV_OVERRIDES), 1.0)
+    assert (grid["num_y"], grid["num_x"]) == (800, 700)
+    pts, valid = chip_smoke.bev_points(np.random.RandomState(22), 2, 60000, grid)
+    got = _voxelize_against_twin(cuda, pts, valid, grid, grid["num_meta"])
+    assert not bool(got[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_meta", [0, 1, 2, 3])
+def test_voxelize_kernel_num_meta(cuda, num_meta):
+    rng = np.random.RandomState(23 + num_meta)
+    pts, valid = _cloud(rng, 2, 8000)
+    got = _voxelize_against_twin(cuda, pts, valid, GRID, num_meta)
+    assert got.shape == (2, 200, 175, 12 + num_meta)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,c,tol", [(torch.float32, 256, 1e-5), (torch.bfloat16, 256, 1e-2),
                                          (torch.float32, 30, 1e-5), (torch.bfloat16, 12, 1e-2)])
@@ -393,6 +450,30 @@ def test_multiscale_roi_align_kernel_matches_twin(cuda, dtype, c, tol):
     assert got.dtype == dtype and got.shape == (2, 96, 7, 7, c)
     fmax = max(float(m.float().abs().max()) for m in maps)
     assert float((got.cpu().float() - want.float()).abs().max()) <= tol * fmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("level", [0, 3])
+def test_multiscale_roi_align_kernel_on_one_level(cuda, dtype, level):
+    """Every RoI on p2 (sides 16-110 px at aspects up to e^1.5: many span
+    more distinct p2 columns than the ring holds two rows of) or every RoI
+    on p5 (460-900 px): the levels and values of the twin."""
+    rng = np.random.RandomState(31 + level)
+    maps = [torch.from_numpy(rng.normal(size=(2,) + hw + (64,)).astype(np.float32)).to(dtype)
+            for hw in FPN_HW]
+    rois_np = (chip_smoke.p2_rois(rng, 2, 64, (128, 192)) if level == 0
+               else _fpn_rois(rng, 2, 64, 460.0, 900.0))
+    rois = torch.from_numpy(rois_np)
+    out, levels = _multiscale_roi_align_cuda([m.to(cuda) for m in maps], rois.to(cuda), STRIDES,
+                                             7, 2)
+    torch.cuda.synchronize()
+    assert bool((levels.cpu() == level).all())
+    assert torch.equal(levels.cpu().long(), roi_levels(rois, 4))
+    want = multiscale_roi_align_batched_plain(maps, rois, STRIDES)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    fmax = max(float(m.float().abs().max()) for m in maps)
+    assert float((out.cpu().float() - want.float()).abs().max()) <= tol * fmax
 
 
 @pytest.mark.cuda

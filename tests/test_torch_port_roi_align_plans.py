@@ -8,6 +8,9 @@ math (float32 op for op) and held against the JAX package on the CPU.
   once each, in order, each staged before it is computed and never
   overwritten before; the staged x-then-y evaluation equal to JAX
   `roi_align_batched` within 1e-5 * max|F|.
+* The multiscale forward (`roi_align_ms_fwd_kernel`): the same staged body
+  on the map of each RoI's level (`roi_level`), at that level's scale,
+  equal to JAX `multiscale_roi_align_batched` within 1e-5 * max|F|.
 * The multiscale backward's per-level tile gather (`roi_bucket_kernel`,
   then `gather_tile` under `roi_align_ms_bwd_kernel`): per level, per tile
   (4 x 4 cells on p2 and p3, 2 x 4 on p4 and p5), keep the RoIs that
@@ -320,6 +323,42 @@ def test_staged_forward_matches_jax(seed):
     assert min(widths) <= 3 and max(widths) == w
     want = np.asarray(j_roi_align(jnp.asarray(feats), jnp.asarray(rois), 1.0 / STRIDE, P, SR))
     assert float(np.abs(got - want).max()) <= 1e-5 * float(np.abs(feats).max())
+
+
+# -- the multiscale forward: the staged body on each RoI's level -------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_multiscale_staged_forward_matches_jax(seed):
+    """roi_align_ms_fwd_kernel: each RoI's level by roi_level (the twin's
+    roi_levels and JAX's floor(4 + log2(.))), then the single-level
+    forward's staged body (read plan, ring of tap rows, x-then-y sums) on
+    that level's map at its scale; within 1e-5 * max|F| of JAX
+    multiscale_roi_align_batched on RoIs over the edges, outside, under a
+    cell, on every level, and elongated p2 RoIs whose distinct tap columns
+    leave the ring one row."""
+    rng = np.random.RandomState(seed + 20)
+    maps = [rng.normal(size=(B,) + hw + (C,)).astype(f32) for hw in PYRAMID]
+    rois = awkward_rois(rng, B, 24, (64, 96), (6.0, 700.0))
+    rois[:, 8] = [-200, -150, 400, 450]  # 600 px: p5
+    rois[:, 9] = [2.0, 30.0, 94.0, 33.0]  # 92 x 3 px: p2, 23 columns of the 24
+    rois[:, 10] = [5.0, 1.0, 9.0, 62.5]  # 4 x 61.5 px: p2, 16 rows
+    levels = np.array([[roi_level(roi) for roi in frame] for frame in rois])
+    assert np.array_equal(levels, roi_levels(torch.from_numpy(rois), 4).numpy())
+    assert set(levels.ravel().tolist()) == {0, 1, 2, 3}
+    got = np.zeros((B, rois.shape[1], P, P, C), f32)
+    widths = []
+    for b in range(B):
+        for r in range(rois.shape[1]):
+            lvl = levels[b, r]
+            scale = f32(1) / f32(STRIDES[lvl])
+            got[b, r], computed, nx, ny = staged_forward(maps[lvl][b], rois[b, r], scale, P, SR)
+            assert computed == list(range(ny))
+            widths.append(nx)
+    assert max(widths) > FWD_CELLS * P * SR // 2  # a ring of one tap row
+    want = np.asarray(j_msra([jnp.asarray(m) for m in maps], jnp.asarray(rois), STRIDES, P, SR))
+    fmax = max(float(np.abs(m).max()) for m in maps)
+    assert float(np.abs(got - want).max()) <= 1e-5 * fmax
 
 
 # -- the multiscale backward's per-level tile gather -------------------------
