@@ -14,7 +14,10 @@ non-zero and never prints its last line):
      (8, 4096) -> 2000 @ 0.7 (training), (8, 1100) -> 300 @ 0.7 and
      (16, 300) -> 100 @ 0.6 (BEV serving), (8, 1024) -> 1024 slots @ 0.7
      (BEV training) must keep identical lanes (each check also prints the
-     mask and scan kernels' device times apart, from torch.profiler); RoI
+     sort, mask and scan kernels' device times apart, from torch.profiler,
+     beside the replaced kernels' (REPLACED_NMS_MS)), and so must 4,000
+     problems of two boxes whose IoU lies a float32 step or two from each
+     threshold's midpoint (check_nms_near_mid); RoI
      align at features
      (8, 32, 60, 1024) and (8, 25, 22, 1024) x 300 rois and (8, 25, 22,
      1024) x 256 (BEV training) within 1e-5 * max|F| (float32) and 1e-2 *
@@ -77,7 +80,10 @@ non-zero and never prints its last line):
  12. the rotated BEV serving path: phase 9 with TEST.ROTATED_NMS and
      TEST.NMS_THRESH 0.3.  The rotated NMS kernel must launch once a batch
      and the axis-aligned one that much less than in phase 9; ms, frames/s
-     and peak memory beside phase 9's.
+     and peak memory beside phase 9's.  Then the rotated NMS checks of
+     phase 3 (rotated_case) on what the path's final filter gave NMS in its
+     first batch (filter_nms_inputs), with the share of pairs whose
+     bounding circles meet.
  13. the FPN slices at res101, float32, one 256x320 frame, serving and
      training, card against CPU as in phases 4 and 6 (the pyramid p2..p5 in
      place of the C4 map; the FPN, layer4 and FCTail among the leaves).
@@ -101,12 +107,13 @@ sum-order limit on every level and bitwise equal over two runs, and once
 with every RoI on p5 (times beside the replaced kernel's,
 REPLACED_MS_BWD_MS); and the
 rotated NMS at the BEV final filter's shape, (16, 300) -> 100 @ 0.3, on
-rotated boxes in voxel units, half of them clustered: its IoU kernel within
-5e-5 of the twin's IoU (and on edge cases: identical, nested, shared edge,
-90 degrees, zero width, disjoint), its keeps identical to the twin's on
-every problem where no kept lane's pair lies within 1e-4 of the threshold,
-and on every problem a tolerant greedy check against the twin's IoU matrix
-(`greedy_violations`).
+rotated boxes in voxel units, half of them clustered, then on dense ones
+(every box of a problem in one 40-voxel square, so that every pair clips),
+also at threshold 0: its IoU kernel within 5e-5 of the twin's IoU (and on
+edge cases: identical, nested, shared edge, 90 degrees, zero width,
+disjoint), its keeps identical to the twin's on every problem where no
+kept lane's pair lies within 1e-4 of the threshold, and on every problem a
+tolerant greedy check against the twin's IoU matrix (`greedy_violations`).
 Each path (5, 7, 9, 11, 12, 14, 15) runs with the launch counts set to 0
 just before it and read just after.  Then one JSON line describing the
 kernels (each kernel's `launches` is the count on the newest path that runs
@@ -121,6 +128,7 @@ Imports nothing of JAX; needs the repository checkout around it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -292,29 +300,40 @@ def kernel_ms(fn, reps: int, windows: int = 5) -> dict:
             "host_queue_ms": max(host), "sleep_ms": sleep_ms}
 
 
-def profile_kernels(fn, reps: int, *names) -> dict:
-    """Device milliseconds per call of the CUDA kernels fn() launches whose
-    name holds each of `names`, from torch.profiler's per-kernel totals over
-    reps calls (after one warm-up call): {name: ms}, 0 where the profiler
-    saw no device time."""
+def profile_kernels(fn, reps: int, *names, attempts: int = 3) -> dict:
+    """Device milliseconds per launch of the CUDA kernels fn() launches, one
+    launch a call each, whose names hold `names`, from torch.profiler's
+    per-kernel totals over reps calls (after one warm-up call): {name: ms},
+    each the mean over the launches the profile holds.  The profiler can
+    lose a run's records, all of them or some (seen on the H100: 6 of 10);
+    a profile without a record of one of the kernels is taken again, up to
+    `attempts` profiles, then this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0.0)
-        for n in names:
-            if n in e.key:
-                out[n] += us / 1e3 / reps
-    return out
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, seen, keys = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0), []
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0.0)
+            for n in names:
+                if n in e.key:
+                    keys.append((e.key[:60], e.count, us))
+                    if us > 0:
+                        total[n] += us
+                        seen[n] += e.count
+        if any(seen[n] != reps for n in names):
+            print(f"profile_kernels: the profile holds {seen} launches of {reps} each ({keys})")
+        if all(seen[n] > 0 for n in names):
+            return {n: total[n] / 1e3 / seen[n] for n in names}
+    raise AssertionError(f"profile_kernels: {attempts} profiles hold no launch of a kernel: {seen}")
 
 
 def spread(t: dict) -> str:
@@ -346,6 +365,21 @@ def nms_problems(rng, g, n):
     boxes[3, :chain] = [[i * 1.5, 0, i * 1.5 + 10, 10] for i in range(chain)]
     scores[3, :chain] = np.linspace(2.0, 1.5, chain)  # above every random score
     return boxes, scores, valid
+
+
+def near_mid_pairs(rng, thr, count):
+    """(count, 2, 4) pairs of boxes whose IoU lies next to the midpoint of
+    the float32 threshold and the float32 after it, where the axis-aligned
+    mask's division-free test decides (csrc/nms.cu threshold_test): box b
+    nested in box a, b's width the float32 steps around mid * a's width."""
+    t = np.float32(thr)
+    mid = (float(t) + float(np.nextafter(t, np.float32(np.inf)))) / 2
+    w = rng.uniform(5, 400, count).astype(np.float32)
+    h = rng.uniform(5, 400, count).astype(np.float32)
+    bits = (mid * w.astype(np.float64)).astype(np.float32).view(np.int32)
+    x = np.maximum(bits + rng.randint(-2, 3, count).astype(np.int32), 0).view(np.float32)
+    zero = np.zeros(count, np.float32)
+    return np.stack([np.stack([zero, zero, w, h], -1), np.stack([zero, zero, x, h], -1)], 1)
 
 
 def nms_pairs(scores, valid, idx, ok):
@@ -412,6 +446,28 @@ def greedy_violations(iou, scores, valid, idx, ok, thr, tol, max_out) -> list:
     return bad
 
 
+# K1's and K4's times with the mask kernels and the wrapper's torch sort and
+# casts that the sort kernel replaced (PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W): the whole call, its mask kernel and its scan kernel
+REPLACED_NMS_MS = {"proposals": (0.1257, 0.0592, 0.0167), "final filter": (0.0717, 0.0148, 0.0071),
+                   "train proposals": (0.3053, 0.1864, 0.0673),
+                   "BEV proposals": (0.0946, 0.0298, 0.0140),
+                   "BEV final filter": (0.0720, 0.0148, 0.0071),
+                   "BEV train proposals": (0.0982, 0.0242, 0.0219),
+                   "rotated": (0.2010, 0.1446, 0.0064)}
+NMS_KERNELS = ("nms_sort_kernel", "nms_mask_kernel", "nms_scan_kernel")
+ROT_NMS_KERNELS = ("nms_sort_kernel", "nms_rotated_mask_kernel", "nms_scan_kernel")
+
+
+def split_line(split, names, replaced) -> str:
+    """The sort, mask and scan kernels' times of one call beside the
+    replaced call's mask and scan (REPLACED_NMS_MS)."""
+    sort_, mask, scan = (split[k] for k in names)
+    return (f"of it per call (torch.profiler) the sort kernel {sort_} ms, the mask kernel {mask} ms "
+            f"(replaced: {replaced[1]}) and the staged block scan {scan} ms (replaced: "
+            f"{replaced[2]}); the call replaced took {replaced[0]} ms (PERF.md)")
+
+
 def check_nms(name, g, n, thr, max_out, rng):
     import torch
 
@@ -432,19 +488,38 @@ def check_nms(name, g, n, thr, max_out, rng):
         raise AssertionError(f"nms {name}: chain keeps {chain_kept}")
     t = kernel_ms(lambda: nms(db, ds, thr, max_out, dv), 50)
     ms = t["ms"]
-    split = profile_kernels(lambda: nms(db, ds, thr, max_out, dv), 10, "nms_mask_kernel",
-                            "nms_scan_kernel")
+    split = profile_kernels(lambda: nms(db, ds, thr, max_out, dv), 10, *NMS_KERNELS)
     plain_ms = cuda_ms(lambda: nms_plain(db, ds, thr, max_out, dv), 2)
     m = idx.shape[-1]
     pairs = nms_pairs(scores, valid, want_idx.numpy(), want_ok.numpy())
     bound, by = bound_ms(g * n * (16 + 4 + 1) + g * m * (4 + 1), pairs * IOU_FLOPS)
     print(f"nms {name} ({g}, {n}) -> {max_out} @ {thr}: identical keeps "
-          f"({int(ok.sum())} kept); kernel {spread(t)}, of it per call (torch.profiler) the mask "
-          f"kernel {split['nms_mask_kernel']} ms and the staged block scan "
-          f"{split['nms_scan_kernel']} ms (the rest: the wrapper's sort and casts); plain twin on "
+          f"({int(ok.sum())} kept); kernel {spread(t)}, "
+          f"{split_line(split, NMS_KERNELS, REPLACED_NMS_MS[name])}; plain twin on "
           f"the card {plain_ms} ms, bound {bound} ms ({by}; {pairs} IoU pairs)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "mask_ms": split["nms_mask_kernel"], "scan_ms": split["nms_scan_kernel"]}
+            "sort_ms": split["nms_sort_kernel"], "mask_ms": split["nms_mask_kernel"],
+            "scan_ms": split["nms_scan_kernel"]}
+
+
+def check_nms_near_mid(rng, count=4000):
+    """K1 on problems of two nested boxes whose IoU lies a float32 step or
+    two from each threshold's midpoint (near_mid_pairs), where the mask's
+    division-free test decides: keeps identical to the twin's."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import nms, nms_plain
+
+    scores = torch.tensor([[1.0, 0.5]]).expand(count, 2).contiguous()
+    for thr in (0.3, 0.5, 0.6, 0.7):
+        pairs = torch.from_numpy(near_mid_pairs(rng, thr, count))
+        idx, ok = nms(pairs.cuda(), scores.cuda(), thr, 2)
+        want_idx, want_ok = nms_plain(pairs, scores, thr, 2)
+        if not (torch.equal(idx.cpu(), want_idx) and torch.equal(ok.cpu(), want_ok)):
+            raise AssertionError(f"nms at the midpoint of {thr}: keeps differ from the twin's")
+        print(f"nms at the midpoint of {thr}: {count} problems of two boxes whose IoU lies a "
+              f"float32 step or two from it, identical keeps ({int(want_ok[:, 1].sum())} second "
+              f"boxes kept)")
 
 
 def rotated_boxes(rng, g, n):
@@ -460,14 +535,40 @@ def rotated_boxes(rng, g, n):
     return b.astype(np.float32)
 
 
-# float32 operations that every pair of csrc/nms.cu's rotated IoU costs at
-# least, counted from its code (rot_intersection, rot_iou): both quads'
-# corners relative to a's center, 2 x (2 + 16); the first clip stage, which
-# no pair skips: the edge vector (2), the first signed distance (5) and 5 per
-# vertex of a's quad (4 x 5); the union and the division (3).  Later clip
-# stages, crossings and the shoelace depend on the pair and are left out, so
-# pairs x ROT_PAIR_OPS undercounts the work: a valid bound.
-ROT_PAIR_OPS = 36 + 2 + 5 + 4 * 5 + 3
+def dense_rotated_boxes(rng, g, n):
+    """rotated_boxes with every box of a problem inside one 40-voxel square:
+    the centers within 3 voxels of the problem's center, so that any two
+    are nearer (8.5) than the smallest two half-diagonals (8.9).  The
+    rotated mask's early out never fires, and every lane clips."""
+    b = rotated_boxes(rng, g, n).astype(np.float64)
+    b[..., :2] = rng.uniform(20, 380, (g, 1, 2)) + rng.uniform(-3, 3, (g, n, 2))
+    return b.astype(np.float32)
+
+
+# The least float32 operations the rotated IoU test needs, whatever the
+# kernel: every pair greedy NMS must decide (each kept lane against every
+# lane after it) needs at least a separation test of the two boxes' bounding
+# circles (the center offset 2, the squared distance 2, the sum of the radii
+# and its square 2, the compare 1; the radii are per box); a pair whose
+# boxes intersect (the twin's IoU > 0) also needs each box's 4 corners
+# placed against the other box's 4 edges (8 x 4 x 2; the edge normals are
+# per box), the shoelace of the intersection over at least 3 vertices
+# (3 x 2) and the IoU (the union 2, the quotient 1, the compare 1).  The
+# edge crossings are not counted, so this is a floor.
+ROT_SEPARATION_OPS = 2 + 2 + 2 + 1
+ROT_INTERSECTION_OPS = 8 * 4 * 2 + 3 * 2 + 4
+
+
+def circles_meet(boxes):
+    """(G, N, 5) -> (G, N, N) bool: csrc/nms.cu `circles_apart` negated, in
+    float32 (the pairs the rotated mask kernel clips)."""
+    b = boxes.astype(np.float32)
+    r = np.float32(0.5) * np.sqrt(b[..., 2] * b[..., 2] + b[..., 3] * b[..., 3])
+    dx = b[..., None, :, 0] - b[..., :, None, 0]
+    dy = b[..., None, :, 1] - b[..., :, None, 1]
+    reach = r[..., :, None] + r[..., None, :]
+    lim = reach + np.float32(1e-5) * (np.abs(dx) + np.abs(dy) + reach)
+    return ~(dx * dx + dy * dy > lim * lim)
 
 
 ROTATED_EDGE_CASES = np.array([
@@ -482,12 +583,29 @@ ROTATED_EDGE_CASES = np.array([
 ], np.float32)
 
 
-def check_rotated(g, n, thr, max_out, rng, tol=1e-4):
-    """K4: the rotated IoU kernel's matrix against the twin's (max |dIoU| <=
-    5e-5, edge cases by value), and the rotated NMS kernel's keeps against
-    the twin's: identical on every problem where no kept lane's pair lies
-    within tol of the threshold, and the tolerant greedy check against the
-    twin's IoU matrix on every problem.  Twin on the card."""
+def greedy_pairs(scores, valid, idx, ok):
+    """(G, N, N) bool over the input lanes: row a kept lane, column a lane
+    after it in score order; the pairs greedy NMS must test (nms_pairs
+    counts them)."""
+    g, n = scores.shape
+    out = np.zeros((g, n, n), bool)
+    for p in range(g):
+        pos = np.empty(n, np.int64)
+        pos[score_order(scores[p], valid[p])] = np.arange(n)
+        kept = idx[p][ok[p]]
+        out[p, kept] = pos[None, :] > pos[kept][:, None]
+    return out
+
+
+def rotated_case(label, boxes, scores, valid, thr, max_out, tol=1e-4, timed=True):
+    """One set of rotated problems: the IoU kernel's matrix within 5e-5 of
+    the twin's, the rotated NMS kernel's keeps identical to the twin's on
+    every problem where no kept lane's pair lies within tol of the
+    threshold, and the tolerant greedy check against the twin's IoU matrix
+    on every problem.  Twin on the card.  Also counts the pairs: those the
+    mask kernel tests (every upper-triangle pair) and the share whose
+    bounding circles meet (those it clips), and those greedy NMS needs
+    (greedy_pairs) and the share of them that intersect (the bound's)."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import nms, nms_plain
@@ -496,29 +614,14 @@ def check_rotated(g, n, thr, max_out, rng, tol=1e-4):
         rotated_iou_matrix_plain,
     )
 
-    boxes = rotated_boxes(rng, g, n)
-    scores = rng.uniform(size=(g, n)).astype(np.float32)
-    scores[1] = np.round(scores[1] * 8) / 8  # ties
-    valid = np.ones((g, n), bool)
-    valid[2] = rng.uniform(size=n) < 0.7  # invalid lanes
+    g, n = scores.shape
     db, ds, dv = (torch.from_numpy(a).cuda() for a in (boxes, scores, valid))
     got = rotated_iou_matrix(db, db)
     want = rotated_iou_matrix_plain(db, db)
     torch.cuda.synchronize()
     iou_err = float((got - want).abs().max())
-    overlapping = int((want > 0.05).sum()) - g * n
-    e = torch.from_numpy(ROTATED_EDGE_CASES).cuda()
-    ge, we = rotated_iou_matrix(e, e).cpu().numpy(), rotated_iou_matrix_plain(e, e).cpu().numpy()
-    edge_err = float(np.abs(ge - we).max())
-    edges = {"identical": float(ge[0, 1]), "inside": float(ge[0, 2]),
-             "shared edge": float(abs(ge[3, 8])), "90 deg": float(ge[4, 8]),
-             "zero width": float(np.abs(ge[5]).max()), "disjoint": float(np.delete(ge[6], 6).max())}
-    edge_ok = (abs(edges["identical"] - 1) <= 1e-6 and abs(edges["inside"] - 0.25) <= 1e-6
-               and edges["shared edge"] <= 1e-6 and abs(edges["90 deg"] - 0.25) <= 1e-6
-               and edges["zero width"] <= 1e-6 and edges["disjoint"] == 0)
-    if not iou_err <= 5e-5 or not edge_err <= 5e-5 or not edge_ok:
-        raise AssertionError(f"rotated_iou: max |dIoU| {iou_err}, edge cases {edge_err} {edges}")
-
+    if not iou_err <= 5e-5:
+        raise AssertionError(f"rotated_iou {label}: max |dIoU| {iou_err}")
     idx, ok = nms(db, ds, thr, max_out, dv, rotated=True)
     torch.cuda.synchronize()
     want_idx, want_ok = (t.cpu().numpy() for t in nms_plain(db, ds, thr, max_out, dv, rotated=True))
@@ -530,38 +633,93 @@ def check_rotated(g, n, thr, max_out, rng, tol=1e-4):
         if near_threshold(iou_np[i], valid[i], thr, tol, rows):
             near += 1
         elif not (np.array_equal(idx[i], want_idx[i]) and np.array_equal(ok[i], want_ok[i])):
-            raise AssertionError(f"nms_rotated problem {i}: keeps differ from the twin's, and no "
-                                 f"kept lane's pair lies within {tol} of {thr}")
+            raise AssertionError(f"nms_rotated {label} problem {i}: keeps differ from the twin's, "
+                                 f"and no kept lane's pair lies within {tol} of {thr}")
         broken = greedy_violations(iou_np[i], scores[i], valid[i], idx[i], ok[i], thr, tol, max_out)
         if broken:
             bad += 1
-            print(f"nms_rotated problem {i}: {broken[:5]}")
+            print(f"nms_rotated {label} problem {i}: {broken[:5]}")
     if bad:
-        raise AssertionError(f"nms_rotated: {bad} problems fail the tolerant greedy check")
+        raise AssertionError(f"nms_rotated {label}: {bad} problems fail the tolerant greedy check")
+    upper = np.triu(np.ones((n, n), bool), 1)
+    pairs = g * n * (n - 1) // 2
+    meeting = int((circles_meet(boxes) & upper).sum())
+    needed = greedy_pairs(scores, valid, want_idx, want_ok)
+    intersecting = int((needed & (iou_np > 0)).sum())
+    out = {"max_abs_err": iou_err, "near_problems": near, "kept": int(ok.sum()),
+           "overlapping": int((iou_np > 0.05).sum()) - g * n, "mask_pairs": pairs,
+           "meeting": meeting, "meeting_share": meeting / pairs, "greedy_pairs": int(needed.sum()),
+           "intersecting": intersecting}
+    print(f"nms_rotated {label}: the bounding circles meet on {meeting} of the {pairs} "
+          f"upper-triangle pairs the mask kernel tests ({meeting / pairs:.4%}); greedy NMS needs "
+          f"{out['greedy_pairs']} pairs, of which {intersecting} intersect (twin IoU > 0)")
+    if not timed:
+        return out
     t = kernel_ms(lambda: nms(db, ds, thr, max_out, dv, rotated=True), 20)
     split = profile_kernels(lambda: nms(db, ds, thr, max_out, dv, rotated=True), 10,
-                            "nms_rotated_mask_kernel", "nms_scan_kernel")
+                            *ROT_NMS_KERNELS)
     plain_ms = cuda_ms(lambda: nms_plain(db, ds, thr, max_out, dv, rotated=True), 2)
     iou_t = kernel_ms(lambda: rotated_iou_matrix(db, db), 20)
-    pairs = g * n * (n - 1) // 2  # the mask kernel's upper triangle
-    ops = pairs * ROT_PAIR_OPS
-    col_blocks = -(-n // 64)
-    words = g * sum(col_blocks - i // 64 for i in range(n))
-    bound, by = bound_ms(g * n * 20 + words * 8, ops)
-    print(f"rotated_iou ({g}, {n}, 5)^2 -> ({g}, {n}, {n}): max |dIoU| vs twin {iou_err} (limit "
-          f"5e-5), {overlapping} overlapping pairs (IoU > 0.05); edge cases {edges}, max |dIoU| "
-          f"{edge_err}; kernel {spread(iou_t)}")
-    print(f"nms_rotated ({g}, {n}) -> {max_out} @ {thr}: {int(ok.sum())} kept; identical keeps on "
-          f"the {g - near} problems without a kept lane's pair within {tol} of {thr} ({near} "
-          f"with one); the tolerant greedy check passes on all {g}; kernel {spread(t)}, of it "
-          f"per call (torch.profiler) the rotated mask kernel "
-          f"{split['nms_rotated_mask_kernel']} ms and the staged block scan "
-          f"{split['nms_scan_kernel']} ms; plain "
-          f"twin on the card {plain_ms} ms, bound {bound} ms ({by}: {pairs} upper-triangle pairs x "
-          f"{ROT_PAIR_OPS} float32 operations, the least a pair costs in the kernel's code)")
-    return {"max_abs_err": iou_err, "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "near_problems": near, "iou_ms": iou_t["ms"],
+    ops = out["greedy_pairs"] * ROT_SEPARATION_OPS + intersecting * ROT_INTERSECTION_OPS
+    m = idx.shape[-1]
+    bound, by = bound_ms(g * n * (20 + 4 + 1) + g * m * (4 + 1), ops)
+    print(f"rotated_iou {label} ({g}, {n}, 5)^2 -> ({g}, {n}, {n}): max |dIoU| vs twin {iou_err} "
+          f"(limit 5e-5), {out['overlapping']} overlapping pairs (IoU > 0.05); kernel "
+          f"{spread(iou_t)}")
+    print(f"nms_rotated {label} ({g}, {n}) -> {max_out} @ {thr}: {out['kept']} kept; identical "
+          f"keeps on the {g - near} problems without a kept lane's pair within {tol} of {thr} "
+          f"({near} with one); the tolerant greedy check passes on all {g}; kernel {spread(t)}, "
+          f"{split_line(split, ROT_NMS_KERNELS, REPLACED_NMS_MS['rotated'])}; plain twin on the "
+          f"card {plain_ms} ms, bound {bound} ms ({by}: the {out['greedy_pairs']} pairs greedy NMS "
+          f"needs x {ROT_SEPARATION_OPS} float32 operations of a separation test + the "
+          f"{intersecting} of them that intersect x {ROT_INTERSECTION_OPS})")
+    return {**out, "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "iou_ms": iou_t["ms"], "sort_ms": split["nms_sort_kernel"],
             "mask_ms": split["nms_rotated_mask_kernel"], "scan_ms": split["nms_scan_kernel"]}
+
+
+def check_rotated(g, n, thr, max_out, rng, tol=1e-4):
+    """K4 at (g, n) -> max_out @ thr: the rotated IoU kernel on the edge
+    cases (by value, and within 5e-5 of the twin); rotated_case on random
+    boxes (half of them clustered), then, from a stream of its own, on
+    dense boxes (every box of a problem in one 40-voxel square: every lane
+    clips), timed, and at threshold 0."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.rotated_iou import (
+        rotated_iou_matrix,
+        rotated_iou_matrix_plain,
+    )
+
+    boxes = rotated_boxes(rng, g, n)
+    scores = rng.uniform(size=(g, n)).astype(np.float32)
+    scores[1] = np.round(scores[1] * 8) / 8  # ties
+    valid = np.ones((g, n), bool)
+    valid[2] = rng.uniform(size=n) < 0.7  # invalid lanes
+    e = torch.from_numpy(ROTATED_EDGE_CASES).cuda()
+    ge, we = rotated_iou_matrix(e, e).cpu().numpy(), rotated_iou_matrix_plain(e, e).cpu().numpy()
+    edge_err = float(np.abs(ge - we).max())
+    edges = {"identical": float(ge[0, 1]), "inside": float(ge[0, 2]),
+             "shared edge": float(abs(ge[3, 8])), "90 deg": float(ge[4, 8]),
+             "zero width": float(np.abs(ge[5]).max()), "disjoint": float(np.delete(ge[6], 6).max())}
+    edge_ok = (abs(edges["identical"] - 1) <= 1e-6 and abs(edges["inside"] - 0.25) <= 1e-6
+               and edges["shared edge"] <= 1e-6 and abs(edges["90 deg"] - 0.25) <= 1e-6
+               and edges["zero width"] <= 1e-6 and edges["disjoint"] == 0)
+    if not edge_err <= 5e-5 or not edge_ok:
+        raise AssertionError(f"rotated_iou: edge cases {edge_err} {edges}")
+    print(f"rotated_iou edge cases {edges}, max |dIoU| vs twin {edge_err}")
+    random = rotated_case("random", boxes, scores, valid, thr, max_out, tol)
+    rng_dense = np.random.RandomState(3)
+    dense_boxes = dense_rotated_boxes(rng_dense, g, n)
+    dense_scores = rng_dense.uniform(size=(g, n)).astype(np.float32)
+    dense_valid = rng_dense.uniform(size=(g, n)) < 0.9
+    dense = rotated_case("dense", dense_boxes, dense_scores, dense_valid, thr, max_out, tol)
+    zero = rotated_case("dense @ 0", dense_boxes, dense_scores, dense_valid, 0.0, max_out, tol,
+                        timed=False)
+    print(f"nms_rotated dense @ 0: {zero['kept']} kept, identical keeps on the "
+          f"{g - zero['near_problems']} problems without a kept lane's pair within {tol} of 0; "
+          f"the tolerant greedy check passes on all {g}")
+    return {**random, "dense": dense}
 
 
 def serving_rois(rng, b, r, frame_hw=FRAME_HW):
@@ -1463,10 +1621,35 @@ def check_bev_slice(cfg_base):
         raise AssertionError(f"BEV slice card vs CPU out of tolerance: {failed}")
 
 
+@contextlib.contextmanager
+def filter_nms_inputs():
+    """Within the block, record what the final filter (ops/filter.py) gives
+    NMS: a list that receives one dict a call, the boxes (G, N, E), scores
+    and valid (G, N) as numpy arrays, the threshold and max_out."""
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import filter as filter_mod
+
+    seen, nms = [], filter_mod.nms
+
+    def recording(boxes, scores, iou_threshold, max_out, valid=None, rotated=False):
+        n, e = boxes.shape[-2:]
+        ok = np.ones(scores.shape, bool) if valid is None else valid.cpu().numpy()
+        seen.append({"boxes": boxes.reshape(-1, n, e).cpu().numpy(),
+                     "scores": scores.reshape(-1, n).cpu().numpy(), "valid": ok.reshape(-1, n),
+                     "thr": iou_threshold, "max_out": max_out})
+        return nms(boxes, scores, iou_threshold, max_out, valid=valid, rotated=rotated)
+
+    filter_mod.nms = recording
+    try:
+        yield seen
+    finally:
+        filter_mod.nms = nms
+
+
 def run_bev_serving(cfg, smi, need=("voxelize_bev", "nms", "roi_align")):
     """The BEV serving path: warm-up batch, then 3 batches, counted; the
     kernels in `need` must have launched.  Returns the launches and the
-    batch's ms, frames/s and peak memory."""
+    batch's ms, frames/s, peak memory and the final filter's NMS input of
+    the warm-up batch (the first evaluated batch: filter_nms_inputs)."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
@@ -1485,7 +1668,8 @@ def run_bev_serving(cfg, smi, need=("voxelize_bev", "nms", "roi_align")):
                          seed=0)
     model = scale_terminators(build_detector(cfg, 2, "cuda", seed=0))
     warm = loader.peek()  # the first evaluated batch, run once to warm up
-    filter_batch(model, detect_batch(model, warm), cfg.test.thresh)
+    with filter_nms_inputs() as seen:
+        filter_batch(model, detect_batch(model, warm), cfg.test.thresh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -1513,7 +1697,7 @@ def run_bev_serving(cfg, smi, need=("voxelize_bev", "nms", "roi_align")):
     if not all(launches[k] > 0 for k in need):
         raise AssertionError(f"{name}: a kernel never launched: {launches}")
     return launches, {"ms": float(ms.mean()), "fps": B * len(ms) / (float(ms.sum()) / 1e3),
-                      "peak_gib": peak / 2**30}
+                      "peak_gib": peak / 2**30, "filter_input": seen[0]}
 
 
 def main() -> int:
@@ -1581,6 +1765,9 @@ def main() -> int:
     vox_skew = check_voxelize(rng_skew, bev_cfg, 0.5, bev_cfg.static.max_points, skew=True)
     vox_skew_waymo = check_voxelize(rng_skew, bev_cfg, 1.0, 180000, skew=True)
     ms_fwd_p2 = check_multiscale_roi_align(rng_skew, p2_rois(rng_skew, B, R), "every RoI on p2")
+    # K1's division-free test on pairs at each threshold's midpoint, from a
+    # fourth stream
+    check_nms_near_mid(np.random.RandomState(4))
 
     serving_cfg = make_config(IMAGE_OVERRIDES, SERVING_OVERRIDES)
 
@@ -1621,6 +1808,11 @@ def main() -> int:
           f"memory {rot_stats['peak_gib']} vs {bev_stats['peak_gib']} GiB; filter NMS launches "
           f"moved: nms {bev_serving['nms']} -> {bev_rotated['nms']}, nms_rotated "
           f"{bev_rotated['nms_rotated']}")
+    # K4 on what this path's final filter gave it (the first batch), after the
+    # path's counted run
+    path_in = rot_stats["filter_input"]
+    rot_path = rotated_case("BEV filter input", path_in["boxes"], path_in["scores"],
+                            path_in["valid"], path_in["thr"], path_in["max_out"])
 
     fpn_cfg = make_config(IMAGE_OVERRIDES, FPN_OVERRIDES)
     fpn_serving_cfg = make_config(IMAGE_OVERRIDES, FPN_OVERRIDES, SERVING_OVERRIDES)
@@ -1674,9 +1866,13 @@ def main() -> int:
     print("timed at the shapes of the path each entry's launches come from: voxelize_bev "
           "(8, 32768) -> (8, 400, 350, 15) (the points counting-sorted by 8 x 32 tiles of the "
           "raster, then one block a tile sums its list in shared memory and writes its cells "
-          "once: no zeroed raster, no full-raster scratch); nms (8, 1024) -> 1024 slots @ 0.7 (BEV training; "
-          "the IoU mask kernel, then the keep scan in 64-row blocks staged by TMA bulk copies; "
-          "max_abs_err over every NMS shape); roi_align bf16 (8, 25, 22, 1024) x 256 (one warp a "
+          "once: no zeroed raster, no full-raster scratch); nms (8, 1024) -> 1024 slots @ 0.7 (BEV "
+          "training; three launches: a cluster of 8 blocks a problem sorts the lanes (bitonic "
+          "chunks in shared memory, each key placed by binary searches in the cluster's "
+          "distributed shared memory), the IoU mask kernel tests each pair without a division, "
+          "two threads a tile row, then the keep scan in 64-row blocks staged by TMA bulk "
+          "copies; max_abs_err over every NMS shape); roi_align bf16 (8, 25, 22, 1024) x 256 "
+          "(one warp a "
           "RoI and 128 channels: each distinct tap cell staged once by cp.async into a ring of "
           "tap rows, x-then-y sums in registers); "
           "roi_align_bwd bf16 dOut (8, 256, 7, 7, 1024) -> (8, 25, 22, 1024) (the tile gather: "
@@ -1687,7 +1883,9 @@ def main() -> int:
           "tiles of the four levels, 4 x 4 cells on p2 and p3, 2 x 4 on p4 and p5, after a pass "
           "that lists each frame's RoIs by level: no atomics, no float32 accumulator, bitwise "
           "repeatable); nms_rotated (16, 300) -> 100 "
-          "@ 0.3 (the rotated mask kernel and the same block scan; max_abs_err: its IoU kernel "
+          "@ 0.3 (the same sort kernel; the rotated mask kernel: a bounding-circle test a pair "
+          "a lane, the pairs whose circles meet queued a warp at a time and clipped by "
+          "Sutherland-Hodgman in registers; the same block scan; max_abs_err: its IoU kernel "
           "against the twin's IoU); library_ms null: no "
           "single PyTorch call computes these functions (torchvision's nms, roi_align and "
           "MultiScaleRoIAlign are not installed)")
@@ -1706,7 +1904,9 @@ def main() -> int:
           f"{ms_bwd[torch.float32]}; backward with every RoI on p5: fp32 "
           f"{ms_bwd_p5[torch.float32]}, bf16 {ms_bwd_p5[torch.bfloat16]}; rotated_iou (16, 300)^2 "
           f"kernel {nms_rot['iou_ms']} ms; nms_rotated problems with a kept lane's pair near the "
-          f"threshold {nms_rot['near_problems']}")
+          f"threshold {nms_rot['near_problems']}; nms_rotated on dense boxes (every lane clips) "
+          f"{nms_rot['dense']}; nms_rotated on the rotated BEV serving path's filter input "
+          f"{rot_path}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,7 @@ LIB_NAME = "libfrcnn_kernels.so"
 LAUNCH_COUNTS = {
     "nms": 0, "roi_align": 0, "roi_align_bwd": 0, "voxelize_bev": 0,
     "roi_align_multiscale": 0, "roi_align_multiscale_bwd": 0, "nms_rotated": 0,
-    "rotated_iou": 0,
+    "rotated_iou": 0, "nms_sort": 0,
 }
 
 
@@ -113,10 +113,14 @@ def library() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.frcnn_nms_workspace_bytes.argtypes = [i, i, i]
+    lib.frcnn_nms_workspace_bytes.restype = ctypes.c_longlong
     lib.frcnn_nms.argtypes = [p, p, p, i, i, f, i, p, p, p, p]
     lib.frcnn_nms.restype = i
     lib.frcnn_nms_rotated.argtypes = [p, p, p, i, i, f, i, p, p, p, p]
     lib.frcnn_nms_rotated.restype = i
+    lib.frcnn_nms_sort.argtypes = [p, p, p, i, i, i, p, p, p, p]
+    lib.frcnn_nms_sort.restype = i
     lib.frcnn_rotated_iou.argtypes = [p, p, i, i, i, p, p]
     lib.frcnn_rotated_iou.restype = i
     lib.frcnn_roi_align_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]

@@ -14,9 +14,10 @@ One call serves any number of independent problems: (..., N, 4|5) boxes ->
 G = B problems and the final filter with G = B * K.
 
 On a CUDA tensor `nms` launches csrc/nms.cu (`frcnn_nms`, or
-`frcnn_nms_rotated` with rotated=True) or raises; on a CPU tensor it runs
-`nms_plain`, the sequential greedy over a dense IoU matrix (the rotated
-twin's IoU with rotated=True).
+`frcnn_nms_rotated` with rotated=True: the sort, mask and scan kernels) or
+raises; on a CPU tensor it runs `nms_plain`, the stable sort
+(`_sort_lanes`) and the sequential greedy over a dense IoU matrix (the
+rotated twin's IoU with rotated=True).
 """
 
 from __future__ import annotations
@@ -109,36 +110,60 @@ def _scan_smem_bytes(col_blocks):
     return (64 * col_blocks + 2 + 2 * col_blocks + (col_blocks + 2) // 2) * 8
 
 
+def _check_valid(valid, what):
+    """The sort kernel reads `valid` as one byte a lane: bool only."""
+    if valid is not None and valid.dtype != torch.bool:
+        raise TypeError(f"{what}: valid must be bool, got {valid.dtype}")
+
+
 def _nms_cuda(boxes, scores, iou_threshold, max_out, valid=None, rotated=False):
     g, n = scores.shape
     if g > 65535:
         raise ValueError(f"nms: {g} problems exceed the grid limit of 65535")
-    sorted_boxes, sorted_valid, order = _sort_lanes(boxes, scores, valid)
-    sorted_boxes = sorted_boxes.contiguous()
+    _check_valid(valid, "nms")
     m = min(n, max_out)
-    col_blocks = (n + 63) // 64
-    if _scan_smem_bytes(col_blocks) > _SCAN_SMEM_LIMIT:
+    if _scan_smem_bytes((n + 63) // 64) > _SCAN_SMEM_LIMIT:
         raise ValueError(f"nms: N={n} exceeds the scan's shared memory (one staged row block)")
     dev = boxes.device
-    # 2 words of padding: the scan's bulk copies round each row block out to
-    # 16-byte bounds
-    mask = torch.empty(g * n * col_blocks + 2, dtype=torch.int64, device=dev)
+    lib = _build.library()
+    # the sorted boxes, valid bytes and order, then the mask (csrc/nms.cu
+    # `workspace`)
+    ws = torch.empty(lib.frcnn_nms_workspace_bytes(g, n, boxes.shape[-1]), dtype=torch.uint8,
+                     device=dev)
     out_idx = torch.empty((g, m), dtype=torch.int32, device=dev)
     out_valid = torch.empty((g, m), dtype=torch.bool, device=dev)
-    valid_u8 = sorted_valid.to(torch.uint8).contiguous()
-    order_i32 = order.to(torch.int32).contiguous()
-    lib = _build.library()
-    entry = lib.frcnn_nms_rotated if rotated else lib.frcnn_nms
+    boxes, scores = boxes.contiguous(), scores.contiguous()
+    valid = None if valid is None else valid.contiguous()  # held until the launch is queued
+    valid_ptr = None if valid is None else valid.data_ptr()
     with torch.cuda.device(dev):
-        err = entry(
-            sorted_boxes.data_ptr(), valid_u8.data_ptr(), order_i32.data_ptr(),
-            g, n, float(iou_threshold), m, mask.data_ptr(),
-            out_idx.data_ptr(), out_valid.data_ptr(), _build.stream_handle(dev),
-        )
-    name = "nms_rotated" if rotated else "nms"
+        name = "nms_rotated" if rotated else "nms"
+        err = getattr(lib, f"frcnn_{name}")(
+            scores.data_ptr(), valid_ptr, boxes.data_ptr(), g, n, float(iou_threshold), m,
+            ws.data_ptr(), out_idx.data_ptr(), out_valid.data_ptr(), _build.stream_handle(dev))
     _build.check(err, f"frcnn_{name}")
     _build.LAUNCH_COUNTS[name] += 1
     return out_idx, out_valid
+
+
+def sort_lanes_cuda(boxes, scores, valid=None):
+    """csrc/nms.cu's sort kernel alone on (G, N, E) / (G, N) CUDA tensors:
+    (sorted boxes, sorted valid, int32 order), to hold against
+    `_sort_lanes`.  The NMS wrappers run the same kernel inside their call."""
+    g, n = scores.shape
+    _check_valid(valid, "sort_lanes_cuda")
+    boxes, scores = boxes.contiguous(), scores.contiguous()
+    out = torch.empty_like(boxes)
+    ok = torch.empty((g, n), dtype=torch.bool, device=boxes.device)
+    order = torch.empty((g, n), dtype=torch.int32, device=boxes.device)
+    valid = None if valid is None else valid.contiguous()
+    valid_ptr = None if valid is None else valid.data_ptr()
+    with torch.cuda.device(boxes.device):
+        err = _build.library().frcnn_nms_sort(
+            scores.data_ptr(), valid_ptr, boxes.data_ptr(), g, n, boxes.shape[-1], out.data_ptr(),
+            ok.data_ptr(), order.data_ptr(), _build.stream_handle(boxes.device))
+    _build.check(err, "frcnn_nms_sort")
+    _build.LAUNCH_COUNTS["nms_sort"] += 1
+    return out, ok, order
 
 
 def nms(
@@ -172,6 +197,8 @@ def nms(
         raise ValueError(f"nms: valid {tuple(valid.shape)} vs scores {tuple(scores.shape)}")
     if max_out < 1 or n < 1:
         raise ValueError(f"nms: need N >= 1 and max_out >= 1, got {n}, {max_out}")
+    if rotated and not iou_threshold >= 0:
+        raise ValueError(f"nms: rotated NMS needs a threshold >= 0, got {iou_threshold}")
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError(f"nms: float32 boxes and scores required, got {boxes.dtype}, {scores.dtype}")
     tensors = (boxes, scores) if valid is None else (boxes, scores, valid)

@@ -24,7 +24,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build  # noqa: E402
-from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import nms, nms_plain  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import (  # noqa: E402
+    _sort_lanes,
+    nms,
+    nms_plain,
+    sort_lanes_cuda,
+)
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (  # noqa: E402
     _multiscale_roi_align_cuda,
     multiscale_roi_align,
@@ -348,6 +353,52 @@ def test_nms_kernel_edge_cases_match_twin(cuda, g, n, max_out, case):
     assert torch.equal(idx.cpu(), want_idx) and torch.equal(ok.cpu(), want_ok), case
     if case.startswith("one problem"):
         assert not bool(ok[1].any()) and not bool(idx[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,e", [(8, 2048, 4), (16, 300, 4), (3, 70, 4), (4, 77, 4), (4, 130, 4),
+                                   (4, 200, 4), (3, 150, 4), (2, 6000, 4), (1, 12000, 4),
+                                   (1, 20000, 4), (16, 300, 5), (4, 130, 5), (8, 1, 4)])
+@pytest.mark.parametrize("with_valid", [True, False])
+def test_nms_sort_kernel_matches_sort_lanes(cuda, g, n, e, with_valid):
+    """The sort kernel alone at every NMS test shape: sorted boxes, valid
+    bytes and order equal the twin's stable sort, on ties, +-0.0, NaN,
+    -1e30, -6e29 and -inf scores, an all-invalid and a presorted problem."""
+    rng = np.random.RandomState(n + e)
+    boxes = rng.uniform(0, 100, (g, n, e)).astype(np.float32)
+    scores = rng.uniform(-1, 1, (g, n)).astype(np.float32)
+    scores[0] = np.round(scores[0] * 3) / 3
+    special = np.array([0.0, -0.0, np.nan, -1e30, -6e29, -4e29, -np.inf, np.inf], np.float32)
+    scores[1 % g] = special[rng.randint(0, len(special), n)]
+    valid = rng.uniform(size=(g, n)) < 0.8
+    valid[2 % g] = False
+    scores[-1] = np.sort(scores[-1])[::-1]
+    tb, ts, tv = (torch.from_numpy(a) for a in (boxes, scores, valid))
+    v = tv if with_valid else None
+    before = _build.LAUNCH_COUNTS["nms_sort"]
+    got = sort_lanes_cuda(tb.to(cuda), ts.to(cuda), None if v is None else v.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["nms_sort"] == before + 1
+    want = _sort_lanes(tb, ts, v)
+    assert torch.equal(got[2].cpu().long(), want[2])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.3, 0.5, 0.6, 0.7, 0.0])
+def test_nms_kernel_on_pairs_at_the_midpoint(cuda, thr):
+    """2,000 problems of two nested boxes whose IoU lies within a float32
+    step or two of the threshold's midpoint (chip_smoke.near_mid_pairs):
+    the division-free test keeps exactly the twin's lanes, and both
+    answers occur."""
+    pairs = torch.from_numpy(chip_smoke.near_mid_pairs(np.random.RandomState(9), thr, 2000))
+    scores = torch.tensor([[1.0, 0.5]]).expand(2000, 2).contiguous()
+    idx, ok = nms(pairs.to(cuda), scores.to(cuda), thr, 2)
+    torch.cuda.synchronize()
+    want_idx, want_ok = nms_plain(pairs, scores, thr, 2)
+    assert torch.equal(idx.cpu(), want_idx) and torch.equal(ok.cpu(), want_ok)
+    assert 0 < int(want_ok[:, 1].sum()) < 2000 or thr == 0.0
 
 
 @pytest.mark.cuda
@@ -679,6 +730,32 @@ def test_rotated_nms_kernel_matches_twin(cuda, g, n, thr, max_out):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.3, 0.0])
+def test_rotated_nms_kernel_on_dense_boxes(cuda, thr):
+    """Every box of a problem inside one 40-voxel square
+    (chip_smoke.dense_rotated_boxes: the early out never fires), at the
+    filter's threshold and at 0 (IoU > 0): the IoU kernel within 5e-5 of
+    the twin, the keeps as in test_rotated_nms_kernel_matches_twin."""
+    rng = np.random.RandomState(40 + int(thr * 10))
+    g, n, max_out = 8, 300, 100
+    boxes = chip_smoke.dense_rotated_boxes(rng, g, n)
+    scores = rng.uniform(size=(g, n)).astype(np.float32)
+    valid = rng.uniform(size=(g, n)) < 0.9
+    tb, ts, tv = (torch.from_numpy(a) for a in (boxes, scores, valid))
+    iou = rotated_iou_matrix_plain(tb, tb).numpy()
+    got = rotated_iou_matrix(tb.to(cuda), tb.to(cuda)).cpu().numpy()
+    assert np.abs(got - iou).max() <= 5e-5
+    idx, ok = nms(tb.to(cuda), ts.to(cuda), thr, max_out, tv.to(cuda), rotated=True)
+    idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
+    want_idx, want_ok = (t.numpy() for t in nms_plain(tb, ts, thr, max_out, tv, rotated=True))
+    for i in range(g):
+        assert chip_smoke.greedy_violations(iou[i], scores[i], valid[i], idx[i], ok[i], thr, 1e-4,
+                                            max_out) == [], i
+        if not chip_smoke.near_threshold(iou[i], valid[i], thr, 1e-4, want_idx[i][want_ok[i]]):
+            assert np.array_equal(idx[i], want_idx[i]) and np.array_equal(ok[i], want_ok[i]), i
+
+
+@pytest.mark.cuda
 def test_rotated_nms_rejects_bad_inputs_on_the_card(cuda):
     """float32 boxes of 5 values on one device, or it raises; it never runs
     the twin on the card."""
@@ -689,3 +766,7 @@ def test_rotated_nms_rejects_bad_inputs_on_the_card(cuda):
         nms(boxes, scores.cpu(), 0.3, 4, rotated=True)
     with pytest.raises(ValueError):
         nms(boxes[..., :4], scores, 0.3, 4, rotated=True)
+    with pytest.raises(TypeError, match="bool"):
+        nms(boxes, scores, 0.3, 4, torch.ones(2, 8, dtype=torch.int64, device=cuda), rotated=True)
+    with pytest.raises(ValueError, match=">= 0"):
+        nms(boxes, scores, -0.1, 4, rotated=True)
