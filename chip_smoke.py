@@ -96,6 +96,23 @@ non-zero and never prints its last line):
      then 10 steps; the multiscale kernel and its backward must have
      launched.  Then anchor_target alone at (8, 768000 anchors, 64 GT):
      time and peak memory.
+ 16. the live-BN slices (RESNET.FIXED_BLOCKS -1) at res18, float32: one
+     256x320 frame and one 400 x 350 x 15 BEV raster, a training forward
+     and backward card against CPU on the same draws, the card's second
+     stage pinned to the CPU's proposal lanes and each ReLU unit whose
+     input takes another sign on the card given the CPU's gate: equal
+     samples, losses within rtol 1e-3, every leaf's gradient within 1e-3 *
+     max|g|, the running statistics within 1e-5 of max; then in eval mode
+     on those statistics the serving slice's checks (check_live_slice).
+ 17. the live-BN training path: the image config with FIXED_BLOCKS -1
+     (res101, live BN everywhere, zero-init terminators), bf16, batch 8,
+     512x960, one warm-up step then 10 steps: ms/step (median, min, max),
+     frames/s, peak memory; the running statistics float32, finite and
+     moved from their init.
+ 18. the res18 live-BN BEV path: the BEV config at res18 with FIXED_BLOCKS
+     -1, one warm-up step then 10 steps, then one serving batch of the
+     trained model cast by to_device (bf16, eval mode, float32 running
+     statistics).
 Phase 3 also holds the multiscale RoI-align kernels against their twins at
 the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
@@ -113,14 +130,18 @@ also at threshold 0: its IoU kernel within 5e-5 of the twin's IoU (and on
 edge cases: identical, nested, shared edge, 90 degrees, zero width,
 disjoint), its keeps identical to the twin's on every problem where no
 kept lane's pair lies within 1e-4 of the threshold, and on every problem a
-tolerant greedy check against the twin's IoU matrix (`greedy_violations`).
-Each path (5, 7, 9, 11, 12, 14, 15) runs with the launch counts set to 0
-just before it and read just after.  Then one JSON line describing the
+tolerant greedy check against the twin's IoU matrix (`greedy_violations`);
+RoI align and its backward at the res18 C4 maps' 256 channels, (8, 32,
+60, 256) x 300 and (8, 25, 22, 256) x 256, under the same limits; and the
+rotated IoU kernel on 300 pairs with collinear sides within 1e-6 of a
+float64 oracle (fault F5: the twin, as JAX, is far off there).
+Each path (5, 7, 9, 11, 12, 14, 15, 17, 18) runs with the launch counts
+set to 0 just before it and read just after.  Then one JSON line describing the
 kernels (each kernel's `launches` is the count on the newest path that runs
 it: BEV training for the voxelizer, NMS, RoI align and its backward, rotated
 BEV serving for the rotated NMS, FPN serving and FPN training for the
 multiscale kernels; its times, error and bound are from phase 3 at that
-path's shapes; `launches_by_path` has all seven), the nvidia-smi
+path's shapes; `launches_by_path` has all ten), the nvidia-smi
 name/power line, and the result line {"ok": true, "device": ...}.
 
 Imports nothing of JAX; needs the repository checkout around it.
@@ -140,6 +161,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 PKG = "faster_rcnn_pytorch_multimodal_tpu_torch"
 B, H_FEAT, W_FEAT, C_FEAT, R = 8, 32, 60, 1024, 300
+C_RES18 = 256  # the C4 map of a BasicBlock backbone (res18/34)
 R_TRAIN = 256  # TRAIN.ROI_BATCH_SIZE: RoIs pooled per training frame
 FRAME_HW = (512, 960)  # the serving and training frame: 32 x 60 C4 cells at stride 16
 BEV_FEAT_HW = (25, 22)  # the 400 x 350 BEV raster at stride 16
@@ -722,6 +744,99 @@ def check_rotated(g, n, thr, max_out, rng, tol=1e-4):
     return {**random, "dense": dense}
 
 
+def collinear_boxes(rng, count):
+    """(2 * count, 5) pairs of boxes [xc, yc, l, w, ry] with one heading: slid
+    along the length (both long sides collinear), slid across so that one
+    long side lies on the other's, or side by side touching along a long
+    side (tests/test_torch_port_nms_plans.py builds the same pairs)."""
+    out = []
+    for _ in range(count):
+        ry, length, width = rng.uniform(-np.pi, np.pi), rng.uniform(8, 25), rng.uniform(4, 10)
+        x, y = rng.uniform(50, 350, 2)
+        c, s = np.cos(ry), np.sin(ry)
+        kind = rng.randint(3)
+        if kind == 0:
+            d = rng.uniform(-length, length)
+            out += [[x, y, length, width, ry], [x + d * c, y + d * s, length, width, ry]]
+        elif kind == 1:
+            d = rng.uniform(0, width)
+            out += [[x, y, length, width, ry],
+                    [x - d / 2 * s, y + d / 2 * c, length, width - d, ry]]
+        else:
+            out += [[x, y, length, width, ry], [x - width * s, y + width * c, length, width, ry]]
+    return np.array(out, np.float32)
+
+
+def rotated_oracle(a, b) -> float:
+    """float64 IoU of two [xc, yc, l, w, ry] boxes: Sutherland-Hodgman on
+    their BEV corners (the port's evaluation code)."""
+    from faster_rcnn_pytorch_multimodal_tpu_torch.evaluation.eval_utils import (
+        rotated_bev_intersection,
+    )
+
+    p, q = a.astype(np.float64), b.astype(np.float64)
+    inter = rotated_bev_intersection(np.array([p[0], p[1], 0, p[2], p[3], 1, p[4]]),
+                                     np.array([q[0], q[1], 0, q[2], q[3], 1, q[4]]))
+    union = p[2] * p[3] + q[2] * q[3] - inter
+    return inter / union if union > 1e-9 else 0.0
+
+
+# JAX's rotated_iou_matrix on the same kind of pairs, row-centered: 0.316 off
+# the float64 oracle (tests/test_torch_port_nms_plans.py
+# ::test_clip_mirror_on_collinear_edges on the CPU; fault F5)
+JAX_COLLINEAR_ERR = 0.316
+
+
+def self_iou_limit(boxes):
+    """The limit on |IoU - 1| of each [xc, yc, l, w, ry] box against itself
+    in float32: the clip returns the box itself, and the shoelace of its
+    corners differs from l * w by the rounding of terms of size (l + w)^2 /
+    4, so a sliver (w << l) strays furthest.  SELF_IOU_ULPS of that
+    relative rounding, per box."""
+    l, w = boxes[:, 2].astype(np.float64), boxes[:, 3].astype(np.float64)
+    return SELF_IOU_ULPS * float(np.finfo(np.float32).eps) * (l + w) ** 2 / (l * w)
+
+
+# The clip's mirror (tests/test_torch_port_nms_plans.py) reaches 1.25 of
+# these on 12 draws of collinear_boxes
+SELF_IOU_ULPS = 4
+
+
+def check_collinear(rng, count=300):
+    """K4's IoU kernel on pairs with collinear sides (fault F5): within 1e-6
+    of the float64 oracle, with the twin's distance from it beside (the twin
+    copies JAX's candidate formulation, JAX_COLLINEAR_ERR off), and each
+    box against itself (NMS never pairs a lane with itself) within
+    self_iou_limit of 1."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops.rotated_iou import (
+        rotated_iou_matrix,
+        rotated_iou_matrix_plain,
+    )
+
+    b = collinear_boxes(rng, count)
+    got = rotated_iou_matrix(torch.from_numpy(b).cuda(), torch.from_numpy(b).cuda()).cpu().numpy()
+    twin = rotated_iou_matrix_plain(torch.from_numpy(b), torch.from_numpy(b)).numpy()
+    pairs = np.arange(0, len(b), 2)
+    want = np.array([rotated_oracle(b[i], b[i + 1]) for i in pairs])
+    err = float(np.abs(got[pairs, pairs + 1] - want).max())
+    twin_err = float(np.abs(twin[pairs, pairs + 1] - want).max())
+    self_dev = np.abs(np.diag(got).astype(np.float64) - 1)
+    self_err = float(self_dev.max())
+    self_share = float((self_dev / self_iou_limit(b)).max())
+    print(f"rotated_iou on {count} pairs with collinear sides (F5): kernel max |IoU - float64 "
+          f"oracle| {err} (limit 1e-6); twin {twin_err}; JAX {JAX_COLLINEAR_ERR} (CPU test); "
+          f"a box against itself max |IoU - 1| {self_err}, at most {self_share} of its "
+          f"self_iou_limit")
+    if not err <= 1e-6:
+        raise AssertionError(f"rotated_iou collinear pairs: {err} from the float64 oracle")
+    if not self_share <= 1:
+        raise AssertionError(f"rotated_iou of a box against itself: {self_share} of its limit")
+    return {"max_abs_err": err, "twin_err": twin_err, "self_err": self_err,
+            "self_share": self_share}
+
+
 def serving_rois(rng, b, r, frame_hw=FRAME_HW):
     """Proposal-like rois on a frame, with some straddling the edge, some
     outside it and some smaller than one feature cell."""
@@ -746,10 +861,11 @@ REPLACED_FWD_MS = {((32, 60), 300): (0.4962, 0.7252), ((25, 22), 300): (0.4949, 
               ((25, 22), 256): (0.4264, 0.6156)}
 
 
-def check_roi_align(rng, feat_hw, r=R):
+def check_roi_align(rng, feat_hw, r=R, c=C_FEAT):
     """The forward kernel against the twin on CPU copies at a path's shapes,
     values within tol * max|F|; its device time, printed beside the
-    tap-by-tap kernel's it replaced (REPLACED_FWD_MS)."""
+    tap-by-tap kernel's it replaced (REPLACED_FWD_MS) where that was
+    measured."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -758,8 +874,9 @@ def check_roi_align(rng, feat_hw, r=R):
     )
 
     h, w = feat_hw
-    feats = rng.normal(size=(B, h, w, C_FEAT)).astype(np.float32)
+    feats = rng.normal(size=(B, h, w, c)).astype(np.float32)
     rois = torch.from_numpy(serving_rois(rng, B, r, (h * 16, w * 16)))
+    replaced = REPLACED_FWD_MS.get((tuple(feat_hw), r)) if c == C_FEAT else None
     results = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
         tf = torch.from_numpy(feats).to(dtype)
@@ -779,14 +896,14 @@ def check_roi_align(rng, feat_hw, r=R):
         print(f"roi_align {str(dtype).split('.')[-1]} features {tuple(df.shape)} rois "
               f"{tuple(dr.shape)}: max abs err {err} (bound {tol} * max|F| = {tol * fmax}); "
               f"kernel {spread(t)} (the tap-by-tap kernel it replaced: "
-              f"{REPLACED_FWD_MS[(tuple(feat_hw), r)][dtype == torch.float32]} ms, PERF.md), plain "
-              f"twin on the card {plain_ms} ms, bound {bound} ms ({by})")
+              f"{replaced[dtype == torch.float32] if replaced else 'not measured'} ms, PERF.md), "
+              f"plain twin on the card {plain_ms} ms, bound {bound} ms ({by})")
         results[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound, "bound_by": by}
     return results
 
 
-def check_roi_align_backward(rng, feat_hw):
+def check_roi_align_backward(rng, feat_hw, c=C_FEAT):
     """The backward kernel against the twin's autograd gradient on CPU
     copies, at a training path's shapes (dOut (B, R_TRAIN, 7, 7, C) onto
     the feat_hw map): every element within the sum-order limit
@@ -805,9 +922,9 @@ def check_roi_align_backward(rng, feat_hw):
     )
 
     h, w = feat_hw
-    feats = rng.normal(size=(B, h, w, C_FEAT)).astype(np.float32)
+    feats = rng.normal(size=(B, h, w, c)).astype(np.float32)
     rois = torch.from_numpy(serving_rois(rng, B, R_TRAIN, (h * 16, w * 16))).cuda()
-    grad_out = rng.normal(size=(B, R_TRAIN, 7, 7, C_FEAT)).astype(np.float32)
+    grad_out = rng.normal(size=(B, R_TRAIN, 7, 7, c)).astype(np.float32)
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         f = torch.from_numpy(feats).to(dtype).cuda().requires_grad_(True)
@@ -1172,14 +1289,15 @@ def check_voxelize(rng, cfg, frame_scale, p, skew=False):
 
 
 def scale_terminators(model, value=0.25):
-    """Residual-terminator BN scales to `value`, as bench.py does for random
-    weights, so res101's activations stay finite."""
+    """Residual-terminator BN scales (bn3 of a Bottleneck, bn2 of a
+    BasicBlock) to `value`, as bench.py does for random weights, so res101's
+    activations stay finite."""
     import torch
 
     with torch.no_grad():
-        for name, m in model.named_modules():
-            if name.endswith(".bn3"):
-                m.weight.fill_(value)
+        for m in model.modules():
+            if hasattr(m, "terminator"):
+                m.terminator.weight.fill_(value)
     return model
 
 
@@ -1444,10 +1562,240 @@ def check_train_slice(cfg_base):
         raise AssertionError(f"train slice card vs CPU out of tolerance: {failed}")
 
 
-def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd")):
+def relu_sites(model):
+    """The detector's ReLU inputs: {(module path, residual): (module,
+    block)}.  Each module's output is a ReLU's input (bn1/bn2 of a block, the
+    stem's bn1, the RPN's 3x3 conv, the FPN tail's t_fc layers); with
+    residual=True it is the block's terminator, whose output plus the
+    block's identity is."""
+    import torch
+
+    sites = {("backbone.bn1", False): (model.backbone.bn1, None),
+             ("rpn.rpn_net", False): (model.rpn.rpn_net, None)}
+    for name, m in model.named_modules():
+        if hasattr(m, "terminator"):
+            for k in ("bn1", "bn2", "bn3"):
+                if hasattr(m, k):
+                    bn = getattr(m, k)
+                    sites[(f"{name}.{k}", bn is m.terminator)] = (bn, m)
+        elif isinstance(m, torch.nn.Linear) and name.startswith("tail.t_fc"):
+            sites[(name, False)] = (m, None)
+    return sites
+
+
+@contextlib.contextmanager
+def relu_inputs(model):
+    """Within the block, record each ReLU input of the model's forward
+    (relu_sites): a dict that receives {(path, residual): float32 CPU
+    tensor} as the forward runs.  Hooks added after this block's start run
+    after these, so enter pinned_ties first to record pinned inputs."""
+    got, hooks, out = {}, [], {}
+    sites = relu_sites(model)
+    for (path, residual), (mod, block) in sites.items():
+        hooks.append(mod.register_forward_hook(
+            lambda _m, _a, o, key=path: got.__setitem__(key, o.detach())))
+        if residual and block.downsample is not None:
+            hooks.append(block.downsample.register_forward_hook(
+                lambda _m, _a, o, key=path: got.__setitem__(("id", key), o.detach())))
+        elif residual:
+            hooks.append(block.register_forward_pre_hook(
+                lambda _m, args, key=path: got.__setitem__(("id", key), args[0].detach())))
+    try:
+        yield out
+    finally:
+        for h in hooks:
+            h.remove()
+    for path, residual in sites:
+        x = got[path] + got[("id", path)] if residual else got[path]
+        out[(path, residual)] = x.float().cpu()
+
+
+def find_ties(want: dict, got: dict, skip=()) -> list:
+    """The ReLU units whose input has another sign in `got` than in `want`
+    (relu_inputs of two runs, in the port's layout): (path, residual,
+    index, wanted input, input, max|wanted input| of that ReLU), except
+    those at (path, residual, index) in `skip`.  Such a unit sits at 0
+    within float32 rounding and passes gradient in one run only; with live
+    BN its error reaches its whole channel through the batch statistics."""
+    ties = []
+    for key, w in want.items():
+        g = got[key]
+        for at in map(tuple, ((w > 0) != (g > 0)).nonzero().tolist()):
+            if key + (at,) not in skip:
+                ties.append(key + (at, float(w[at]), float(g[at]), float(w.abs().max())))
+    return ties
+
+
+@contextlib.contextmanager
+def pinned_ties(model, ties):
+    """Within the block, the model's input to each tied ReLU unit (find_ties)
+    takes the wanted sign: a constant of the size of the unit's float32
+    rounding is added to the feeding module's output at that unit (for the
+    residual ReLU, whose input adds the block's identity, the
+    terminator's).  The gradient still flows through the module, and the
+    unit's gate is the wanted one."""
+    import torch
+
+    hooks, identity = [], {}
+    for path, residual, at, want, *_ in ties:
+        mod = model.get_submodule(path)
+        block = model.get_submodule(path.rsplit(".", 1)[0]) if residual else None
+        if residual and block.downsample is not None:
+            hooks.append(block.downsample.register_forward_hook(
+                lambda _m, _a, out, key=path: identity.__setitem__(key, out.detach())))
+        elif residual:
+            hooks.append(block.register_forward_pre_hook(
+                lambda _m, args, key=path: identity.__setitem__(key, args[0].detach())))
+
+        def pin(_m, _a, out, key=path, residual=residual, at=at, want=want):
+            base = identity[key][at] if residual else out.new_zeros(())
+            v = out[at].detach()
+            d = torch.tensor(want, dtype=out.dtype, device=out.device) - (v + base)
+            toward = torch.tensor(np.inf if want > 0 else -np.inf, dtype=out.dtype,
+                                  device=out.device)
+            while bool(((v + d) + base > 0) != (want > 0)):  # the block's float32 order
+                d = torch.nextafter(d, toward)
+            delta = torch.zeros_like(out)
+            delta[at] = d
+            return out + delta
+
+        hooks.append(mod.register_forward_hook(pin))
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+LIVE_OVERRIDES = ("RESNET.FIXED_BLOCKS", "-1")
+RES18_LIVE = ("NET_VARIANT", "res18") + LIVE_OVERRIDES
+
+
+def check_live_slice(cfg_base):
+    """res18 live-BN float32 training forward and backward on one frame
+    (image 256x320, or a 400 x 350 x 15 BEV raster with 7-DoF GT): card
+    against CPU on the same draws, the card's second stage pinned to the
+    CPU's proposal lanes and each ReLU unit whose input takes another sign
+    on the card given the CPU's (relu_inputs, find_ties, pinned_ties; found
+    until none is new).  Equal samples, the four losses within rtol 1e-3,
+    every leaf's gradient within 1e-3 * max|g| of the leaf, the running
+    statistics after the step within 1e-5 of max.  Then in eval mode on
+    those statistics the serving slice's checks: features within 1e-4 of
+    max, fg_prob within 2e-3, proposals matched, and on the CPU's rois
+    cls_prob within 3e-3 of max and the boxes within 0.15."""
+    import copy
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.config import cfg_from_list
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import TrainDraws, live_bn_stats
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import (
+        create_train_state,
+        draw_train_keys,
+    )
+
+    cfg = cfg_from_list(cfg_base, RES18_LIVE + (
+        "COMPUTE_DTYPE", "float32", "TRAIN.ROI_BATCH_SIZE", "64",
+        "STATIC.NMS_PRE_TRAIN", "1024", "TRAIN.RPN_POST_NMS_TOP_N", "256",
+    ))
+    lidar = cfg.net_type == "lidar"
+    cpu, _ = create_train_state(cfg, 2, "cpu", seed=1)
+    scale_terminators(cpu)  # zero at init: the branches' leaves would get no gradient
+    gpu = copy.deepcopy(cpu).cuda()
+    rng = np.random.RandomState(3)
+    x, win, gt, mask = train_slice_batch(cfg, copy.deepcopy(cpu).eval(), rng)
+    batch = {"data": x, "gt_boxes": gt, "gt_mask": mask, "window": win}
+    draws = draw_train_keys(cpu, batch, torch.Generator().manual_seed(4))
+    start = {k: v.clone() for k, v in live_bn_stats(cpu).items()}
+    with relu_inputs(cpu) as c_relu:
+        c_losses, c_aux = cpu.forward_train(x, gt, mask, win, draws)
+    c_losses["total_loss"].backward()
+    pin = (c_aux.proposal_src.cuda(), c_aux.proposal_valid.cuda())
+    g_draws = TrainDraws(*(None if t is None else t.cuda() for t in draws))
+    g_args = (x.cuda(), gt.cuda(), mask.cuda(), win.cuda(), g_draws)
+    ties = []
+    for _ in range(4):
+        probe = copy.deepcopy(gpu)
+        with pinned_ties(probe, ties), relu_inputs(probe) as g_relu, torch.no_grad():
+            probe.forward_train(*g_args, proposals=pin)
+        new = find_ties(c_relu, g_relu, skip={t[:3] for t in ties})
+        if not new:
+            break
+        ties += new
+    with pinned_ties(gpu, ties):
+        g_losses, g_aux = gpu.forward_train(*g_args, proposals=pin)
+    g_losses["total_loss"].backward()
+    torch.cuda.synchronize()
+
+    checks = {
+        "anchor samples": torch.equal(g_aux.anchor_targets.sel.cpu(), c_aux.anchor_targets.sel),
+        "roi labels": torch.equal(g_aux.proposal_targets.labels.cpu(), c_aux.proposal_targets.labels),
+        "ties few": len(ties) <= 32 and all(
+            max(abs(w), abs(g)) <= 1e-5 * m for *_, w, g, m in ties),
+    }
+    loss_err = {}
+    for k in LOSSES:
+        c, g = float(c_losses[k].detach()), float(g_losses[k].detach())
+        loss_err[k] = abs(g - c) / max(abs(c), 1e-12)
+        checks[f"loss {k}"] = loss_err[k] <= 1e-3 and np.isfinite(g)
+    g_params = dict(gpu.named_parameters())
+    grad_err = {}
+    for name, cp in cpu.named_parameters():
+        cg, gg = cp.grad, g_params[name].grad
+        scale = float(cg.abs().max())
+        grad_err[name] = float((gg.cpu() - cg).abs().max()) / max(scale, 1e-30)
+        checks[f"grad {name}"] = scale > 0 and grad_err[name] <= 1e-3
+    g_stats = live_bn_stats(gpu)
+    stat_err = {}
+    for k, cv in live_bn_stats(cpu).items():
+        stat_err[k] = float((g_stats[k].cpu() - cv).abs().max()) / float(cv.abs().max())
+        checks[f"stats {k}"] = stat_err[k] <= 1e-5 and not torch.equal(cv, start[k])
+    worst = max(grad_err, key=grad_err.get)
+    kind = "BEV " if lidar else ""
+    print(f"live-BN slice {kind}res18 fp32 {tuple(x.shape)}: losses cpu "
+          f"{ {k: float(c_losses[k].detach()) for k in LOSSES} }, relative errors {loss_err}; "
+          f"{len(grad_err)} leaves, largest gradient error / max|g| {grad_err[worst]} ({worst}); "
+          f"running statistics ({len(stat_err)} buffers) largest error / max "
+          f"{max(stat_err.values())}; ReLU units pinned to the CPU's gate {len(ties)}: "
+          f"{[t[:3] for t in ties]}")
+
+    cpu.eval(), gpu.eval()
+    with torch.inference_mode():
+        c_feat, g_feat = cpu.features(x), gpu.features(x.cuda())
+        c_fg, g_fg = cpu.rpn_scores(c_feat)["fg_prob"], gpu.rpn_scores(g_feat)["fg_prob"]
+        c_out = cpu.forward_test(x, win)
+        g_out = {k: v.cpu() for k, v in gpu.forward_test(x.cuda(), win.cuda()).items()}
+        a3d = c_out["anchors_3d"].cuda() if lidar else None
+        g_cls, g_boxes = gpu.classify_rois(g_feat, c_out["rois"].cuda(), win.cuda(), a3d)
+    feat_err, feat_max = feature_err(g_feat, c_feat)
+    fg_err = float((g_fg.cpu() - c_fg).abs().max())
+    cls_err = float((g_cls.cpu() - c_out["cls_prob"]).abs().max())
+    box_err = float((g_boxes.cpu() - c_out["bbox_pred"]).abs().max())
+    cr = c_out["rois"][0][c_out["roi_valid"][0]]
+    gr = g_out["rois"][0][g_out["roi_valid"][0]]
+    matched = int((iou_plus1(cr, gr).max(dim=1).values >= 0.99).sum())
+    print(f"live-BN slice {kind}eval on the running statistics: C4 max err {feat_err} (max|C4| "
+          f"{feat_max}); fg_prob {fg_err}; proposals matched {matched}/{len(cr)}; pinned "
+          f"cls_prob {cls_err}; pinned boxes {box_err}")
+    checks.update({
+        "eval features": feat_err <= 1e-4 * feat_max,
+        "eval fg_prob": fg_err <= 2e-3,
+        "eval proposals": len(cr) > 0 and matched >= 0.95 * len(cr),
+        "eval cls_prob": cls_err <= 3e-3 * float(c_out["cls_prob"].abs().max()),
+        "eval boxes": box_err <= 0.15,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"live-BN slice card vs CPU out of tolerance: {failed}")
+
+
+def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd"), scale=True):
     """The training path: warm-up step, then TRAIN_STEPS steps, counted; the
     kernels in `need` must have launched.  Image frames are 512x960; a lidar
-    config's loader rasterizes synthetic LiDAR frames on the card."""
+    config's loader rasterizes synthetic LiDAR frames on the card.  With
+    scale the residual terminators start at 0.25 (frozen BN), else as
+    init_params leaves them (zero under live BN).  Returns the launches and
+    the model."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
@@ -1458,7 +1806,8 @@ def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd")):
     db = SyntheticDataset(cfg, num_frames=4 * B, num_classes=2, image_hw=FRAME_HW, seed=0)
     loader = BatchLoader(db, cfg, batch_size=B, device="cuda", seed=0)
     model, optimizer = create_train_state(cfg, 2, "cuda", seed=0)
-    scale_terminators(model)
+    if scale:
+        scale_terminators(model)
     generator = torch.Generator(device="cuda").manual_seed(0)
     warm = train(model, optimizer, loader, 1, generator)
     torch.cuda.synchronize()
@@ -1471,13 +1820,15 @@ def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd")):
     ms = np.asarray(res["ms"])
     finite = all(np.isfinite(v) for losses in warm["losses"] + res["losses"] for v in losses.values())
     lidar = cfg.net_type == "lidar"
-    name = "BEV training" if lidar else "FPN training" if cfg.use_fpn else "training"
+    live = cfg.resnet.fixed_blocks == -1
+    name = ("live-BN " if live else "") + (
+        "BEV training" if lidar else "FPN training" if cfg.use_fpn else "training")
     frames = (f"raster {tuple(loader.peek()['data'].shape)}" if lidar
               else f"{FRAME_HW[0]}x{FRAME_HW[1]}")
     print(f"{name} {cfg.net_variant} {cfg.compute_dtype} {frames} batch {B} ({smi}): "
           f"warm-up step {warm['ms'][0]} ms; ms/step {res['ms']}; mean {float(ms.mean())} ms, "
-          f"median {float(np.median(ms))} ms, {B / (float(ms.mean()) / 1e3)} frames/s, "
-          f"peak memory {peak / 2**30} GiB")
+          f"median {float(np.median(ms))} ms (min {float(ms.min())}, max {float(ms.max())}), "
+          f"{B / (float(ms.mean()) / 1e3)} frames/s, peak memory {peak / 2**30} GiB")
     for i, losses in enumerate(res["losses"]):
         print(f"  step {i + 1}: " + ", ".join(f"{k} {v}" for k, v in losses.items()))
     print(f"{name}: losses finite {finite}, kernel launches {launches}")
@@ -1485,7 +1836,25 @@ def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd")):
         raise AssertionError(f"{name}: a non-finite loss")
     if not all(launches[k] > 0 for k in need):
         raise AssertionError(f"{name}: a kernel never launched: {launches}")
-    return launches
+    if live:
+        check_live_stats(model, name)
+    return launches, model
+
+
+def check_live_stats(model, name):
+    """Every live-BN running statistic float32, finite and moved from its
+    init (mean 0, var 1)."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import live_bn_stats
+
+    stats = live_bn_stats(model)
+    bad = [k for k, v in stats.items() if v.dtype != torch.float32 or not bool(torch.isfinite(v).all())
+           or bool((v == (0.0 if k.endswith("mean") else 1.0)).all())]
+    print(f"{name}: {len(stats)} running statistics, float32, finite and moved from init: "
+          f"{not bad}")
+    if not stats or bad:
+        raise AssertionError(f"{name}: running statistics not float32, finite and moved: {bad[:5]}")
 
 
 def measure_anchor_targets(cfg, smi):
@@ -1700,6 +2069,48 @@ def run_bev_serving(cfg, smi, need=("voxelize_bev", "nms", "roi_align")):
                       "peak_gib": peak / 2**30, "filter_input": seen[0]}
 
 
+def run_live_serving(model, cfg, smi):
+    """One serving batch of a live-BN model after its training path: the
+    model cast for serving (to_device: bf16, eval mode, the running
+    statistics float32), 8 synthetic frames through inference.evaluate,
+    counted."""
+    import copy
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
+    from faster_rcnn_pytorch_multimodal_tpu_torch.inference import evaluate
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import to_device
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+
+    serving = to_device(copy.deepcopy(model), "cuda")
+    serving.cfg = cfg
+    db = SyntheticDataset(cfg, num_frames=B, num_classes=2, image_hw=FRAME_HW, mode="val",
+                          seed=101)
+    loader = BatchLoader(db, cfg, batch_size=B, device="cuda", augment=False, shuffle=False,
+                         seed=0)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    res = evaluate(serving, loader, db, B, cfg.test.thresh)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCH_COUNTS)
+    name = f"live-BN {'BEV ' if cfg.net_type == 'lidar' else ''}serving"
+    print(f"{name} {cfg.net_variant} {cfg.compute_dtype} batch {B} ({smi}), eval mode on the "
+          f"trained running statistics: voxelize {res['raster_ms']} ms, detect {res['detect_ms']} "
+          f"ms, filter {res['filter_ms']} ms (one batch, the first: not a steady-state time); "
+          f"outputs finite {res['finite']}, fewest proposals in a frame {res['min_proposals']}, "
+          f"kernel launches {launches}")
+    check_live_stats(serving, name)
+    if serving.training or not res["finite"] or not res["min_proposals"]:
+        raise AssertionError(f"{name}: training mode {serving.training}, finite {res['finite']}, "
+                             f"fewest proposals {res['min_proposals']}")
+    need = ("voxelize_bev", "nms", "roi_align") if cfg.net_type == "lidar" else ("nms", "roi_align")
+    if not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"{name}: a kernel never launched: {launches}")
+    return launches
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc").is_dir():
         print(f"chip_smoke: {PKG}/ not found beside this script", file=sys.stderr)
@@ -1768,6 +2179,17 @@ def main() -> int:
     # K1's division-free test on pairs at each threshold's midpoint, from a
     # fourth stream
     check_nms_near_mid(np.random.RandomState(4))
+    # the res18 (BasicBlock) C4 maps: 256 channels, image and BEV, serving
+    # and training RoI counts, from a fifth stream
+    rng_256 = np.random.RandomState(5)
+    roi_256 = check_roi_align(rng_256, (H_FEAT, W_FEAT), R, C_RES18)
+    roi_bev_256 = check_roi_align(rng_256, BEV_FEAT_HW, R_TRAIN, C_RES18)
+    roi_bwd_256 = check_roi_align_backward(rng_256, (H_FEAT, W_FEAT), C_RES18)
+    roi_bwd_bev_256 = check_roi_align_backward(rng_256, BEV_FEAT_HW, C_RES18)
+    # the res18 BEV serving path's shape (TEST.RPN_POST_NMS_TOP_N 300)
+    roi_bev_256_serve = check_roi_align(rng_256, BEV_FEAT_HW, R, C_RES18)
+    # K4's IoU on pairs with collinear sides (F5), from a sixth stream
+    collinear = check_collinear(np.random.RandomState(6))
 
     serving_cfg = make_config(IMAGE_OVERRIDES, SERVING_OVERRIDES)
 
@@ -1781,7 +2203,7 @@ def main() -> int:
     check_train_slice(image_cfg)
 
     phase("training path")
-    training = run_training(image_cfg, smi)
+    training, _ = run_training(image_cfg, smi)
 
     phase("BEV slice: card vs CPU")
     check_bev_slice(bev_cfg)
@@ -1793,8 +2215,8 @@ def main() -> int:
     check_train_slice(bev_train_cfg)
 
     phase("BEV training path")
-    bev_training = run_training(bev_train_cfg, smi,
-                                need=("voxelize_bev", "nms", "roi_align", "roi_align_bwd"))
+    bev_training, _ = run_training(bev_train_cfg, smi,
+                                   need=("voxelize_bev", "nms", "roi_align", "roi_align_bwd"))
 
     phase("rotated BEV serving path")
     bev_rotated, rot_stats = run_bev_serving(
@@ -1830,13 +2252,30 @@ def main() -> int:
                               never=("roi_align",))
 
     phase("FPN training path")
-    fpn_training = run_training(fpn_cfg, smi, need=(
+    fpn_training, _ = run_training(fpn_cfg, smi, need=(
         "nms", "roi_align_multiscale", "roi_align_multiscale_bwd"))
     measure_anchor_targets(fpn_cfg, smi)
 
+    phase("live-BN slices: card vs CPU")
+    check_live_slice(image_cfg)
+    check_live_slice(bev_train_cfg)
+
+    phase("live-BN training path")
+    live_training, _ = run_training(make_config(IMAGE_OVERRIDES, LIVE_OVERRIDES), smi,
+                                    scale=False)
+
+    phase("live-BN BEV path (res18)")
+    bev_live_cfg = make_config(BEV_OVERRIDES, RES18_LIVE)
+    bev_live_training, bev_live_model = run_training(
+        bev_live_cfg, smi, need=("voxelize_bev", "nms", "roi_align", "roi_align_bwd"), scale=False)
+    bev_live_serving = run_live_serving(bev_live_model, make_config(
+        BEV_OVERRIDES, BEV_SERVING_OVERRIDES, RES18_LIVE), smi)
+
     paths = {"serving": serving, "training": training, "bev_serving": bev_serving,
              "fpn_serving": fpn_serving, "fpn_training": fpn_training,
-             "bev_training": bev_training, "bev_rotated_serving": bev_rotated}
+             "bev_training": bev_training, "bev_rotated_serving": bev_rotated,
+             "live_training": live_training, "bev_live_training": bev_live_training,
+             "bev_live_serving": bev_live_serving}
 
     def entry(name, source, replaces, path, measured):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -1907,6 +2346,15 @@ def main() -> int:
           f"threshold {nms_rot['near_problems']}; nms_rotated on dense boxes (every lane clips) "
           f"{nms_rot['dense']}; nms_rotated on the rotated BEV serving path's filter input "
           f"{rot_path}")
+    print(f"res18 C4 maps (256 channels): roi_align (8, 32, 60, 256) x 300: fp32 "
+          f"{roi_256[torch.float32]}, bf16 {roi_256[torch.bfloat16]}; (8, 25, 22, 256) x 256: "
+          f"fp32 {roi_bev_256[torch.float32]}, bf16 {roi_bev_256[torch.bfloat16]}; "
+          f"(8, 25, 22, 256) x 300: fp32 {roi_bev_256_serve[torch.float32]}, bf16 "
+          f"{roi_bev_256_serve[torch.bfloat16]}; backward "
+          f"onto (8, 32, 60, 256): fp32 {roi_bwd_256[torch.float32]}, bf16 "
+          f"{roi_bwd_256[torch.bfloat16]}; onto (8, 25, 22, 256): fp32 "
+          f"{roi_bwd_bev_256[torch.float32]}, bf16 {roi_bwd_bev_256[torch.bfloat16]}; "
+          f"rotated_iou on collinear pairs {collinear}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -86,9 +86,11 @@
 // cancel.  A box is staged as its center, two half-axis vectors (from the
 // precise sincosf of its heading), its area l * w (the twin's area) and its
 // half-diagonal.  Two identical boxes have bitwise equal corners, so every
-// signed distance is exactly 0 and the clip returns the box itself.  The IoU
-// is not bitwise the twin's, so the keeps equal the twin's except where an
-// IoU lies within float32 rounding of the threshold.
+// signed distance is exactly 0 and the clip returns the box itself; their
+// IoU is 1 within the float32 rounding of the shoelace against l * w, which
+// grows as w / l shrinks (chip_smoke.self_iou_limit).  The IoU is not
+// bitwise the twin's, so the keeps equal the twin's except where an IoU
+// lies within float32 rounding of the threshold.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

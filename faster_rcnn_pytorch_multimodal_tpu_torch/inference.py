@@ -13,7 +13,8 @@ the CPU), so the numbers are device time, not enqueue time.
 
 from __future__ import annotations
 
-from typing import Dict, List
+import contextlib
+from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -31,6 +32,18 @@ def model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+@contextlib.contextmanager
+def eval_mode(model: torch.nn.Module) -> Iterator[torch.nn.Module]:
+    """Within the block the model is in eval mode (live BN normalizes with
+    its running statistics); then it is back in the mode it was in."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was_training)
+
+
 def _on_device(a, device: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device)
@@ -38,13 +51,13 @@ def _on_device(a, device: torch.device) -> torch.Tensor:
 
 
 def detect_batch(model: FasterRCNN, batch: Dict[str, object]) -> Dict[str, torch.Tensor]:
-    """One loader batch through forward_test: `data` uint8 NHWC frames
-    (numpy) or a BEV raster (a tensor, already on the model's device), and
-    `window`."""
+    """One loader batch through forward_test, in eval mode: `data` uint8
+    NHWC frames (numpy) or a BEV raster (a tensor, already on the model's
+    device), and `window`."""
     device = model_device(model)
     images = _on_device(batch["data"], device)
     window = _on_device(np.asarray(batch["window"], np.float32), device)
-    with torch.inference_mode():
+    with eval_mode(model), torch.inference_mode():
         return model.forward_test(images, window)
 
 

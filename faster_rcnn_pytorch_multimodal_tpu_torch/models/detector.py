@@ -58,7 +58,10 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.models.heads import (
     RPNHead,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import (
+    BasicBlock,
+    Bottleneck,
     FrozenBatchNorm,
+    LiveBatchNorm,
     ResNetC4,
     ResNetLayer4,
     ResNetPyramid,
@@ -247,8 +250,6 @@ def check_supported(cfg: Config, training: bool = False) -> None:
         problems.append("UC.* flags (no uncertainty yet)")
     if cfg.compute_dtype not in _DTYPES:
         problems.append(f"COMPUTE_DTYPE {cfg.compute_dtype!r}")
-    if (training or lidar) and cfg.resnet.fixed_blocks < 0:
-        problems.append("RESNET.FIXED_BLOCKS -1 (live BN) in training or with lidar")
     if problems:
         raise NotImplementedError("not ported: " + ", ".join(problems))
 
@@ -265,15 +266,19 @@ class FasterRCNN(nn.Module):
         self.num_classes = num_classes
         num_layers = int(cfg.net_variant.replace("res", "") or 101)
         in_channels = cfg.lidar.num_channel if cfg.net_type == "lidar" else 3
+        # from scratch (FIXED_BLOCKS -1): live BN and zero-init residual
+        # terminators, as the JAX package switches them (detector.py:372-406)
+        live = cfg.resnet.fixed_blocks == -1
+        bn = dict(live_bn=live, zero_init_residual=live)
         if cfg.use_fpn:
-            self.backbone = ResNetPyramid(num_layers, in_channels=in_channels)
-            self.fpn = FPN(ResNetPyramid.out_channels, FPN_PLANES)
+            self.backbone = ResNetPyramid(num_layers, in_channels=in_channels, **bn)
+            self.fpn = FPN(self.backbone.out_channels, FPN_PLANES)
             self.tail = FCTail(FPN_PLANES * cfg.pooling_size ** 2, FC7_CHANNELS)
             rpn_in, fc7 = FPN_PLANES, FC7_CHANNELS
         else:
-            self.backbone = ResNetC4(num_layers, in_channels=in_channels)
-            self.tail = ResNetLayer4(num_layers)
-            rpn_in, fc7 = ResNetC4.out_channels, ResNetLayer4.out_channels
+            self.backbone = ResNetC4(num_layers, in_channels=in_channels, **bn)
+            self.tail = ResNetLayer4(num_layers, **bn)
+            rpn_in, fc7 = self.backbone.out_channels, self.tail.out_channels
         self.rpn = RPNHead(rpn_in, cfg.rpn_channels, cfg.num_anchors)
         self.predictors = DetectionPredictors(fc7, num_classes, cfg.num_bbox_elem)
         self._anchor_cache: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -285,9 +290,15 @@ class FasterRCNN(nn.Module):
     # -- feature extraction ------------------------------------------------
 
     def features(self, images: torch.Tensor) -> Features:
-        """(B, H, W, 3) images -> NHWC features: the (B, H/16, W/16, 1024) C4
-        map, or with FPN the tuple (p2, p3, p4, p5) of (B, H/s, W/s, 256)
-        maps at strides 4, 8, 16, 32.
+        """(B, H, W, 3) images -> NHWC features: the (B, H/16, W/16, C) C4
+        map (C = backbone.out_channels: 1024, or 256 for res18/34), or with
+        FPN the tuple (p2, p3, p4, p5) of (B, H/s, W/s, 256) maps at strides
+        4, 8, 16, 32.
+
+        With live BN (FIXED_BLOCKS -1) the model's mode decides: train mode
+        normalizes with the batch's statistics (the C4 tail's with those of
+        every pooled RoI of the batch) and moves the running statistics,
+        eval mode uses them.
 
         Integer frames are raw pixels, normalized here on the device with
         cfg.pixel_means/stddevs; float frames are taken as pre-normalized."""
@@ -585,7 +596,10 @@ class FasterRCNN(nn.Module):
         )
         return losses, TrainAux(at, src, valid, pt)
 
-    forward = forward_train
+    def forward(self, *args, method: str = "forward_train", **kwargs):
+        """`method` (forward_train or forward_test) on the arguments: the
+        entry torch.func.functional_call reaches (training.solver)."""
+        return getattr(self, method)(*args, **kwargs)
 
     def classify_rois(
         self, feat: Features, rois: torch.Tensor, window: torch.Tensor,
@@ -636,16 +650,15 @@ def init_params(model: FasterRCNN, generator: torch.Generator) -> FasterRCNN:
     ResNet convs variance-scaling(2, fan_out, truncated normal), the stem
     conv and the FPN convs lecun-normal (flax's default), RPN, class heads
     and the FPN tail's t_fc layers normal(0.01), the box head normal(0.001),
-    zero biases, identity frozen BN (residual-terminator scales zero when
-    cfg.resnet.fixed_blocks == -1)."""
-    zero_init_residual = model.cfg.resnet.fixed_blocks == -1
+    zero biases, identity BN (frozen or live), and the residual terminators'
+    scales (bn3 of a Bottleneck, bn2 of a BasicBlock) zero where the block
+    asks for it, at cfg.resnet.fixed_blocks == -1."""
     head_std = {"rpn": 0.01, "predictors.cls_score_net": 0.01,
                 "predictors.bbox_pred_net": 0.001, "tail.t_fc": 0.01}
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, FrozenBatchNorm):
-                terminator = name.endswith("bn3") and zero_init_residual
-                m.weight.fill_(0.0 if terminator else 1.0)
+            if isinstance(m, FrozenBatchNorm):  # LiveBatchNorm too
+                m.weight.fill_(1.0)
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
@@ -662,6 +675,9 @@ def init_params(model: FasterRCNN, generator: torch.Generator) -> FasterRCNN:
                     m.weight.normal_(0.0, std, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
+        for m in model.modules():
+            if isinstance(m, (Bottleneck, BasicBlock)) and m.zero_init_residual:
+                m.terminator.weight.zero_()
     return model
 
 
@@ -682,9 +698,22 @@ def build_detector(
     return to_device(init_detector(cfg, num_classes, seed), device)
 
 
+def live_bn_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The running statistics of the model's LiveBatchNorm modules, by
+    state-dict key: float32 buffers that no compute-dtype cast may round
+    (the JAX package's `batch_stats` collection, which cast_for_compute
+    leaves alone)."""
+    return {
+        f"{name}.{k}": getattr(m, k)
+        for name, m in model.named_modules() if isinstance(m, LiveBatchNorm)
+        for k in ("running_mean", "running_var")
+    }
+
+
 def to_device(model: FasterRCNN, device: torch.device | str) -> FasterRCNN:
     """Move and cast a detector for inference: cfg.compute_dtype weights,
-    channels_last convolutions, eval mode."""
+    channels_last convolutions, eval mode (a live-BN model then normalizes
+    with its running statistics, which stay float32)."""
     return model.to(
         device=device, dtype=model.compute_dtype, memory_format=torch.channels_last
     ).eval()

@@ -1,15 +1,23 @@
 """ResNet backbone and C4 tail with the reference's detection surgery, and
 the FPN's pyramid backbone.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/models/resnet.py:57-474:
-  * FrozenBatchNorm (frozen mode; live BN is for training),
-  * Bottleneck with caffe-style stride placement: layers 2 and 3 put the
-    stride on the 1x1 conv1 instead of the 3x3 conv2, and the downsample
-    conv carries it,
+Port of faster_rcnn_pytorch_multimodal_tpu/models/resnet.py:46-474:
+  * FrozenBatchNorm, and LiveBatchNorm for RESNET.FIXED_BLOCKS -1 (training
+    from scratch): batch statistics in train mode, running statistics
+    updated at momentum 0.1 and used in eval mode;
+  * BasicBlock (res18/34) and Bottleneck (res50/101/152), the latter with
+    caffe-style stride placement: layers 2 and 3 put the stride on the 1x1
+    conv1 instead of the 3x3 conv2, and the downsample conv carries it;
   * stride-1 layer4 as the C4 detection tail;
   * ResNetPyramid for FPN: stem and layer1..4 -> (c2, c3, c4, c5), with a
     stride-2 layer4 that places its stride as torchvision does (on the 3x3
     conv2 and the downsample), unlike layers 2 and 3.
+
+`live_bn` puts LiveBatchNorm in every BN place (stem, blocks, downsample);
+`zero_init_residual` marks each block's residual terminator (bn3 of a
+Bottleneck, bn2 of a BasicBlock) for a zero scale at init
+(models.detector.init_params).  The JAX package switches both on together,
+at FIXED_BLOCKS -1.
 
 Modules are NCHW, as PyTorch's convolutions are; the detector runs them on
 channels_last tensors, so the NHWC views it hands to RoI align are free.
@@ -22,23 +30,43 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-# layers-per-stage per depth (ref resnet.py:242-295); Bottleneck depths only
+# layers-per-stage per depth (ref resnet.py:242-295)
 STAGE_BLOCKS = {
+    18: (2, 2, 2, 2),
+    34: (3, 4, 6, 3),
     50: (3, 4, 6, 3),
     101: (3, 4, 23, 3),
     152: (3, 8, 36, 3),
 }
-EXPANSION = 4
+BASIC_DEPTHS = (18, 34)
+EXPANSION = 4  # Bottleneck's; a BasicBlock's is 1
+
+
+def _expansion(num_layers: int) -> int:
+    """A stage's output channels over its planes at this depth."""
+    return 1 if num_layers in BASIC_DEPTHS else EXPANSION
+
+
+def _stage_blocks(num_layers: int) -> tuple:
+    if num_layers not in STAGE_BLOCKS:
+        raise NotImplementedError(f"res{num_layers}: the port has depths {sorted(STAGE_BLOCKS)}")
+    return STAGE_BLOCKS[num_layers]
+
+
+def _bn_affine(x, mean, var, weight, bias, eps: float) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * weight + bias as the JAX package
+    computes it (resnet.py:110-117): the per-channel affine in float32,
+    applied in the activation dtype (with bfloat16 compute only the
+    C-element affine runs in float32)."""
+    inv = torch.rsqrt(var.float() + eps)
+    a = inv * weight.float()
+    b = bias.float() - mean.float() * a
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
 
 
 class FrozenBatchNorm(nn.Module):
-    """BN as a fixed affine map: y = (x - mean) * rsqrt(var + eps) * weight + bias.
-
-    The per-channel affine is computed in float32 from the stored values and
-    applied in the activation dtype, as the JAX package does
-    (resnet.py:110-117): with bfloat16 compute the stored values are bf16 and
-    only the C-element affine runs in float32.
-    """
+    """BN as a fixed affine map: y = (x - mean) * rsqrt(var + eps) * weight + bias."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -54,11 +82,64 @@ class FrozenBatchNorm(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var.float() + self.eps)
-        a = inv * self.weight.float()
-        b = self.bias.float() - self.running_mean.float() * a
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        return x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+        return _bn_affine(x, self.running_mean, self.running_var, self.weight, self.bias, self.eps)
+
+
+class LiveBatchNorm(FrozenBatchNorm):
+    """Train-mode BN with the JAX package's arithmetic (FrozenBatchNorm with
+    live=True, resnet.py:57-117) and FrozenBatchNorm's keys; weight and bias
+    are trainable parameters.
+
+    In train mode the statistics are the float32 mean and biased variance of
+    the input over every axis but the channel (N*H*W, or in the C4 tail the
+    B*R*7*7 pooled rows); gradients flow through them, and the float32
+    running statistics move in place at `momentum` towards the mean and the
+    unbiased variance var * n / max(n - 1, 1).  In eval mode the running
+    statistics normalize, as in FrozenBatchNorm.  Not nn.BatchNorm2d: with
+    bfloat16 activations it normalizes in float32 and rounds once, where the
+    JAX package rounds the per-channel affine to bfloat16 first.
+
+    The running statistics stay float32 when the module is cast (`_apply`),
+    as the JAX package's `batch_stats` collection does.  The update is in
+    place on the tensors the module holds, so under
+    torch.func.functional_call it lands on the model only when the call is
+    given the model's own buffers (training.solver.cast_for_compute)."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(features, eps)
+        self.momentum = momentum
+        del self.weight, self.bias
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def _apply(self, fn, recurse=True):
+        # .to(dtype), .bfloat16() and the like: the float32 statistics
+        # follow the module's device only
+        stats = {k: self._buffers[k] for k in ("running_mean", "running_var")}
+        super()._apply(fn, recurse)
+        for k, v in stats.items():
+            if self._buffers[k].dtype != v.dtype:
+                self._buffers[k] = v.to(self._buffers[k].device)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = xf.mean(dims)
+        # jnp.var: the mean of the squared deviations
+        var = (xf - mean.reshape((1, -1) + (1,) * (x.dim() - 2))).square().mean(dims)
+        n = xf.numel() // xf.shape[1]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1.0 - m) * self.running_var + m * (var * (n / max(n - 1, 1))))
+        return _bn_affine(x, mean, var, self.weight, self.bias, self.eps)
+
+
+def _norm(live_bn: bool):
+    return LiveBatchNorm if live_bn else FrozenBatchNorm
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
@@ -80,27 +161,33 @@ class Bottleneck(nn.Module):
         stride: int = 1,
         caffe_stride: bool = False,
         has_downsample: bool = False,
+        live_bn: bool = False,
+        zero_init_residual: bool = False,
     ):
         super().__init__()
+        norm = _norm(live_bn)
+        self.zero_init_residual = zero_init_residual
         s1 = stride if caffe_stride else 1
         s2 = 1 if caffe_stride else stride
         self.conv1 = _conv(cin, planes, 1, s1)
-        self.bn1 = FrozenBatchNorm(planes)
+        self.bn1 = norm(planes)
         self.drop1 = nn.Identity()
         self.conv2 = _conv(planes, planes, 3, s2)
-        self.bn2 = FrozenBatchNorm(planes)
+        self.bn2 = norm(planes)
         self.drop2d = nn.Identity()
         self.conv3 = _conv(planes, planes * EXPANSION, 1)
-        self.bn3 = FrozenBatchNorm(planes * EXPANSION)
+        self.bn3 = norm(planes * EXPANSION)
         self.drop3 = nn.Identity()
         self.downsample = (
-            nn.Sequential(
-                _conv(cin, planes * EXPANSION, 1, stride),
-                FrozenBatchNorm(planes * EXPANSION),
-            )
+            nn.Sequential(_conv(cin, planes * EXPANSION, 1, stride), norm(planes * EXPANSION))
             if has_downsample
             else None
         )
+
+    @property
+    def terminator(self) -> FrozenBatchNorm:
+        """The BN that ends the residual branch."""
+        return self.bn3
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
@@ -110,8 +197,44 @@ class Bottleneck(nn.Module):
         return self.drop3(torch.relu(out + identity))
 
 
+class BasicBlock(nn.Module):
+    """ref resnet.py:40-72 (res18/34): conv1 3x3 with the stride, bn1, relu,
+    conv2 3x3, bn2 (the terminator), plus the identity or a 1x1 downsample.
+    No caffe-stride move and no dropout places, as in the JAX package."""
+
+    def __init__(
+        self,
+        cin: int,
+        planes: int,
+        stride: int = 1,
+        has_downsample: bool = False,
+        live_bn: bool = False,
+        zero_init_residual: bool = False,
+    ):
+        super().__init__()
+        norm = _norm(live_bn)
+        self.zero_init_residual = zero_init_residual
+        self.conv1 = _conv(cin, planes, 3, stride)
+        self.bn1 = norm(planes)
+        self.conv2 = _conv(planes, planes, 3)
+        self.bn2 = norm(planes)
+        self.downsample = (
+            nn.Sequential(_conv(cin, planes, 1, stride), norm(planes)) if has_downsample else None
+        )
+
+    @property
+    def terminator(self) -> FrozenBatchNorm:
+        """The BN that ends the residual branch."""
+        return self.bn2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        out = torch.relu(self.bn1(self.conv1(x)))
+        return torch.relu(self.bn2(self.conv2(out)) + identity)
+
+
 class ResStage(nn.Sequential):
-    """One layerN group of Bottleneck blocks, named 0..n-1 like torchvision."""
+    """One layerN group of blocks, named 0..n-1 like torchvision."""
 
     def __init__(
         self,
@@ -120,13 +243,21 @@ class ResStage(nn.Sequential):
         num_blocks: int,
         stride: int = 1,
         caffe_stride: bool = False,
+        basic: bool = False,
+        live_bn: bool = False,
+        zero_init_residual: bool = False,
     ):
+        exp = 1 if basic else EXPANSION
+        bn = dict(live_bn=live_bn, zero_init_residual=zero_init_residual)
         blocks = []
         for i in range(num_blocks):
             s = stride if i == 0 else 1
-            needs_ds = i == 0 and (s != 1 or cin != planes * EXPANSION)
-            blocks.append(Bottleneck(cin, planes, s, caffe_stride, needs_ds))
-            cin = planes * EXPANSION
+            needs_ds = i == 0 and (s != 1 or cin != planes * exp)
+            if basic:
+                blocks.append(BasicBlock(cin, planes, s, needs_ds, **bn))
+            else:
+                blocks.append(Bottleneck(cin, planes, s, caffe_stride, needs_ds, **bn))
+            cin = planes * exp
         super().__init__(*blocks)
 
 
@@ -138,35 +269,44 @@ def _stem_forward(conv1: nn.Conv2d, bn1: FrozenBatchNorm, x: torch.Tensor) -> to
 class ResNetStem(nn.Module):
     """conv1 7x7/2 (pad 3), bn1, relu, maxpool 3x3/2 (pad 1, -inf padding)."""
 
-    def __init__(self, cin: int = 3):
+    def __init__(self, cin: int = 3, live_bn: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm(64)
+        self.bn1 = _norm(live_bn)(64)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _stem_forward(self.conv1, self.bn1, x)
 
 
-class ResNetC4(nn.Module):
-    """Stem + layer1..layer3 -> stride-16, 1024-channel feature map.
+class _Backbone(nn.Module):
+    """The stem and layer1..layer3 of ResNetC4 and ResNetPyramid."""
+
+    def __init__(self, num_layers: int, in_channels: int, live_bn: bool, zero_init_residual: bool):
+        super().__init__()
+        blocks = _stage_blocks(num_layers)
+        exp = _expansion(num_layers)
+        self._stage_kw = dict(basic=exp == 1, live_bn=live_bn,
+                              zero_init_residual=zero_init_residual)
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = _norm(live_bn)(64)
+        self.layer1 = ResStage(64, 64, blocks[0], 1, **self._stage_kw)
+        self.layer2 = ResStage(64 * exp, 128, blocks[1], 2, caffe_stride=True, **self._stage_kw)
+        self.layer3 = ResStage(128 * exp, 256, blocks[2], 2, caffe_stride=True, **self._stage_kw)
+
+
+class ResNetC4(_Backbone):
+    """Stem + layer1..layer3 -> the stride-16 feature map of `out_channels`:
+    1024 at Bottleneck depths, 256 at BasicBlock depths.
 
     The stem's modules sit at the top level (conv1, bn1) as in torchvision;
     layer4 lives in the detection tail (ResNetLayer4)."""
 
-    out_channels = 256 * EXPANSION
-
-    def __init__(self, num_layers: int = 101, in_channels: int = 3):
-        super().__init__()
-        if num_layers not in STAGE_BLOCKS:
-            raise NotImplementedError(
-                f"res{num_layers}: the port has Bottleneck depths {sorted(STAGE_BLOCKS)}"
-            )
-        blocks = STAGE_BLOCKS[num_layers]
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm(64)
-        self.layer1 = ResStage(64, 64, blocks[0], 1)
-        self.layer2 = ResStage(256, 128, blocks[1], 2, caffe_stride=True)
-        self.layer3 = ResStage(512, 256, blocks[2], 2, caffe_stride=True)
+    def __init__(
+        self, num_layers: int = 101, in_channels: int = 3, live_bn: bool = False,
+        zero_init_residual: bool = False,
+    ):
+        super().__init__(num_layers, in_channels, live_bn, zero_init_residual)
+        self.out_channels = 256 * _expansion(num_layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _stem_forward(self.conv1, self.bn1, x)
@@ -174,42 +314,39 @@ class ResNetC4(nn.Module):
 
 
 class ResNetLayer4(nn.Module):
-    """The C4 detection tail: stride-1 layer4 over pooled RoIs."""
+    """The C4 detection tail: stride-1 layer4 over pooled RoIs, to
+    `out_channels` (2048, or 512 at BasicBlock depths)."""
 
-    out_channels = 512 * EXPANSION
-
-    def __init__(self, num_layers: int = 101):
+    def __init__(
+        self, num_layers: int = 101, live_bn: bool = False, zero_init_residual: bool = False
+    ):
         super().__init__()
-        if num_layers not in STAGE_BLOCKS:
-            raise NotImplementedError(
-                f"res{num_layers}: the port has Bottleneck depths {sorted(STAGE_BLOCKS)}"
-            )
-        self.layer4 = ResStage(1024, 512, STAGE_BLOCKS[num_layers][3], stride=1)
+        blocks = _stage_blocks(num_layers)
+        exp = _expansion(num_layers)
+        self.out_channels = 512 * exp
+        self.layer4 = ResStage(256 * exp, 512, blocks[3], stride=1, basic=exp == 1,
+                               live_bn=live_bn, zero_init_residual=zero_init_residual)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer4(x)
 
 
-class ResNetPyramid(nn.Module):
+class ResNetPyramid(_Backbone):
     """Stem + layer1..layer4 -> (c2, c3, c4, c5) at strides 4, 8, 16, 32
-    (ref resnet.py:431-474).  The stem sits at the top level (conv1, bn1),
-    as in ResNetC4, and layer4 lives here, not in a tail."""
+    (ref resnet.py:431-474), of `out_channels` (256, 512, 1024, 2048), or
+    (64, 128, 256, 512) at BasicBlock depths.  The stem sits at the top
+    level (conv1, bn1), as in ResNetC4, and layer4 lives here, not in a
+    tail."""
 
-    out_channels = (64 * EXPANSION, 128 * EXPANSION, 256 * EXPANSION, 512 * EXPANSION)
-
-    def __init__(self, num_layers: int = 101, in_channels: int = 3):
-        super().__init__()
-        if num_layers not in STAGE_BLOCKS:
-            raise NotImplementedError(
-                f"res{num_layers}: the port has Bottleneck depths {sorted(STAGE_BLOCKS)}"
-            )
-        blocks = STAGE_BLOCKS[num_layers]
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm(64)
-        self.layer1 = ResStage(64, 64, blocks[0], 1)
-        self.layer2 = ResStage(256, 128, blocks[1], 2, caffe_stride=True)
-        self.layer3 = ResStage(512, 256, blocks[2], 2, caffe_stride=True)
-        self.layer4 = ResStage(1024, 512, blocks[3], 2)  # torchvision's stride placement
+    def __init__(
+        self, num_layers: int = 101, in_channels: int = 3, live_bn: bool = False,
+        zero_init_residual: bool = False,
+    ):
+        super().__init__(num_layers, in_channels, live_bn, zero_init_residual)
+        exp = _expansion(num_layers)
+        self.out_channels = tuple(p * exp for p in (64, 128, 256, 512))
+        # torchvision's stride placement
+        self.layer4 = ResStage(256 * exp, 512, _stage_blocks(num_layers)[3], 2, **self._stage_kw)
 
     def forward(self, x: torch.Tensor) -> tuple:
         c2 = self.layer1(_stem_forward(self.conv1, self.bn1, x))

@@ -9,6 +9,13 @@ the gradients land on the float32 masters.  torch.autocast is not used: it
 would run the frozen-BN affine in float32 on bfloat16 activations, which
 changes both the dtype flow and the memory.
 
+With live BN (RESNET.FIXED_BLOCKS -1) the running statistics are not cast:
+the call gets the model's own float32 buffers, so the statistics' in-place
+update lands on the model, as the JAX package writes the mutated
+`batch_stats` collection back into its state (solver.py:86-88).  Steps run
+in train mode (batch statistics); `detect` runs a serving pass in eval mode
+(running statistics) and puts the model back in the mode it found.
+
 The random draws of a step (TrainDraws) come from an explicit
 torch.Generator on the model's device.  Snapshots, resume and the val cycle
 are not ported yet.
@@ -22,12 +29,13 @@ import numpy as np
 import torch
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
-from faster_rcnn_pytorch_multimodal_tpu_torch.inference import model_device
+from faster_rcnn_pytorch_multimodal_tpu_torch.inference import eval_mode, model_device
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import (
     FasterRCNN,
     TrainDraws,
     check_supported,
     init_detector,
+    live_bn_stats,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
 from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
@@ -46,11 +54,31 @@ def create_train_state(
 
 def cast_for_compute(model: FasterRCNN) -> Dict[str, torch.Tensor]:
     """Compute copies of the model's parameters and buffers: float32
-    tensors cast to the compute dtype (differentiable casts), others as
-    they are."""
+    tensors cast to the compute dtype (differentiable casts), except the
+    live-BN running statistics, which are the model's own float32 buffers;
+    others as they are."""
     dtype = model.compute_dtype
+    stats = live_bn_stats(model)
     named = list(model.named_parameters()) + list(model.named_buffers())
-    return {k: v.to(dtype) if v.dtype == torch.float32 else v for k, v in named}
+    return {k: v.to(dtype) if v.dtype == torch.float32 and k not in stats else v
+            for k, v in named}
+
+
+def compute_call(model: FasterRCNN, method: str, *args, **kwargs):
+    """model.<method>(*args, **kwargs) in cfg.compute_dtype: on the float32
+    model as it is, else through functional_call on cast_for_compute."""
+    if model.compute_dtype == torch.float32:
+        return getattr(model, method)(*args, **kwargs)
+    return torch.func.functional_call(
+        model, cast_for_compute(model), args, dict(kwargs, method=method))
+
+
+def detect(model: FasterRCNN, images: torch.Tensor, window: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One serving pass of a model in training (forward_test in the compute
+    dtype, in eval mode, without gradients), as the JAX package's quality
+    runs call forward_test on cast_for_compute(params)."""
+    with eval_mode(model), torch.no_grad():
+        return compute_call(model, "forward_test", images, window)
 
 
 def batch_to_device(batch: Mapping[str, object], device: torch.device) -> Dict[str, object]:
@@ -99,10 +127,7 @@ def make_train_step(model: FasterRCNN, optimizer: DetectorSGD) -> Callable:
             gt_boxes_dc=batch.get("gt_boxes_dc"), dc_mask=batch.get("dc_mask"),
             scale_idx=batch.get("scale_idx"), proposals=proposals,
         )
-        if model.compute_dtype == torch.float32:
-            losses, aux = model.forward_train(*args, **kwargs)
-        else:
-            losses, aux = torch.func.functional_call(model, cast_for_compute(model), args, kwargs)
+        losses, aux = compute_call(model, "forward_train", *args, **kwargs)
         losses["total_loss"].backward()
         optimizer.step()
         return {k: v.detach() for k, v in losses.items()}, aux
@@ -121,8 +146,10 @@ def train(
     """Run `iters` steps: loader batch -> H2D -> draws -> step.  Each step
     is timed from the H2D copy to the end of the update (CUDA events on a
     card, the host clock on the CPU).  Returns per-step float losses and
-    milliseconds; on_step(i, losses, ms) is called after each step."""
+    milliseconds; on_step(i, losses, ms) is called after each step.  The
+    model is put in train mode."""
     device = model_device(model)
+    model.train()
     step = make_train_step(model, optimizer)
     timer = DeviceTimer(device)
     all_losses, all_ms = [], []

@@ -12,10 +12,14 @@ the flax path of a backbone key is exactly what `resnet_key_to_flax` gives,
 a copy of the JAX package's utils/convert.py:49-86.  The root tells the two
 models apart: layer4 lives under 'tail' in C4 and under 'backbone' in the
 FPN model, whose 'fpn' (latlayer2..5, aalayer2..4) and FCTail
-('tail/t_fc1..3') map like the heads.  Every leaf must map,
-in both directions: an unknown path or key raises.  Shapes carry over as
-they are, so a LiDAR net's 15-channel stem and 7K-wide box head convert
-like the image net's.
+('tail/t_fc1..3') map like the heads.  BasicBlock (res18/34) keys are
+Bottleneck's without conv3/bn3: conv1/conv2/bn1/bn2/downsample.  With live
+BN (FIXED_BLOCKS -1) the JAX package keeps the BN statistics in the
+`batch_stats` collection (.../bn1/mean, var) and only scale and bias under
+`params`; they map to running_mean / running_var all the same.  Every leaf
+must map, in both directions: an unknown path or key raises.  Shapes carry
+over as they are, so a LiDAR net's 15-channel stem and 7K-wide box head
+convert like the image net's.
 """
 
 from __future__ import annotations
@@ -146,12 +150,25 @@ def _to_flax_layout(v: np.ndarray) -> np.ndarray:
     return v
 
 
+_STATS = ("mean", "var")
+
+
 def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX FasterRCNN variables ({'params': ...} or the params tree itself,
-    numpy-convertible leaves) -> the port's float32 state dict."""
+    """JAX FasterRCNN variables ({'params': ...[, 'batch_stats': ...]} or
+    the params tree itself, numpy-convertible leaves) -> the port's float32
+    state dict.  With a `batch_stats` collection (live BN) every BN
+    statistic must come from it: a mean or var leaf under `params`, or any
+    other leaf under `batch_stats`, raises."""
     params = variables.get("params", variables)
+    stats = variables.get("batch_stats") if "params" in variables else None
+    leaves = [(path, v, False) for path, v in _flatten(params).items()]
+    if stats is not None:
+        leaves += [(path, v, True) for path, v in _flatten(stats).items()]
     sd = {}
-    for path, v in _flatten(params).items():
+    for path, v, is_stat in leaves:
+        if stats is not None and (path[-1] in _STATS) != is_stat:
+            where = "batch_stats" if is_stat else "params"
+            raise KeyError(f"flax path {'/'.join(path)} under {where} with live BN")
         key = flax_path_to_torch_key(path)
         if key in sd:
             raise KeyError(f"flax path {'/'.join(path)} maps onto {key} twice")
@@ -159,13 +176,20 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """The port's state dict -> {'params': tree} of float32 numpy leaves."""
-    flat = {}
+def to_flax_variables(state_dict: Mapping[str, torch.Tensor], live_bn: bool = False) -> Dict:
+    """The port's state dict -> {'params': tree} of float32 numpy leaves;
+    with live_bn the BN statistics go to {'batch_stats': tree} instead, as
+    the JAX package lays out a FIXED_BLOCKS -1 model."""
+    flat, stats = {}, {}
     for key, v in state_dict.items():
         arr = v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-        flat[torch_key_to_flax_path(key)] = np.ascontiguousarray(_to_flax_layout(arr))
-    return {"params": _unflatten(flat)}
+        path = torch_key_to_flax_path(key)
+        to = stats if live_bn and path[-1] in _STATS else flat
+        to[path] = np.ascontiguousarray(_to_flax_layout(arr))
+    out = {"params": _unflatten(flat)}
+    if live_bn:
+        out["batch_stats"] = _unflatten(stats)
+    return out
 
 
 def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:

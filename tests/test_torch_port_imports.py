@@ -1,6 +1,7 @@
 """The port's import boundary and kernel dispatch.
 
-* Importing every module of the port (and its CLIs and chip_smoke.py) in a
+* Importing every module of the port (and its CLIs, its quality harness
+  and chip_smoke.py) in a
   fresh interpreter leaves JAX, the JAX package and bench.py out of
   sys.modules: the port keeps its own copies of what it needs.
 * On CPU tensors the kernel wrappers run their plain twins and launch
@@ -62,7 +63,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
     names.append(m.name)
 for path in ({tools!r} + "/test_net_torch.py", {tools!r} + "/trainval_net_torch.py",
-             {repo!r} + "/chip_smoke.py"):
+             {tools!r} + "/quality_run_torch.py", {repo!r} + "/chip_smoke.py"):
     spec = importlib.util.spec_from_file_location("mod_" + str(len(names)), path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     names.append(path)
@@ -770,3 +771,23 @@ def test_rotated_nms_rejects_bad_inputs_on_the_card(cuda):
         nms(boxes, scores, 0.3, 4, torch.ones(2, 8, dtype=torch.int64, device=cuda), rotated=True)
     with pytest.raises(ValueError, match=">= 0"):
         nms(boxes, scores, -0.1, 4, rotated=True)
+
+
+def test_collinear_pairs_show_fault_f5_on_the_twin():
+    """chip_smoke's collinear pairs (F5) and its float64 oracle: a box
+    against itself scores 1, and on some pair the twin, which copies JAX's
+    candidate formulation, is more than 0.1 off the oracle."""
+    b = chip_smoke.collinear_boxes(np.random.RandomState(6), 300)
+    twin = rotated_iou_matrix_plain(torch.from_numpy(b), torch.from_numpy(b)).numpy()
+    pairs = np.arange(0, len(b), 2)
+    want = np.array([chip_smoke.rotated_oracle(b[i], b[i + 1]) for i in pairs])
+    assert abs(chip_smoke.rotated_oracle(b[0], b[0]) - 1) <= 1e-9
+    assert np.abs(twin[pairs, pairs + 1] - want).max() > 0.1
+
+
+@pytest.mark.cuda
+def test_rotated_iou_kernel_on_collinear_pairs(cuda):
+    """K4's IoU kernel on 300 pairs with collinear sides within 1e-6 of the
+    float64 oracle (chip_smoke.check_collinear, which prints the twin's
+    distance beside it; F5)."""
+    assert chip_smoke.check_collinear(np.random.RandomState(6))["max_abs_err"] <= 1e-6

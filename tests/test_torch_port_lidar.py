@@ -226,19 +226,21 @@ def test_lidar_filter_keeps_equal_jax():
 
 
 @pytest.mark.parametrize("extra,training", [
-    (("RESNET.FIXED_BLOCKS", "-1"), True),
+    (("NET_VARIANT", "vgg16"), True),
     (("USE_LIDAR_FPN", "True"), False),
     (("UC.EN_BBOX_ALEATORIC", "True"), True),
-    (("RESNET.FIXED_BLOCKS", "-1"), False),
+    (("UC.EN_CLS_EPISTEMIC", "True"), False),
 ])
 def test_unported_lidar_options_raise(extra, training):
     _, cfg = _cfgs(*extra)
     with pytest.raises(NotImplementedError):
         t_det.check_supported(cfg, training=training)
-    # lidar serving, with rotated NMS too, and lidar training are ported
+    # lidar serving, with rotated NMS too, and lidar training are ported,
+    # with live BN (RESNET.FIXED_BLOCKS -1) too
     t_det.check_supported(_cfgs()[1])
     t_det.check_supported(_cfgs("TEST.ROTATED_NMS", "True")[1])
     t_det.check_supported(_cfgs()[1], training=True)
+    t_det.check_supported(_cfgs("RESNET.FIXED_BLOCKS", "-1")[1], training=training)
 
 
 # -- the whole slice -------------------------------------------------------------

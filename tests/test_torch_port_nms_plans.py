@@ -558,6 +558,18 @@ def test_clip_mirror_on_collinear_edges():
     assert np.abs(np.diag(got) - 1).max() <= 1e-5
 
 
+@pytest.mark.parametrize("seed", [0, 6])
+def test_clip_mirror_self_iou_within_the_limit(seed):
+    """A box against itself on chip_smoke's collinear draws (seed 6 is
+    check_collinear's): the clip returns the box, and |IoU - 1| is the
+    shoelace's float32 rounding, within chip_smoke.self_iou_limit per box.
+    Seed 6 holds a sliver (w / l 0.0029) 1.14e-5 off 1."""
+    b = chip_smoke.collinear_boxes(np.random.RandomState(seed), 300)
+    got, _ = rot_iou_mirror(b, b)
+    dev = np.abs(np.diag(got).astype(np.float64) - 1)
+    assert (dev <= chip_smoke.self_iou_limit(b)).all()
+
+
 def touching_corner_boxes(rng, count):
     """(2 * count, 5) pairs of boxes that touch at one corner: b's corner
     c - u - v on a's corner c + u + v, both turned by one random angle

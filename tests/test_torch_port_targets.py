@@ -346,9 +346,17 @@ def _flat(tree, prefix=()):
             yield prefix + (k,), v
 
 
-@pytest.mark.parametrize("fixed_blocks,bias_decay", [(1, False), (3, True), (0, False), (-1, True)])
-def test_masks_match_jax(fixed_blocks, bias_decay):
-    extra = ("RESNET.FIXED_BLOCKS", str(fixed_blocks), "TRAIN.BIAS_DECAY", str(bias_decay))
+@pytest.mark.parametrize(
+    "fixed_blocks,bias_decay,net",
+    [(1, False, "res50"), (3, True, "res50"), (0, False, "res50"), (-1, True, "res50"),
+     (-1, False, "res18"), (1, True, "res18")],
+    ids=["1-False", "3-True", "0-False", "-1-True", "res18--1-False", "res18-1-True"],
+)
+def test_masks_match_jax(fixed_blocks, bias_decay, net):
+    """The port's masks on the JAX model's keys equal JAX's; res18 has
+    BasicBlock keys (bn2 the terminator, no conv3/bn3)."""
+    extra = ("RESNET.FIXED_BLOCKS", str(fixed_blocks), "TRAIN.BIAS_DECAY", str(bias_decay),
+             "NET_VARIANT", net)
     cfg, tcfg = _cfg(*extra), _tcfg(*extra)
     model = j_det.FasterRCNN(cfg=cfg, num_classes=2)
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
@@ -364,6 +372,7 @@ def test_masks_match_jax(fixed_blocks, bias_decay):
         assert got == want, name
     frozen = t_optim.frozen_mask(want.keys(), tcfg)
     assert any(frozen.values()) == (fixed_blocks >= 0) and not all(frozen.values())
+    assert ("backbone.layer1.0.conv3.weight" in frozen) == (net != "res18")
 
 
 def _clip_jax(grads, max_norm):
