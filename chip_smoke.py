@@ -113,6 +113,34 @@ non-zero and never prints its last line):
      -1, one warm-up step then 10 steps, then one serving batch of the
      trained model cast by to_device (bf16, eval mode, float32 running
      statistics).
+ 19. the UC slices: res50 float32 with every UC.* flag, one 256x320 frame
+     and one 400 x 350 x 15 BEV raster, card against CPU on the same
+     weights, dropout masks and normals (drawn on the CPU and recorded,
+     UCDraws(record=True)): forward_test with the card's second stage and
+     RPN uncertainties pinned to the CPU's proposals, cls_prob, boxes and
+     the 8 detection and 8 RPN uncertainty keys (within 1e-3 of max, plus
+     the float32 rounding of what e_cls_var and the mutual informations
+     cancel: uc_slack); then a training forward and backward, pinned to the
+     CPU's lanes and ReLU gates: equal samples, the losses and a_mutual_info
+     within rtol 1e-3, every leaf's gradient within 1e-3 * max|g|.
+ 20. the UC serving path: the JAX bench's uncertainty_config (the image
+     config with class and box aleatoric and epistemic uncertainty, T = 10
+     MC samples, 200 logit draws) at test settings, res101 bf16, batch 8,
+     512x960, one warm-up batch then 3: ms/batch, frames/s, peak memory;
+     NMS exactly twice and RoI align exactly once a batch (the RoIs pooled
+     once, the tail and predictors run for each sample); the 8 uncertainty
+     keys finite and e_bbox_var nonzero somewhere.
+ 21. the UC training path: uncertainty_config from scratch (FIXED_BLOCKS
+     -1: with frozen BN and random weights each Bottleneck's drop3 doubles
+     the residual stream's second moment and the class log-variance's exp
+     overflows, in JAX's step too), res101 bf16, batch 8, one warm-up step
+     then 10 (the dropout layers live, the Bayesian cross-entropy, the
+     attenuated box loss): every loss finite; NMS, RoI align and its
+     backward launched.
+ 22. the BEV UC training path: bev_uncertainty_config (bev_config with the
+     same flags, the stacks' BN) from scratch, 10 steps, then one serving
+     batch of the trained model: the voxelizer, NMS, RoI align and its
+     backward launched.
 Phase 3 also holds the multiscale RoI-align kernels against their twins at
 the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
@@ -135,13 +163,13 @@ RoI align and its backward at the res18 C4 maps' 256 channels, (8, 32,
 60, 256) x 300 and (8, 25, 22, 256) x 256, under the same limits; and the
 rotated IoU kernel on 300 pairs with collinear sides within 1e-6 of a
 float64 oracle (fault F5: the twin, as JAX, is far off there).
-Each path (5, 7, 9, 11, 12, 14, 15, 17, 18) runs with the launch counts
+Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20, 21, 22) runs with the launch counts
 set to 0 just before it and read just after.  Then one JSON line describing the
 kernels (each kernel's `launches` is the count on the newest path that runs
 it: BEV training for the voxelizer, NMS, RoI align and its backward, rotated
 BEV serving for the rotated NMS, FPN serving and FPN training for the
 multiscale kernels; its times, error and bound are from phase 3 at that
-path's shapes; `launches_by_path` has all ten), the nvidia-smi
+path's shapes; `launches_by_path` has all fourteen), the nvidia-smi
 name/power line, and the result line {"ok": true, "device": ...}.
 
 Imports nothing of JAX; needs the repository checkout around it.
@@ -200,6 +228,19 @@ C_FPN = 256
 BEV_SERVING_OVERRIDES = SERVING_OVERRIDES + ("TEST.SCALES", "(0.5,)", "COMPUTE_DTYPE", "bfloat16")
 # rotated NMS in the final filter at the quality recipe's threshold (tools/quality_run.py:219-222)
 ROTATED_OVERRIDES = ("TEST.ROTATED_NMS", "True", "TEST.NMS_THRESH", "0.3")
+# bench.py:276-289 and :308-319 (uncertainty_config, bev_uncertainty_config):
+# class and box aleatoric and epistemic uncertainty, UC.E_NUM_SAMPLE 10 MC
+# samples, UC.A_NUM_CE_SAMPLE 200 logit draws (the defaults)
+UC_OVERRIDES = (
+    "UC.EN_BBOX_ALEATORIC", "True", "UC.EN_CLS_ALEATORIC", "True",
+    "UC.EN_BBOX_EPISTEMIC", "True", "UC.EN_CLS_EPISTEMIC", "True",
+)
+# the card-vs-CPU UC slices: every flag, the RPN's too
+UC_ALL_OVERRIDES = UC_OVERRIDES + (
+    "UC.EN_RPN_BBOX_ALEATORIC", "True", "UC.EN_RPN_CLS_ALEATORIC", "True",
+    "UC.EN_RPN_BBOX_EPISTEMIC", "True", "UC.EN_RPN_CLS_EPISTEMIC", "True",
+    "UC.EN_BBOX_EPISTEMIC_INV_TRANSFORM", "True",
+)
 
 
 def make_config(*overrides):
@@ -1391,9 +1432,11 @@ def check_slice(cfg_base):
         raise AssertionError(f"slice card vs CPU out of tolerance: {failed}")
 
 
-def run_serving(cfg, smi, need=("nms", "roi_align"), never=()):
+def run_serving(cfg, smi, need=("nms", "roi_align"), never=(), per_batch=None):
     """The image serving path: warm-up batch, then 3 batches, counted; the
-    kernels in `need` must have launched and those in `never` not."""
+    kernels in `need` must have launched and those in `never` not, and each
+    kernel of `per_batch` exactly that many times a batch.  With uncertainty
+    the warm-up batch's outputs are checked too (check_uc_outputs)."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
@@ -1413,7 +1456,8 @@ def run_serving(cfg, smi, need=("nms", "roi_align"), never=()):
                          seed=0)
     model = scale_terminators(build_detector(cfg, 2, "cuda", seed=0))
     warm = loader.peek()  # the first evaluated batch, run once to warm up
-    filter_batch(model, detect_batch(model, warm), cfg.test.thresh)
+    warm_out = detect_batch(model, warm)
+    filter_batch(model, warm_out, cfg.test.thresh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -1422,7 +1466,7 @@ def run_serving(cfg, smi, need=("nms", "roi_align"), never=()):
     launches = dict(_build.LAUNCH_COUNTS)
     peak = torch.cuda.max_memory_allocated()
     ms = np.asarray(res["detect_ms"]) + np.asarray(res["filter_ms"])
-    name = "FPN serving" if cfg.use_fpn else "serving"
+    name = "FPN serving" if cfg.use_fpn else "UC serving" if "uncertainties" in warm_out else "serving"
     print(f"{name} res101 bf16 {FRAME_HW[0]}x{FRAME_HW[1]} batch {B} ({smi}): "
           f"detect ms/batch {res['detect_ms']}, filter ms/batch {res['filter_ms']}, "
           f"mean {float(ms.mean())} ms/batch, {B * len(ms) / (float(ms.sum()) / 1e3)} frames/s, "
@@ -1435,7 +1479,30 @@ def run_serving(cfg, smi, need=("nms", "roi_align"), never=()):
         raise AssertionError(f"{name}: a frame has no valid proposal")
     if not all(launches[k] > 0 for k in need) or any(launches[k] for k in never):
         raise AssertionError(f"{name}: launches {launches}, needed {need}, never {never}")
+    for k, n in (per_batch or {}).items():
+        print(f"{name}: {k} launched {launches[k]} times in {batches} batches (want {n} a batch)")
+        if launches[k] != n * batches:
+            raise AssertionError(f"{name}: {k} launched {launches[k]} times, want {n * batches}")
+    if "uncertainties" in warm_out:
+        check_uc_outputs(warm_out, name)
     return launches
+
+
+def check_uc_outputs(out, name):
+    """Every uncertainty key of a serving batch finite and of the rois'
+    leading shape, and the epistemic box variance nonzero somewhere (the MC
+    samples differ)."""
+    import torch
+
+    un = {**{f"rpn {k}": v for k, v in out.get("rpn_uncertainties", {}).items()},
+          **out["uncertainties"]}
+    bad = [k for k, v in un.items() if not bool(torch.isfinite(v).all())
+           or tuple(v.shape[:2]) != tuple(out["rois"].shape[:2])]
+    print(f"{name}: uncertainty keys {sorted(un)}; max per key "
+          f"{ {k: float(v.abs().max()) for k, v in un.items()} }")
+    if bad or len(out["uncertainties"]) != 8 or not bool((out["uncertainties"]["e_bbox_var"] > 0).any()):
+        raise AssertionError(f"{name}: uncertainty keys not finite or misshapen: {bad}, or "
+                             f"e_bbox_var zero everywhere")
 
 
 TRAIN_LEAVES = (
@@ -1565,7 +1632,8 @@ def check_train_slice(cfg_base):
 def relu_sites(model):
     """The detector's ReLU inputs: {(module path, residual): (module,
     block)}.  Each module's output is a ReLU's input (bn1/bn2 of a block, the
-    stem's bn1, the RPN's 3x3 conv, the FPN tail's t_fc layers); with
+    stem's bn1, the RPN's 3x3 conv, the FPN tail's t_fc layers, the
+    epistemic stacks' fc or BN layers); with
     residual=True it is the block's terminator, whose output plus the
     block's identity is."""
     import torch
@@ -1580,6 +1648,11 @@ def relu_sites(model):
                     sites[(f"{name}.{k}", bn is m.terminator)] = (bn, m)
         elif isinstance(m, torch.nn.Linear) and name.startswith("tail.t_fc"):
             sites[(name, False)] = (m, None)
+        elif name in ("predictors.cls_stack", "predictors.bbox_stack"):
+            # an epistemic stack's fc (or its BN under lidar) feeds each ReLU
+            for i in (1, 2):
+                k = f"{m.prefix}_bn{i}" if hasattr(m, f"{m.prefix}_bn{i}") else f"{m.prefix}_fc{i}"
+                sites[(f"{name}.{k}", False)] = (getattr(m, k), None)
     return sites
 
 
@@ -1789,6 +1862,176 @@ def check_live_slice(cfg_base):
         raise AssertionError(f"live-BN slice card vs CPU out of tolerance: {failed}")
 
 
+UC_SLICE_OVERRIDES = UC_ALL_OVERRIDES + (
+    "NET_VARIANT", "res50", "COMPUTE_DTYPE", "float32", "TRAIN.ROI_BATCH_SIZE", "64",
+    "STATIC.NMS_PRE_TRAIN", "1024", "TRAIN.RPN_POST_NMS_TOP_N", "256",
+)
+RPN_1X1 = ("rpn_cls_score_net", "rpn_bbox_pred_net", "rpn_bbox_al_var_net", "rpn_cls_al_var_net")
+
+
+def scale_rpn_heads(model, value=0.02):
+    """The RPN's 1x1 heads (scores, deltas and their log-variances) times
+    `value`: on random res50 weights they give logits of ~300 and
+    log-variances whose exp overflows float32; a trained RPN's are a few
+    units."""
+    import torch
+
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name.split(".")[-1] in RPN_1X1:
+                m.weight.mul_(value)
+    return model
+
+
+def uc_slack(key: str, t: int, classes: int) -> float:
+    """Beside a share of max|x|, the float32 rounding of the terms an
+    uncertainty key cancels: e_cls_var is sum(p^2) - (sum p)^2 / T over T
+    softmaxes (terms up to T / (T - 1)), a mutual information the entropy of
+    the mean less the mean entropy (terms up to log2(classes) bits)."""
+    if key == "e_cls_var":
+        return 4 * EPS32 * t / (t - 1)
+    if key.endswith("mutual_info"):
+        return 4 * EPS32 * np.log2(classes)
+    return 0.0
+
+
+def check_uc_slice(cfg_base):
+    """Uncertainty, res50 float32 with every UC flag, on one frame (image
+    256x320, or a 400 x 350 x 15 BEV raster): card against CPU on the same
+    weights, dropout masks and normals (drawn on the CPU, recorded, handed
+    to the card).  Serving: forward_test, the card's second stage and RPN
+    uncertainties pinned to the CPU's proposals (its own NMS still runs):
+    cls_prob within 3e-3 of max, the boxes within 0.15, each of the 8
+    detection and 8 RPN keys within 1e-3 of max (plus uc_slack).
+    Training: forward_train and backward, the card pinned to the CPU's
+    proposal lanes and ReLU gates: equal samples, the losses (a_mutual_info
+    too) within rtol 1e-3, every leaf's gradient within 1e-3 * max|g|."""
+    import copy
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.config import cfg_from_list
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import TrainDraws, UCDraws
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import (
+        create_train_state,
+        draw_train_keys,
+    )
+
+    cfg = cfg_from_list(cfg_base, UC_SLICE_OVERRIDES)
+    lidar = cfg.net_type == "lidar"
+    kind = "BEV " if lidar else ""
+    cpu, _ = create_train_state(cfg, 2, "cpu", seed=1)
+    scale_rpn_heads(scale_terminators(cpu))
+    gpu = copy.deepcopy(cpu).cuda()
+    rng = np.random.RandomState(3)
+    x, win, gt, mask = train_slice_batch(cfg, copy.deepcopy(cpu).eval(), rng)
+
+    def on_card(d):
+        return {k: v.cuda() for k, v in d.items()}
+
+    # serving, in eval mode
+    cpu.eval(), gpu.eval()
+    props = {}
+    c_propose, g_propose = cpu._propose_batch, gpu._propose_batch
+    cpu._propose_batch = lambda *a, **k: props.setdefault("cpu", c_propose(*a, **k))
+
+    def pinned(*a, **k):
+        props["card"] = g_propose(*a, **k)
+        return tuple(t.cuda() for t in props["cpu"])
+
+    gpu._propose_batch = pinned
+    c_draws = UCDraws(torch.Generator().manual_seed(5), record=True)
+    try:
+        with torch.inference_mode():
+            c_out = cpu.forward_test(x, win, c_draws)
+            g_out = gpu.forward_test(x.cuda(), win.cuda(),
+                                     UCDraws(masks=on_card(c_draws.masks),
+                                             normals=on_card(c_draws.normals)))
+    finally:
+        del cpu._propose_batch, gpu._propose_batch
+    torch.cuda.synchronize()
+    cr = props["cpu"][0][0][props["cpu"][2][0]]
+    gr = props["card"][0][0][props["card"][2][0]].cpu()
+    matched = int((iou_plus1(cr, gr).max(dim=1).values >= 0.99).sum())
+    t = cfg.uc.e_num_sample
+    errs, checks = {}, {"own proposals": len(cr) > 0 and matched >= 0.95 * len(cr)}
+    cls_err = float((g_out["cls_prob"].cpu() - c_out["cls_prob"]).abs().max())
+    box_err = float((g_out["bbox_pred"].cpu() - c_out["bbox_pred"]).abs().max())
+    checks["cls_prob"] = cls_err <= 3e-3 * float(c_out["cls_prob"].abs().max())
+    checks["boxes"] = box_err <= 0.15
+    for stage, classes in (("uncertainties", 2), ("rpn_uncertainties", 2)):
+        if len(c_out[stage]) != 8:
+            checks[f"{stage} keys"] = False
+        for k, want in c_out[stage].items():
+            got = g_out[stage][k].cpu()
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            errs[f"{stage[:3]} {k}"] = err / max(scale, 1e-30)
+            checks[f"{stage} {k}"] = (bool(torch.isfinite(got).all()) and scale > 0
+                                      and err <= 1e-3 * scale + uc_slack(k, t, classes))
+    print(f"UC slice {kind}res50 fp32 {tuple(x.shape)}, T = {t}, every UC flag: card's own "
+          f"proposals matched {matched}/{len(cr)}; pinned to the CPU's: cls_prob {cls_err}, "
+          f"boxes {box_err}; uncertainty error / max|x| {errs}")
+
+    # training, in train mode, frozen BN
+    cpu.train(), gpu.train()
+    batch = {"data": x, "gt_boxes": gt, "gt_mask": mask, "window": win}
+    draws = draw_train_keys(cpu, batch, torch.Generator().manual_seed(4))
+    draws = draws._replace(uc=UCDraws(torch.Generator().manual_seed(6), record=True))
+    with relu_inputs(cpu) as c_relu:
+        c_losses, c_aux = cpu.forward_train(x, gt, mask, win, draws)
+    c_losses["total_loss"].backward()
+    pin = (c_aux.proposal_src.cuda(), c_aux.proposal_valid.cuda())
+    g_draws = TrainDraws(*(None if v is None else v.cuda() for v in draws[:5]),
+                         UCDraws(masks=on_card(draws.uc.masks), normals=on_card(draws.uc.normals)))
+    g_args = (x.cuda(), gt.cuda(), mask.cuda(), win.cuda(), g_draws)
+    ties = []
+    for _ in range(4):
+        probe = copy.deepcopy(gpu)
+        with pinned_ties(probe, ties), relu_inputs(probe) as g_relu, torch.no_grad():
+            probe.forward_train(*g_args, proposals=pin)
+        new = find_ties(c_relu, g_relu, skip={tie[:3] for tie in ties})
+        if not new:
+            break
+        ties += new
+    with pinned_ties(gpu, ties):
+        g_losses, g_aux = gpu.forward_train(*g_args, proposals=pin)
+    g_losses["total_loss"].backward()
+    torch.cuda.synchronize()
+    checks["anchor samples"] = torch.equal(g_aux.anchor_targets.sel.cpu(), c_aux.anchor_targets.sel)
+    checks["roi labels"] = torch.equal(g_aux.proposal_targets.labels.cpu(),
+                                       c_aux.proposal_targets.labels)
+    # res50's C4 tail alone has 64 RoIs x 49 x 9,216 ReLU units: few is a
+    # share of them, each at 0 within the rounding of its ReLU's input (in
+    # the tail that of the pooled RoIs, whose boxes each device rebuilds
+    # from its own RPN deltas)
+    units = sum(v.numel() for v in c_relu.values())
+    tie_size = max((max(abs(w), abs(g)) / m for *_, w, g, m in ties), default=0.0)
+    checks["ties few"] = len(ties) <= 1e-5 * units and tie_size <= 1e-4
+    loss_err = {}
+    for k in LOSSES + ("a_mutual_info",):
+        c, g = float(c_losses[k].detach()), float(g_losses[k].detach())
+        loss_err[k] = abs(g - c) / max(abs(c), 1e-12)
+        checks[f"loss {k}"] = loss_err[k] <= 1e-3 and np.isfinite(g)
+    g_params = dict(gpu.named_parameters())
+    grad_err = {}
+    for name, cp in cpu.named_parameters():
+        if not cp.requires_grad:
+            continue
+        cg, gg = cp.grad, g_params[name].grad
+        scale = float(cg.abs().max())
+        grad_err[name] = float((gg.cpu() - cg).abs().max()) / max(scale, 1e-30)
+        checks[f"grad {name}"] = scale > 0 and grad_err[name] <= 1e-3
+    worst = max(grad_err, key=grad_err.get)
+    print(f"UC training slice {kind}res50 fp32: losses cpu "
+          f"{ {k: float(c_losses[k].detach()) for k in loss_err} }, relative errors {loss_err}; "
+          f"{len(grad_err)} leaves, largest gradient error / max|g| {grad_err[worst]} ({worst}); "
+          f"ReLU units pinned to the CPU's gate {len(ties)} of {units}, the largest "
+          f"|input| / max|input| of its ReLU {tie_size}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"UC slice card vs CPU out of tolerance: {failed}")
+
+
 def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd"), scale=True):
     """The training path: warm-up step, then TRAIN_STEPS steps, counted; the
     kernels in `need` must have launched.  Image frames are 512x960; a lidar
@@ -1819,9 +2062,11 @@ def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd"), scale=Tru
     peak = torch.cuda.max_memory_allocated()
     ms = np.asarray(res["ms"])
     finite = all(np.isfinite(v) for losses in warm["losses"] + res["losses"] for v in losses.values())
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import uses_uncertainty
+
     lidar = cfg.net_type == "lidar"
     live = cfg.resnet.fixed_blocks == -1
-    name = ("live-BN " if live else "") + (
+    name = ("live-BN " if live else "") + ("UC " if uses_uncertainty(cfg) else "") + (
         "BEV training" if lidar else "FPN training" if cfg.use_fpn else "training")
     frames = (f"raster {tuple(loader.peek()['data'].shape)}" if lidar
               else f"{FRAME_HW[0]}x{FRAME_HW[1]}")
@@ -2069,11 +2314,10 @@ def run_bev_serving(cfg, smi, need=("voxelize_bev", "nms", "roi_align")):
                       "peak_gib": peak / 2**30, "filter_input": seen[0]}
 
 
-def run_live_serving(model, cfg, smi):
-    """One serving batch of a live-BN model after its training path: the
-    model cast for serving (to_device: bf16, eval mode, the running
-    statistics float32), 8 synthetic frames through inference.evaluate,
-    counted."""
+def run_trained_serving(model, cfg, smi):
+    """One serving batch of a model after its training path: the model cast
+    for serving (to_device: bf16, eval mode, live BN's running statistics
+    float32), 8 synthetic frames through inference.evaluate, counted."""
     import copy
 
     import torch
@@ -2081,7 +2325,7 @@ def run_live_serving(model, cfg, smi):
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
     from faster_rcnn_pytorch_multimodal_tpu_torch.inference import evaluate
-    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import to_device
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import to_device, uses_uncertainty
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
 
     serving = to_device(copy.deepcopy(model), "cuda")
@@ -2095,13 +2339,16 @@ def run_live_serving(model, cfg, smi):
     res = evaluate(serving, loader, db, B, cfg.test.thresh)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCH_COUNTS)
-    name = f"live-BN {'BEV ' if cfg.net_type == 'lidar' else ''}serving"
-    print(f"{name} {cfg.net_variant} {cfg.compute_dtype} batch {B} ({smi}), eval mode on the "
-          f"trained running statistics: voxelize {res['raster_ms']} ms, detect {res['detect_ms']} "
+    live = cfg.resnet.fixed_blocks == -1
+    name = (f"{'live-BN ' if live else ''}{'BEV ' if cfg.net_type == 'lidar' else ''}"
+            f"{'UC ' if uses_uncertainty(cfg) else ''}serving")
+    print(f"{name} {cfg.net_variant} {cfg.compute_dtype} batch {B} ({smi}), eval mode after "
+          f"training: voxelize {res['raster_ms']} ms, detect {res['detect_ms']} "
           f"ms, filter {res['filter_ms']} ms (one batch, the first: not a steady-state time); "
           f"outputs finite {res['finite']}, fewest proposals in a frame {res['min_proposals']}, "
           f"kernel launches {launches}")
-    check_live_stats(serving, name)
+    if live:
+        check_live_stats(serving, name)
     if serving.training or not res["finite"] or not res["min_proposals"]:
         raise AssertionError(f"{name}: training mode {serving.training}, finite {res['finite']}, "
                              f"fewest proposals {res['min_proposals']}")
@@ -2268,14 +2515,40 @@ def main() -> int:
     bev_live_cfg = make_config(BEV_OVERRIDES, RES18_LIVE)
     bev_live_training, bev_live_model = run_training(
         bev_live_cfg, smi, need=("voxelize_bev", "nms", "roi_align", "roi_align_bwd"), scale=False)
-    bev_live_serving = run_live_serving(bev_live_model, make_config(
+    bev_live_serving = run_trained_serving(bev_live_model, make_config(
         BEV_OVERRIDES, BEV_SERVING_OVERRIDES, RES18_LIVE), smi)
+
+    phase("UC slices: card vs CPU")
+    check_uc_slice(image_cfg)
+    check_uc_slice(bev_train_cfg)
+
+    phase("UC serving path")
+    # RoIs pooled once a batch; the tail and predictors run for each MC sample
+    uc_serving = run_serving(make_config(IMAGE_OVERRIDES, SERVING_OVERRIDES, UC_OVERRIDES), smi,
+                             per_batch={"nms": 2, "roi_align": 1})
+
+    # from scratch (live BN): with frozen BN and random weights every
+    # Bottleneck's drop3 doubles the residual stream's second moment
+    # (2^30 over res101's layers 1-3), and exp of the class log-variance
+    # overflows float32 (JAX's step on the same weights gives NaN too)
+    phase("UC training path")
+    uc_training, _ = run_training(make_config(IMAGE_OVERRIDES, UC_OVERRIDES, LIVE_OVERRIDES), smi,
+                                  scale=False)
+
+    phase("BEV UC training path")
+    bev_uc_training, bev_uc_model = run_training(
+        make_config(BEV_OVERRIDES, UC_OVERRIDES, LIVE_OVERRIDES), smi,
+        need=("voxelize_bev", "nms", "roi_align", "roi_align_bwd"), scale=False)
+    bev_uc_serving = run_trained_serving(bev_uc_model, make_config(
+        BEV_OVERRIDES, BEV_SERVING_OVERRIDES, UC_OVERRIDES, LIVE_OVERRIDES), smi)
 
     paths = {"serving": serving, "training": training, "bev_serving": bev_serving,
              "fpn_serving": fpn_serving, "fpn_training": fpn_training,
              "bev_training": bev_training, "bev_rotated_serving": bev_rotated,
              "live_training": live_training, "bev_live_training": bev_live_training,
-             "bev_live_serving": bev_live_serving}
+             "bev_live_serving": bev_live_serving, "uc_serving": uc_serving,
+             "uc_training": uc_training, "bev_uc_training": bev_uc_training,
+             "bev_uc_serving": bev_uc_serving}
 
     def entry(name, source, replaces, path, measured):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",

@@ -7,6 +7,11 @@ BatchLoader goes through `detect_batch` (the detector's forward_test),
 batch arrives with its BEV raster already on the device (the loader runs
 `voxelize_bev` there).  Used by tools/test_net_torch.py and chip_smoke.py.
 
+With uncertainty (the UC.* flags) forward_test also returns the
+`uncertainties` and `rpn_uncertainties` dicts; `evaluate` draws each batch's
+masks and normals from one generator and keeps every detection's
+uncertainty rows by class, as the JAX package's test loop does.
+
 Stages are timed with `DeviceTimer`: CUDA events on a card (host clock on
 the CPU), so the numbers are device time, not enqueue time.
 """
@@ -14,13 +19,13 @@ the CPU), so the numbers are device time, not enqueue time.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.evaluation.eval_utils import evaluate_class
-from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import FasterRCNN
+from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import FasterRCNN, UCDraws
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import (
     filter_detections,
     to_per_class_lists,
@@ -50,15 +55,25 @@ def _on_device(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def detect_batch(model: FasterRCNN, batch: Dict[str, object]) -> Dict[str, torch.Tensor]:
+def detect_batch(
+    model: FasterRCNN, batch: Dict[str, object], draws: Optional[UCDraws] = None,
+) -> Dict[str, torch.Tensor]:
     """One loader batch through forward_test, in eval mode: `data` uint8
     NHWC frames (numpy) or a BEV raster (a tensor, already on the model's
-    device), and `window`."""
+    device), and `window`; `draws` gives the uncertainty's masks and
+    normals (see FasterRCNN.forward_test)."""
     device = model_device(model)
     images = _on_device(batch["data"], device)
     window = _on_device(np.asarray(batch["window"], np.float32), device)
     with eval_mode(model), torch.inference_mode():
-        return model.forward_test(images, window)
+        return model.forward_test(images, window, draws)
+
+
+def all_finite(out: Dict) -> bool:
+    """Whether every floating tensor of a forward_test output, those of its
+    uncertainty dicts too, is finite."""
+    return all(all_finite(v) if isinstance(v, dict) else
+               (not v.is_floating_point() or bool(torch.isfinite(v).all())) for v in out.values())
 
 
 def filter_batch(model: FasterRCNN, out: Dict[str, torch.Tensor], thresh: float) -> Dict[str, torch.Tensor]:
@@ -107,11 +122,17 @@ def evaluate(model: FasterRCNN, loader, db, n_frames: int, thresh: float) -> Dic
     (shuffle=False).  Returns per-frame per-class boxes, AP per class, mAP
     with its eval type and IoU threshold, per-batch device milliseconds of
     the voxelizer (lidar), detection and filtering, whether every float
-    output was finite, and the fewest valid proposals of any frame."""
+    output was finite, and the fewest valid proposals of any frame.  With
+    uncertainty also `all_uc`: per class, per frame, the kept detections'
+    uncertainty rows (ops.filter.to_per_class_lists), each batch's masks and
+    normals drawn from one generator seeded 0 on the model's device."""
     num_classes, bbox_elem = model.num_classes, model.cfg.num_bbox_elem
     eval_type, iou_thresh = eval_settings(model.cfg)
-    timer = DeviceTimer(model_device(model))
+    device = model_device(model)
+    timer = DeviceTimer(device)
+    generator = torch.Generator(device=device).manual_seed(0)
     all_boxes: List[List[np.ndarray]] = [[] for _ in range(num_classes)]
+    all_uc: List[List[dict]] = [[] for _ in range(num_classes)]
     detections = {j: [] for j in range(1, num_classes)}
     gt_frames = {}
     raster_ms, detect_ms, filter_ms = [], [], []
@@ -122,24 +143,27 @@ def evaluate(model: FasterRCNN, loader, db, n_frames: int, thresh: float) -> Dic
         if getattr(loader, "last_raster_ms", None) is not None:
             raster_ms.append(loader.last_raster_ms)
         timer.start()
-        out = detect_batch(model, batch)
+        out = detect_batch(model, batch, UCDraws(generator))
         detect_ms.append(timer.stop())
         timer.start()
         filt = filter_batch(model, out, thresh)
         filter_ms.append(timer.stop())
-        finite &= all(bool(torch.isfinite(v).all()) for v in out.values() if v.is_floating_point())
+        finite &= all_finite(out)
         n_prop = int(out["roi_valid"].sum(1).min())
         min_proposals = n_prop if min_proposals is None else min(min_proposals, n_prop)
         filt = {k: v.cpu().numpy() for k, v in filt.items()}
+        uc = {k: v.cpu().numpy() for k, v in out.get("uncertainties", {}).items()}
         for i in range(batch["window"].shape[0]):
             if frame_idx >= n_frames:
                 break
-            boxes_j, _ = to_per_class_lists(
-                {k: v[i] for k, v in filt.items()}, {}, num_classes, bbox_elem
+            boxes_j, uc_j = to_per_class_lists(
+                {k: v[i] for k, v in filt.items()}, {k: v[i] for k, v in uc.items()},
+                num_classes, bbox_elem,
             )
             fid = frame_id(db, frame_idx)
             for j in range(1, num_classes):
                 all_boxes[j].append(boxes_j[j])
+                all_uc[j].append(uc_j[j])
                 for row in boxes_j[j]:
                     detections[j].append(
                         {"frame_id": fid, "bbox": row[:bbox_elem], "confidence": row[-1]}
@@ -154,6 +178,7 @@ def evaluate(model: FasterRCNN, loader, db, n_frames: int, thresh: float) -> Dic
         ap[j] = evaluate_class(detections[j], gtc, iou_thresh=iou_thresh, eval_type=eval_type)
     return {
         "all_boxes": all_boxes,
+        "all_uc": all_uc,
         "ap": ap,
         "mAP": float(np.mean([r["ap"] for r in ap.values()])) if ap else 0.0,
         "eval_type": eval_type,

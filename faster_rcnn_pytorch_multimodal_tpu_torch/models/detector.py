@@ -1,12 +1,28 @@
 """Faster R-CNN detector: C4 image serving and training, LiDAR BEV serving
-and training, FPN image serving and training.
+and training, FPN image serving and training, with aleatoric and epistemic
+uncertainty on the C4 image and the LiDAR paths.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/models/detector.py without
-uncertainty: `build_anchor_grid` (image and lidar branches), `feat_stride`,
+Port of faster_rcnn_pytorch_multimodal_tpu/models/detector.py:
+`build_anchor_grid` (image and lidar branches), `feat_stride`,
 `propose_one` (with TEST.MODE 'top') and `FasterRCNN.features`,
 `rpn_scores`, `_anchors` (test and train phase), `_propose_batch`,
-`pool_rois`, `roi_head`, `pooled_head`, `forward_test` and `forward_train`.
-The JAX package's vmaps over frames become a batch dimension written out.
+`pool_rois`, `roi_head`, `pooled_head`, `_rpn_uncertainties`,
+`forward_test` and `forward_train`.  The JAX package's vmaps over frames
+become a batch dimension written out.
+
+Uncertainty (the UC.* flags).  Under epistemic uncertainty (det or RPN
+stage) every Bottleneck drops at 0.5 (models.resnet.CheapDropout) and the
+det head narrows to fc7 / 4 through its stacks; the aleatoric heads predict
+log-variances, the RPN's by 1x1 convs on the RPN map.  Training runs the
+dropout layers live (det-stage epistemic) and takes the Bayesian
+cross-entropy (UC.BAYES_VARIANT) and the attenuated box losses.  Serving
+keeps `features` deterministic and draws T = UC.E_NUM_SAMPLE Monte-Carlo
+samples: of the tail and predictors over RoIs pooled once, and with RPN
+epistemic of the backbone and RPN head; the samples are stacked along the
+batch axis, MC_CHUNK at a time.  The class probabilities and deltas are the
+samples' means, and the 8-key `uncertainties` and the `rpn_uncertainties`
+dicts come out beside the detections.  All random numbers come from the
+caller's UCDraws (a generator, or given masks and normals).
 
 With USE_FPN (and POOLING_MODE multiscale) the backbone is ResNetPyramid and
 an FPN, `features` returns the pyramid (p2, p3, p4, p5) as a tuple, the RPN
@@ -43,6 +59,7 @@ outputs are cast to float32 before softmax and decode.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
@@ -60,11 +77,14 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.models.heads import (
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import (
     BasicBlock,
     Bottleneck,
+    CheapDropout,
     FrozenBatchNorm,
     LiveBatchNorm,
     ResNetC4,
     ResNetLayer4,
     ResNetPyramid,
+    UCDraws,
+    live_dropout,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.anchors import (
     anchors_3d_to_bev_aabb,
@@ -75,9 +95,19 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.box_transform import (
     bbox_transform_inv,
     clip_boxes,
     lidar_3d_bbox_transform_inv,
+    lidar_3d_uncertainty_transform_inv,
+    uncertainty_transform_inv,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.iou import bbox_3d_to_bev_aabb
-from faster_rcnn_pytorch_multimodal_tpu_torch.ops.losses import cross_entropy, smooth_l1_loss
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.losses import (
+    BAYES_VARIANTS,
+    bayesian_cross_entropy,
+    categorical_entropy,
+    categorical_mutual_information,
+    compute_bbox_var,
+    cross_entropy,
+    smooth_l1_loss,
+)
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.nms import nms
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
     multiscale_roi_align_batched,
@@ -96,6 +126,13 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FPN_STRIDES = (4, 8, 16, 32)  # p2..p5
 FPN_PLANES = 256
 FC7_CHANNELS = 2048
+RESNET_DROP_RATE = 0.5  # the Bottlenecks' dropout under epistemic uncertainty
+# Monte-Carlo samples stacked along the batch axis in one pass of the tail
+# (or of the backbone, RPN epistemic).  A fixed chunk, not UC.E_MC_CHUNK(_TEST),
+# which were sized for a TPU's 16 GB: ten res101 tail samples of 8 frames x
+# 300 RoIs hold ~2.4 GB of bf16 pooled RoIs and ~4.8 GB per 2048-channel
+# activation, well under an 80 GB card.
+MC_CHUNK = 10
 # NHWC features: the C4 map, or the FPN pyramid (p2, p3, p4, p5)
 Features = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
@@ -204,13 +241,18 @@ class TrainDraws(NamedTuple):
     candidates (N anchors a frame).  roi_fg / roi_bg (B, R): uniform keys
     ranking the fg and bg proposal candidates (R proposals a frame, with
     the GT boxes when TRAIN.USE_GT).  gt_noise (B, G, 4): standard normals
-    jittering the appended GT boxes (TRAIN.USE_GT_NOISE), else None."""
+    jittering the appended GT boxes (TRAIN.USE_GT_NOISE), else None.
+    uc: with uncertainty, the step's dropout masks (the live layers under
+    det-stage epistemic) and the normals of the Bayesian cross-entropies
+    ('rpn_ce' (A, B * RPN_BATCHSIZE, 2), 'ce' (A, B * ROI_BATCH_SIZE, K),
+    A = UC.A_NUM_CE_SAMPLE), given or drawn from its generator."""
 
     anchor_fg: torch.Tensor
     anchor_bg: torch.Tensor
     roi_fg: torch.Tensor
     roi_bg: torch.Tensor
     gt_noise: Optional[torch.Tensor] = None
+    uc: Optional[UCDraws] = None
 
 
 class TrainAux(NamedTuple):
@@ -224,12 +266,6 @@ class TrainAux(NamedTuple):
 
 def check_supported(cfg: Config, training: bool = False) -> None:
     """Raise on configurations outside the ported paths."""
-    uc = cfg.uc
-    flags = (
-        uc.en_rpn_bbox_aleatoric, uc.en_rpn_cls_aleatoric, uc.en_rpn_bbox_epistemic,
-        uc.en_rpn_cls_epistemic, uc.en_bbox_aleatoric, uc.en_cls_aleatoric,
-        uc.en_bbox_epistemic, uc.en_cls_epistemic,
-    )
     problems = []
     lidar = cfg.net_type == "lidar"
     if cfg.net_type not in ("image", "lidar"):
@@ -246,12 +282,24 @@ def check_supported(cfg: Config, training: bool = False) -> None:
             "pooling at stride 16 over the stride-4 p2; use POOLING_MODE multiscale)")
     if not cfg.net_variant.startswith("res"):
         problems.append(f"NET_VARIANT {cfg.net_variant!r} (ResNet only)")
-    if any(flags):
-        problems.append("UC.* flags (no uncertainty yet)")
+    if uses_uncertainty(cfg) and cfg.use_fpn:
+        problems.append("UC.* flags with USE_FPN (uncertainty is ported on the C4 image and "
+                        "LiDAR paths only; no serving-parity test holds FPN x UC)")
+    if cfg.uc.bayes_variant not in BAYES_VARIANTS:
+        problems.append(f"UC.BAYES_VARIANT {cfg.uc.bayes_variant!r}")
     if cfg.compute_dtype not in _DTYPES:
         problems.append(f"COMPUTE_DTYPE {cfg.compute_dtype!r}")
     if problems:
         raise NotImplementedError("not ported: " + ", ".join(problems))
+
+
+def uses_uncertainty(cfg: Config) -> bool:
+    """Whether any of the eight UC.EN_* flags is set."""
+    uc = cfg.uc
+    return any((
+        uc.en_rpn_bbox_aleatoric, uc.en_rpn_cls_aleatoric, uc.rpn_epistemic,
+        uc.en_bbox_aleatoric, uc.en_cls_aleatoric, uc.any_epistemic,
+    ))
 
 
 class FasterRCNN(nn.Module):
@@ -269,7 +317,11 @@ class FasterRCNN(nn.Module):
         # from scratch (FIXED_BLOCKS -1): live BN and zero-init residual
         # terminators, as the JAX package switches them (detector.py:372-406)
         live = cfg.resnet.fixed_blocks == -1
-        bn = dict(live_bn=live, zero_init_residual=live)
+        uc = cfg.uc
+        # the backbone and tail dropout feed both stages' MC sampling
+        dropout_en = uc.any_epistemic or uc.rpn_epistemic
+        bn = dict(live_bn=live, zero_init_residual=live,
+                  drop_rate=RESNET_DROP_RATE if dropout_en else 0.0)
         if cfg.use_fpn:
             self.backbone = ResNetPyramid(num_layers, in_channels=in_channels, **bn)
             self.fpn = FPN(self.backbone.out_channels, FPN_PLANES)
@@ -280,7 +332,20 @@ class FasterRCNN(nn.Module):
             self.tail = ResNetLayer4(num_layers, **bn)
             rpn_in, fc7 = self.backbone.out_channels, self.tail.out_channels
         self.rpn = RPNHead(rpn_in, cfg.rpn_channels, cfg.num_anchors)
-        self.predictors = DetectionPredictors(fc7, num_classes, cfg.num_bbox_elem)
+        a = cfg.num_anchors
+        # per-anchor log-variances of the deltas and of the two logits, on the RPN map
+        self.rpn_bbox_al_var_net = nn.Conv2d(rpn_in, a * 4, 1) if uc.en_rpn_bbox_aleatoric else None
+        self.rpn_cls_al_var_net = nn.Conv2d(rpn_in, a * 2, 1) if uc.en_rpn_cls_aleatoric else None
+        self.predictors = DetectionPredictors(
+            fc7, num_classes, cfg.num_bbox_elem,
+            det_channels=FC7_CHANNELS // 4 if dropout_en else FC7_CHANNELS,
+            en_cls_aleatoric=uc.en_cls_aleatoric, en_bbox_aleatoric=uc.en_bbox_aleatoric,
+            en_cls_epistemic=uc.en_cls_epistemic, en_bbox_epistemic=uc.en_bbox_epistemic,
+            lidar_bn=cfg.net_type == "lidar" and uc.any_epistemic,
+        )
+        for name, m in self.named_modules():
+            if isinstance(m, CheapDropout):
+                m.path = name
         self._anchor_cache: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
@@ -320,16 +385,28 @@ class FasterRCNN(nn.Module):
 
     def rpn_scores(self, feats: Features) -> Dict[str, torch.Tensor]:
         """NHWC features (or a pyramid: its p2) -> fg_prob (B, N), logits
-        (B, N, 2), deltas (B, N, 4) in float32 and (y, x, a) lane order."""
-        cls, bbox = self.rpn(self.rpn_map(feats).permute(0, 3, 1, 2))
+        (B, N, 2), deltas (B, N, 4) in float32 and (y, x, a) lane order;
+        with RPN aleatoric uncertainty also bbox_al_var (B, N, 4) and
+        cls_al_var (B, N, 2), the log-variances of the deltas and logits."""
+        x = self.rpn_map(feats).permute(0, 3, 1, 2)
+        cls, bbox = self.rpn(x)
         b, _, h, w = cls.shape
         a = self.cfg.num_anchors
-        # channel layout [bg x A | fg x A]: (h, w, 2, A) -> (h, w, A, 2)
-        logits = cls.permute(0, 2, 3, 1).reshape(b, h, w, 2, a).float()
-        logits = logits.transpose(3, 4).reshape(b, h * w * a, 2)
+
+        def two_class(t):  # channel layout [bg x A | fg x A]: (h, w, 2, A) -> (h, w, A, 2)
+            t = t.permute(0, 2, 3, 1).reshape(b, h, w, 2, a).float()
+            return t.transpose(3, 4).reshape(b, h * w * a, 2)
+
+        logits = two_class(cls)
         fg_prob = torch.softmax(logits, dim=-1)[..., 1]
         deltas = bbox.permute(0, 2, 3, 1).reshape(b, h * w * a, 4).float()
-        return {"logits": logits, "fg_prob": fg_prob, "deltas": deltas}
+        out = {"logits": logits, "fg_prob": fg_prob, "deltas": deltas}
+        if self.rpn_bbox_al_var_net is not None:
+            var = self.rpn_bbox_al_var_net(x)
+            out["bbox_al_var"] = var.permute(0, 2, 3, 1).reshape(b, h * w * a, 4).float()
+        if self.rpn_cls_al_var_net is not None:
+            out["cls_al_var"] = two_class(self.rpn_cls_al_var_net(x))
+        return out
 
     def anchor_grids(
         self, feat_h: int, feat_w: int, device: torch.device, phase: str = "test",
@@ -405,25 +482,169 @@ class FasterRCNN(nn.Module):
 
     # -- inference ----------------------------------------------------------
 
-    def forward_test(self, images: torch.Tensor, window: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _mc_samples(self, draws: UCDraws, modules, x: torch.Tensor, fn):
+        """fn over T = UC.E_NUM_SAMPLE Monte-Carlo samples of `x` (B, ...),
+        the dropout layers of `modules` live: MC_CHUNK samples at a time
+        stacked along the batch axis, sample-major (draws.samples says
+        which).  fn(stacked (n * B, ...)) -> dict of (n * B, ...); returns
+        the dict of (T, B, ...)."""
+        t, b = self.cfg.uc.e_num_sample, x.shape[0]
+        outs = []
+        with live_dropout(draws, *modules):
+            for t0 in range(0, t, MC_CHUNK):
+                n = min(MC_CHUNK, t - t0)
+                draws.samples = range(t0, t0 + n)
+                stacked = x.unsqueeze(0).expand((n,) + x.shape).reshape((n * b,) + x.shape[1:])
+                outs.append({k: v.reshape((n, b) + v.shape[1:]) for k, v in fn(stacked).items()})
+        draws.samples = range(1)
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    def rpn_uncertainties(
+        self, rpn_out: Dict[str, torch.Tensor], rpn_samples: Optional[Dict[str, torch.Tensor]],
+        rois: torch.Tensor, src: torch.Tensor, draws: UCDraws,
+    ) -> Dict[str, torch.Tensor]:
+        """The RPN stage's uncertainties at the proposals (B, P), gathered at
+        each proposal's anchor lane `src`: with cls aleatoric a_entropy,
+        a_mutual_info over UC.A_NUM_CE_SAMPLE logit draws (normals 'rpn_ce',
+        (A, B, P, 2)) and a_cls_var; with bbox aleatoric a_bbox_var (the
+        image inverse transform, also on lidar, as the JAX package does);
+        from the T RPN samples e_entropy, e_mutual_info, e_cls_var and
+        e_bbox_var (in delta space)."""
+        uc = self.cfg.uc
+        un: Dict[str, torch.Tensor] = {}
+        b, p = src.shape
+        if uc.en_rpn_cls_aleatoric:
+            logits = gather_lanes(rpn_out["logits"], src)
+            cls_var = torch.exp(gather_lanes(rpn_out["cls_al_var"], src))
+            noise = draws.normal("rpn_ce", (uc.a_num_ce_sample,) + tuple(logits.shape), logits.device)
+            samples = logits[None] + noise * torch.sqrt(cls_var)[None]
+            un["a_entropy"] = categorical_entropy(torch.softmax(samples, dim=-1).mean(dim=0))
+            un["a_mutual_info"] = categorical_mutual_information(
+                samples.reshape(uc.a_num_ce_sample, b * p, 2)).reshape(b, p)
+            un["a_cls_var"] = cls_var
+        if uc.en_rpn_bbox_aleatoric:
+            a_var = torch.exp(gather_lanes(rpn_out["bbox_al_var"], src))
+            un["a_bbox_var"] = uncertainty_transform_inv(rois, torch.sqrt(a_var))
+        if rpn_samples is not None:
+            t = rpn_samples["fg_prob"].shape[0]
+
+            def sel_t(x):  # (T, B, N, .) -> (T, B, P, .)
+                return torch.stack([gather_lanes(xi, src) for xi in x])
+
+            if uc.en_rpn_cls_epistemic:
+                logits_t = sel_t(rpn_samples["logits"])
+                sm = torch.softmax(logits_t, dim=-1)
+                un["e_entropy"] = categorical_entropy(sm.mean(dim=0))
+                un["e_mutual_info"] = categorical_mutual_information(
+                    logits_t.reshape(t, b * p, 2)).reshape(b, p)
+                un["e_cls_var"] = compute_bbox_var(sm)
+            if uc.en_rpn_bbox_epistemic:
+                un["e_bbox_var"] = compute_bbox_var(sel_t(rpn_samples["deltas"]))
+        return un
+
+    def det_uncertainties(
+        self, det: Dict[str, torch.Tensor], rois: torch.Tensor,
+        anchors_3d: Optional[torch.Tensor], draws: UCDraws,
+    ) -> Dict[str, torch.Tensor]:
+        """The detection stage's 8-key uncertainties from the head's T
+        samples `det` (dict of (T, B, S, .); T = 1 without epistemic): with
+        cls aleatoric a_entropy, a_mutual_info over UC.A_NUM_CE_SAMPLE draws
+        of sample 0's logits (normals 'ce', (A, B, S, K)) and a_cls_var; with
+        bbox aleatoric a_bbox_var through the inverse transform; with cls
+        epistemic e_entropy, e_mutual_info and e_cls_var over the T
+        softmaxes; with bbox epistemic e_bbox_var over the T deltas,
+        inverse-transformed under UC.EN_BBOX_EPISTEMIC_INV_TRANSFORM."""
+        uc = self.cfg.uc
+        lidar = self.cfg.net_type == "lidar"
+        cls_scores, bbox_preds = det["cls_score"], det["bbox_pred"]
+        t, b, s, k = cls_scores.shape
+
+        def inv(std):
+            if lidar:
+                return lidar_3d_uncertainty_transform_inv(rois, anchors_3d, std)
+            return uncertainty_transform_inv(rois, std)
+
+        un: Dict[str, torch.Tensor] = {}
+        if uc.en_cls_aleatoric:
+            cls_var = torch.exp(det["cls_al_var"][0])
+            noise = draws.normal("ce", (uc.a_num_ce_sample, b, s, k), cls_scores.device)
+            samples = cls_scores[0][None] + noise * torch.sqrt(cls_var)[None]
+            un["a_entropy"] = categorical_entropy(torch.softmax(samples, dim=-1).mean(dim=0))
+            un["a_mutual_info"] = categorical_mutual_information(
+                samples.reshape(uc.a_num_ce_sample, b * s, k)).reshape(b, s)
+            un["a_cls_var"] = cls_var
+        if uc.en_bbox_aleatoric:
+            un["a_bbox_var"] = inv(torch.sqrt(torch.exp(det["bbox_al_var"][0])))
+        if uc.en_cls_epistemic:
+            sm = torch.softmax(cls_scores, dim=-1)
+            un["e_entropy"] = categorical_entropy(sm.mean(dim=0))
+            un["e_mutual_info"] = categorical_mutual_information(
+                cls_scores.reshape(t, b * s, k)).reshape(b, s)
+            un["e_cls_var"] = compute_bbox_var(sm)
+        if uc.en_bbox_epistemic:
+            e_var = compute_bbox_var(bbox_preds)
+            un["e_bbox_var"] = inv(torch.sqrt(e_var)) if uc.en_bbox_epistemic_inv_transform else e_var
+        return un
+
+    def forward_test(
+        self, images: torch.Tensor, window: torch.Tensor, draws: Optional[UCDraws] = None,
+    ) -> Dict[str, torch.Tensor]:
         """(B, H, W, C) frames or BEV rasters, (B, 4) windows -> rois
         (B, S, 4), roi_scores, roi_valid (B, S), for lidar anchors_3d
         (B, S, 7) (each proposal's 3D anchor), and with the full net
         cls_prob (B, S, K) and per-class decoded boxes bbox_pred (B, S, EK):
-        clipped image boxes, or 7-DoF lidar boxes in voxel units."""
+        clipped image boxes, or 7-DoF lidar boxes in voxel units.
+
+        With uncertainty also `rpn_uncertainties` (a dict of (B, S, .)) and,
+        with the full net, `uncertainties` (det_uncertainties); under
+        epistemic uncertainty cls_prob and the deltas are the means over
+        the MC samples.  `draws` gives the masks and normals; without it a
+        generator seeded 0 on the frames' device does (the JAX package's
+        fixed key when no dropout rng is given)."""
+        c, uc = self.cfg, self.cfg.uc
+        with_uc = uses_uncertainty(c)
+        if with_uc and draws is None:
+            draws = UCDraws(torch.Generator(device=images.device).manual_seed(0))
         feat = self.features(images)
-        rpn_out = self.rpn_scores(feat)
+        rpn_samples = None
+        if uc.rpn_epistemic:
+            # T samples of the backbone and RPN head with live dropout; the
+            # proposals come from the mean scores and deltas
+            rpn_samples = self._mc_samples(
+                draws, (self.backbone,), images, lambda x: self.rpn_scores(self.features(x)))
+            rpn_out = {"fg_prob": rpn_samples["fg_prob"].mean(dim=0),
+                       "deltas": rpn_samples["deltas"].mean(dim=0)}
+            for k in ("logits", "bbox_al_var", "cls_al_var"):
+                if k in rpn_samples:
+                    rpn_out[k] = rpn_samples[k][0]
+        else:
+            rpn_out = self.rpn_scores(feat)
         m = self.rpn_map(feat)
         anchors, anchors_3d = self.anchor_grids(m.shape[1], m.shape[2], m.device)
         rois, roi_scores, roi_valid, src = self._propose_batch(rpn_out, anchors, window)
         out = {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid}
         roi_a3d = None
-        if self.cfg.net_type == "lidar":
+        if c.net_type == "lidar":
             roi_a3d = out["anchors_3d"] = anchors_3d[src]
-        if not self.cfg.enable_full_net:
+        if with_uc:
+            out["rpn_uncertainties"] = self.rpn_uncertainties(rpn_out, rpn_samples, rois, src, draws)
+        if not c.enable_full_net:
+            return out
+        if not with_uc:
+            out["cls_prob"], out["bbox_pred"] = self.classify_rois(feat, rois, window, roi_a3d)
             return out
 
-        out["cls_prob"], out["bbox_pred"] = self.classify_rois(feat, rois, window, roi_a3d)
+        if uc.any_epistemic:
+            # RoIs pooled once (K2 launches once a batch); only the tail and
+            # the predictors run for each sample
+            s = rois.shape[1]
+            det = self._mc_samples(draws, (self.tail, self.predictors), self.pool_rois(feat, rois),
+                                   lambda x: self.pooled_head(x, x.shape[0], s))
+        else:
+            det = {k: v[None] for k, v in self.roi_head(feat, rois).items()}
+        out["cls_prob"] = torch.softmax(det["cls_score"], dim=-1).mean(dim=0)
+        out["bbox_pred"] = self.decode_boxes(det["bbox_pred"].mean(dim=0), rois, window, roi_a3d)
+        out["uncertainties"] = self.det_uncertainties(det, rois, roi_a3d, draws)
         return out
 
     # -- training -------------------------------------------------------------
@@ -469,19 +690,36 @@ class FasterRCNN(nn.Module):
             positive_overlap=pos_ov, negative_overlap=neg_ov,
             clobber_positives=c.train.rpn_clobber_positives,
         )
-        active = (at.labels >= 0).float()
+        active = (at.labels >= 0).float().reshape(-1)
+        logits = gather_lanes(rpn_out["logits"], at.sel).reshape(-1, 2)
+        labels = at.labels.clamp(min=0).long().reshape(-1)
+        uc = c.uc
+        if uc.en_rpn_cls_aleatoric:
+            # the Bayesian CE over the sampled lanes, the ignored ones at weight 0
+            var = torch.exp(gather_lanes(rpn_out["cls_al_var"], at.sel).reshape(-1, 2))
+            normals = self._uc_draws(draws).normal(
+                "rpn_ce", (uc.a_num_ce_sample,) + tuple(logits.shape), logits.device)
+            rpn_ce, _mi = bayesian_cross_entropy(logits, var, labels, normals, weights=active)
+        else:
+            rpn_ce = cross_entropy(logits, labels, weights=active)
         losses = {
-            "rpn_cross_entropy": cross_entropy(
-                gather_lanes(rpn_out["logits"], at.sel).reshape(-1, 2),
-                at.labels.clamp(min=0).long().reshape(-1),
-                weights=active.reshape(-1),
-            ),
+            "rpn_cross_entropy": rpn_ce,
             "rpn_loss_box": smooth_l1_loss(
                 gather_lanes(rpn_out["deltas"], at.sel), at.bbox_targets,
-                at.bbox_inside_weights, at.bbox_outside_weights, sum_axes=(1, 2),
+                at.bbox_inside_weights, at.bbox_outside_weights,
+                bbox_var=(gather_lanes(rpn_out["bbox_al_var"], at.sel)
+                          if uc.en_rpn_bbox_aleatoric else None),
+                sum_axes=(1, 2),
             ),
         }
         return rpn_out, grids, at, losses
+
+    @staticmethod
+    def _uc_draws(draws: TrainDraws) -> UCDraws:
+        if draws.uc is None:
+            raise ValueError("forward_train: uncertainty needs TrainDraws.uc (its dropout masks "
+                             "and normals, or a generator)")
+        return draws.uc
 
     def select_proposals(self, rpn_out, anchors, window) -> Tuple[torch.Tensor, torch.Tensor]:
         """Train-phase proposal lanes (B, P) and their validity: top
@@ -543,14 +781,23 @@ class FasterRCNN(nn.Module):
         )
         det = self.roi_head(feat, pt.rois)
         b, s = pt.labels.shape
-        losses = {
-            "cross_entropy": cross_entropy(det["cls_score"].reshape(b * s, -1), pt.labels.reshape(-1)),
-            "loss_box": smooth_l1_loss(
-                det["bbox_pred"], pt.bbox_targets, pt.bbox_inside_weights,
-                pt.bbox_outside_weights, lidar_det=lidar, en_ry_sin=c.lidar.en_ry_sin,
-                reg_loss_weight=c.lidar.reg_loss_weight, sum_axes=(2,),
-            ),
-        }
+        uc = c.uc
+        cls_score, labels = det["cls_score"].reshape(b * s, -1), pt.labels.reshape(-1)
+        losses = {}
+        if uc.en_cls_aleatoric:
+            var = torch.exp(det["cls_al_var"].reshape(b * s, -1))
+            normals = self._uc_draws(draws).normal(
+                "ce", (uc.a_num_ce_sample,) + tuple(cls_score.shape), cls_score.device)
+            ce, a_mi = BAYES_VARIANTS[uc.bayes_variant](cls_score, var, labels, normals)
+            losses["cross_entropy"], losses["a_mutual_info"] = ce, a_mi.mean()
+        else:
+            losses["cross_entropy"] = cross_entropy(cls_score, labels)
+        losses["loss_box"] = smooth_l1_loss(
+            det["bbox_pred"], pt.bbox_targets, pt.bbox_inside_weights,
+            pt.bbox_outside_weights, bbox_var=det.get("bbox_al_var") if uc.en_bbox_aleatoric else None,
+            lidar_det=lidar, en_ry_sin=c.lidar.en_ry_sin,
+            reg_loss_weight=c.lidar.reg_loss_weight, sum_axes=(2,),
+        )
         return losses, pt
 
     def forward_train(
@@ -571,25 +818,32 @@ class FasterRCNN(nn.Module):
         (B, G, 8) 7-DoF, gt_mask (B, G), window (B, 4); gt_boxes_dc
         (B, D, 4) and dc_mask (B, D) feed TRAIN.IGNORE_DC.
         `proposals` = (src, valid) pins the second stage to those anchor
-        lanes instead of the NMS's own choice."""
+        lanes instead of the NMS's own choice.
+
+        Under det-stage epistemic uncertainty every dropout layer is live,
+        with draws.uc's masks; with cls aleatoric uncertainty the losses
+        also hold a_mutual_info (not in total_loss)."""
         b = gt_boxes.shape[0]
         if gt_boxes_dc is None:
             gt_boxes_dc = torch.zeros((b, 1, 4), device=gt_boxes.device)
             dc_mask = torch.zeros((b, 1), dtype=torch.bool, device=gt_boxes.device)
-        feat = self.features(images)
-        rpn_out, grids, at, losses = self.rpn_train(
-            feat, gt_boxes, gt_mask, window, draws, scale_idx)
-        src = valid = pt = None
-        if self.cfg.enable_full_net:
-            src, valid = proposals if proposals is not None else self.select_proposals(
-                rpn_out, grids[0], window)
-            det_losses, pt = self.second_stage_train(
-                feat, rpn_out, grids, window, src, valid, gt_boxes, gt_mask,
-                gt_boxes_dc, dc_mask, draws)
-            losses.update(det_losses)
-        else:
-            zero = torch.zeros((), device=images.device)
-            losses.update(cross_entropy=zero, loss_box=zero)
+        live = (live_dropout(self._uc_draws(draws), self) if self.cfg.uc.any_epistemic
+                else contextlib.nullcontext())
+        with live:
+            feat = self.features(images)
+            rpn_out, grids, at, losses = self.rpn_train(
+                feat, gt_boxes, gt_mask, window, draws, scale_idx)
+            src = valid = pt = None
+            if self.cfg.enable_full_net:
+                src, valid = proposals if proposals is not None else self.select_proposals(
+                    rpn_out, grids[0], window)
+                det_losses, pt = self.second_stage_train(
+                    feat, rpn_out, grids, window, src, valid, gt_boxes, gt_mask,
+                    gt_boxes_dc, dc_mask, draws)
+                losses.update(det_losses)
+            else:
+                zero = torch.zeros((), device=images.device)
+                losses.update(cross_entropy=zero, loss_box=zero)
         losses["total_loss"] = (
             losses["rpn_cross_entropy"] + losses["rpn_loss_box"]
             + losses["cross_entropy"] + losses["loss_box"]
@@ -613,9 +867,18 @@ class FasterRCNN(nn.Module):
         self, det: Dict[str, torch.Tensor], rois: torch.Tensor, window: torch.Tensor,
         anchors_3d: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """RoI-head outputs -> class probabilities and per-class boxes from
-        the un-normalized deltas: image boxes clipped to each frame's window,
-        or for lidar 7-DoF boxes decoded against the rois' (B, S, 7) 3D
+        """RoI-head outputs -> class probabilities and per-class boxes
+        (decode_boxes)."""
+        return (torch.softmax(det["cls_score"], dim=-1),
+                self.decode_boxes(det["bbox_pred"], rois, window, anchors_3d))
+
+    def decode_boxes(
+        self, bbox_pred: torch.Tensor, rois: torch.Tensor, window: torch.Tensor,
+        anchors_3d: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """(B, S, EK) normalized deltas -> per-class boxes from the
+        un-normalized deltas: image boxes clipped to each frame's window, or
+        for lidar 7-DoF boxes decoded against the rois' (B, S, 7) 3D
         anchors, unclipped."""
         c = self.cfg
         b, s = rois.shape[:2]
@@ -628,13 +891,12 @@ class FasterRCNN(nn.Module):
         stds = torch.tensor(
             tc.lidar_bbox_normalize_stds if lidar else tc.image_bbox_normalize_stds,
             device=rois.device)
-        deltas = (det["bbox_pred"].reshape(b, s, k, e) * stds + means).reshape(b, s, k * e)
-        cls_prob = torch.softmax(det["cls_score"], dim=-1)
+        deltas = (bbox_pred.reshape(b, s, k, e) * stds + means).reshape(b, s, k * e)
         if lidar:
             if anchors_3d is None:
                 raise ValueError("decode: lidar rois need their (B, S, 7) 3D anchors")
-            return cls_prob, lidar_3d_bbox_transform_inv(rois, anchors_3d, deltas)
-        return cls_prob, clip_boxes(bbox_transform_inv(rois, deltas), window)
+            return lidar_3d_bbox_transform_inv(rois, anchors_3d, deltas)
+        return clip_boxes(bbox_transform_inv(rois, deltas), window)
 
 
 _TRUNC = 0.87962566103423978  # std of a unit normal truncated at +-2
@@ -648,13 +910,16 @@ def _trunc_normal(w: torch.Tensor, std: float, g: torch.Generator) -> None:
 def init_params(model: FasterRCNN, generator: torch.Generator) -> FasterRCNN:
     """Random init with the JAX package's initializers, from `generator`:
     ResNet convs variance-scaling(2, fan_out, truncated normal), the stem
-    conv and the FPN convs lecun-normal (flax's default), RPN, class heads
-    and the FPN tail's t_fc layers normal(0.01), the box head normal(0.001),
+    conv and the FPN convs lecun-normal (flax's default), RPN, class heads,
+    the epistemic stacks and the FPN tail's t_fc layers normal(0.01), the
+    box head, its variance head and the RPN's variance convs normal(0.001),
     zero biases, identity BN (frozen or live), and the residual terminators'
     scales (bn3 of a Bottleneck, bn2 of a BasicBlock) zero where the block
     asks for it, at cfg.resnet.fixed_blocks == -1."""
-    head_std = {"rpn": 0.01, "predictors.cls_score_net": 0.01,
-                "predictors.bbox_pred_net": 0.001, "tail.t_fc": 0.01}
+    head_std = {"rpn_bbox_al_var_net": 0.001, "rpn_cls_al_var_net": 0.001, "rpn": 0.01,
+                "predictors.cls_score_net": 0.01, "predictors.bbox_pred_net": 0.001,
+                "predictors.cls_al_var_net": 0.01, "predictors.bbox_al_var_net": 0.001,
+                "predictors.cls_stack": 0.01, "predictors.bbox_stack": 0.01, "tail.t_fc": 0.01}
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, FrozenBatchNorm):  # LiveBatchNorm too

@@ -1,23 +1,34 @@
 """RPN head and second-stage predictors.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/models/heads.py:35-59 (RPNHead),
-:62-78 (FCTail) and :109-163 (DetectionPredictors) without the uncertainty
-branches:
+Port of faster_rcnn_pytorch_multimodal_tpu/models/heads.py: RPNHead
+(:35-59), FCTail (:62-78), EpistemicStack (:81-106) and DetectionPredictors
+(:109-163) with its uncertainty branches:
 
   rpn_net (3x3 conv -> rpn_channels) -> rpn_cls_score_net (1x1, 2A),
                                         rpn_bbox_pred_net (1x1, 4A)
   FPN tail: flat pooled RoI -> t_fc1 -> t_fc2 -> t_fc3 (each + ReLU) = fc7
-  fc7 -> cls_score_net (K), bbox_pred_net (E*K)
+  fc7 [-> cls_stack] -> cls_score_net (K) [, cls_al_var_net (K)]
+  fc7 [-> bbox_stack] -> bbox_pred_net (E*K) [, bbox_al_var_net (E*K)]
+
+A stack (epistemic uncertainty) is fc1, BN under lidar, ReLU, dropout, fc2,
+BN, ReLU, dropout, at the JAX package's rates (0.3 before the class head,
+0.1 before the box head); the aleatoric heads predict log-variances.  The
+RPN's variance convs sit on the detector (models.detector).
 
 Init (ref imagenet.py:65-91) is done by models.detector.init_params.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import CheapDropout, FrozenBatchNorm
+
+CLS_DROP_RATE = 0.3
+BBOX_DROP_RATE = 0.1
 
 
 class RPNHead(nn.Module):
@@ -51,16 +62,81 @@ class FCTail(nn.Module):
         return torch.relu(self.t_fc3(x))
 
 
-class DetectionPredictors(nn.Module):
-    """fc7 -> class scores and box deltas."""
+class StackBatchNorm(FrozenBatchNorm):
+    """The epistemic stacks' BN (lidar): FrozenBatchNorm's fixed statistics
+    with a trainable scale and bias, as the JAX package trains them (its
+    frozen mask does not match the `cls_bn1` / `bbox_bn2` names)."""
 
-    def __init__(self, det_channels: int, num_classes: int, num_bbox_elem: int = 4):
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features, eps)
+        del self.weight, self.bias
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+
+class EpistemicStack(nn.Module):
+    """{prefix}_fc1 [-> {prefix}_bn1] -> ReLU -> {prefix}_drop1 ->
+    {prefix}_fc2 [-> {prefix}_bn2] -> ReLU -> {prefix}_drop2, `features`
+    wide.  The dropout layers are live in training and in the MC samples
+    (models.resnet.live_dropout)."""
+
+    def __init__(self, in_features: int, features: int, drop_rate: float,
+                 batchnorm_en: bool = False, prefix: str = "cls"):
         super().__init__()
-        self.cls_score_net = nn.Linear(det_channels, num_classes)
-        self.bbox_pred_net = nn.Linear(det_channels, num_bbox_elem * num_classes)
+        self.prefix = prefix
+        for i, cin in ((1, in_features), (2, features)):
+            self.add_module(f"{prefix}_fc{i}", nn.Linear(cin, features))
+            if batchnorm_en:
+                self.add_module(f"{prefix}_bn{i}", StackBatchNorm(features))
+            self.add_module(f"{prefix}_drop{i}", CheapDropout(drop_rate))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.prefix
+        for i in (1, 2):
+            x = getattr(self, f"{p}_fc{i}")(x)
+            bn = getattr(self, f"{p}_bn{i}", None)
+            if bn is not None:
+                x = bn(x)
+            x = getattr(self, f"{p}_drop{i}")(torch.relu(x))
+        return x
+
+
+class DetectionPredictors(nn.Module):
+    """fc7 -> class scores and box deltas, through an epistemic stack each
+    when asked, and the aleatoric log-variances of either."""
+
+    def __init__(
+        self,
+        fc7_channels: int,
+        num_classes: int,
+        num_bbox_elem: int = 4,
+        det_channels: Optional[int] = None,
+        en_cls_aleatoric: bool = False,
+        en_bbox_aleatoric: bool = False,
+        en_cls_epistemic: bool = False,
+        en_bbox_epistemic: bool = False,
+        lidar_bn: bool = False,
+    ):
+        super().__init__()
+        k, ek = num_classes, num_bbox_elem * num_classes
+        det = det_channels or fc7_channels
+        self.cls_stack = (EpistemicStack(fc7_channels, det, CLS_DROP_RATE, lidar_bn, "cls")
+                          if en_cls_epistemic else None)
+        self.bbox_stack = (EpistemicStack(fc7_channels, det, BBOX_DROP_RATE, lidar_bn, "bbox")
+                           if en_bbox_epistemic else None)
+        cls_in = det if en_cls_epistemic else fc7_channels
+        bbox_in = det if en_bbox_epistemic else fc7_channels
+        self.cls_score_net = nn.Linear(cls_in, k)
+        self.bbox_pred_net = nn.Linear(bbox_in, ek)
+        self.cls_al_var_net = nn.Linear(cls_in, k) if en_cls_aleatoric else None
+        self.bbox_al_var_net = nn.Linear(bbox_in, ek) if en_bbox_aleatoric else None
 
     def forward(self, fc7: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {
-            "cls_score": self.cls_score_net(fc7),
-            "bbox_pred": self.bbox_pred_net(fc7),
-        }
+        cls_in = fc7 if self.cls_stack is None else self.cls_stack(fc7)
+        bbox_in = fc7 if self.bbox_stack is None else self.bbox_stack(fc7)
+        out = {"cls_score": self.cls_score_net(cls_in), "bbox_pred": self.bbox_pred_net(bbox_in)}
+        if self.cls_al_var_net is not None:
+            out["cls_al_var"] = self.cls_al_var_net(cls_in)
+        if self.bbox_al_var_net is not None:
+            out["bbox_al_var"] = self.bbox_al_var_net(bbox_in)
+        return out

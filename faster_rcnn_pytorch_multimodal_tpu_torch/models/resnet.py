@@ -13,6 +13,12 @@ Port of faster_rcnn_pytorch_multimodal_tpu/models/resnet.py:46-474:
     stride-2 layer4 that places its stride as torchvision does (on the 3x3
     conv2 and the downsample), unlike layers 2 and 3.
 
+`drop_rate` > 0 (the JAX package's `dropout_en`, under epistemic
+uncertainty) makes each Bottleneck's drop1, drop2d (whole (sample, channel)
+planes) and drop3 CheapDropout layers at that rate; BasicBlock has none.
+A CheapDropout layer is the identity until `live_dropout` hands it a
+UCDraws, where it takes its masks.
+
 `live_bn` puts LiveBatchNorm in every BN place (stem, blocks, downsample);
 `zero_init_residual` marks each block's residual terminator (bn3 of a
 Bottleneck, bn2 of a BasicBlock) for a zero scale at init
@@ -26,6 +32,9 @@ layer1.0.downsample.0/1, ...), so a torchvision state dict maps key for key.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Dict, Iterator, Optional
 
 import torch
 from torch import nn
@@ -138,6 +147,109 @@ class LiveBatchNorm(FrozenBatchNorm):
         return _bn_affine(x, mean, var, self.weight, self.bias, self.eps)
 
 
+class UCDraws:
+    """The random numbers of one forward's uncertainty: the keep masks of
+    the live dropout layers (CheapDropout) and the standard normals of the
+    logit draws.
+
+    Each comes from `masks` ({layer path: (T, ...) bool, one mask a sample,
+    in the layer's layout}) or `normals` ({key: tensor}) when the caller
+    gives it, else from `generator`.  With record=True what is drawn is kept
+    in `masks` and `normals`, so that another forward (on another device)
+    can take the same numbers.  `samples` is the range of Monte-Carlo
+    samples a forward holds stacked along its batch axis, sample-major (the
+    detector sets it; one sample, 0, otherwise)."""
+
+    def __init__(
+        self,
+        generator: Optional[torch.Generator] = None,
+        masks: Optional[Dict[str, torch.Tensor]] = None,
+        normals: Optional[Dict[str, torch.Tensor]] = None,
+        record: bool = False,
+    ):
+        self.generator = generator
+        self.masks = dict(masks or {})
+        self.normals = dict(normals or {})
+        self.record = record
+        self.samples = range(1)
+
+    def normal(self, key: str, shape: tuple, device: torch.device) -> torch.Tensor:
+        """The standard normals named `key`, given or drawn."""
+        if key in self.normals:
+            return self.normals[key]
+        x = torch.randn(shape, generator=self.generator, device=device)
+        if self.record:
+            self.normals[key] = x
+        return x
+
+    def keep(
+        self, path: str, shape: tuple, keep_q: int, device: torch.device,
+        memory_format: torch.memory_format = torch.contiguous_format,
+    ) -> torch.Tensor:
+        """The keep mask of the layer at `path` for the stacked samples:
+        given, or uint8 draws below keep_q (P(keep) = keep_q / 256) laid out
+        in `memory_format` (the activation's, so that applying the mask is
+        one elementwise pass)."""
+        t0, t1 = self.samples.start, self.samples.stop
+        given = self.masks.get(path)
+        if given is not None and given.shape[0] >= t1:
+            return given[t0:t1].reshape(shape)
+        if self.generator is None:
+            raise KeyError(f"UCDraws: no mask for {path} samples {t0}..{t1 - 1} and no generator")
+        bits = torch.empty(shape, dtype=torch.uint8, device=device, memory_format=memory_format)
+        keep = bits.random_(0, 256, generator=self.generator) < keep_q
+        if self.record:
+            per = keep.reshape((t1 - t0, shape[0] // (t1 - t0)) + tuple(shape[1:]))
+            self.masks[path] = per if given is None else torch.cat([given, per])
+        return keep
+
+
+class CheapDropout(nn.Module):
+    """Dropout with the JAX package's law (resnet.py:120-153): the keep
+    probability quantized to keep_q / 256, keep_q = max(1, round((1 - rate)
+    * 256)), and the kept values scaled by 256 / keep_q in the activation
+    dtype, so E[out] = x exactly (rate 0.5: keep_q 128, scale 2; 0.3: 179,
+    1.43017; 0.1: 230, 1.11304).  `channelwise` drops whole (sample,
+    channel) planes of an NCHW input (Dropout2d; the JAX mask (N, 1, 1, C)).
+
+    The identity unless `draws` is set (live_dropout), and at rate 0; the
+    mask comes from draws.keep under this layer's `path` in the model."""
+
+    def __init__(self, rate: float = 0.0, channelwise: bool = False):
+        super().__init__()
+        self.rate = rate
+        self.channelwise = channelwise
+        self.keep_q = max(1, round((1.0 - rate) * 256.0))
+        self.path = ""
+        self.draws: Optional[UCDraws] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.draws is None or self.rate == 0.0:
+            return x
+        shape = tuple(x.shape)
+        if self.channelwise:
+            shape = shape[:2] + (1,) * (x.dim() - 2)
+        channels_last = x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last)
+        keep = self.draws.keep(self.path, shape, self.keep_q, x.device,
+                               torch.channels_last if channels_last else torch.contiguous_format)
+        scale = torch.tensor(256.0 / self.keep_q, dtype=x.dtype, device=x.device)
+        return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@contextlib.contextmanager
+def live_dropout(draws: UCDraws, *modules: nn.Module) -> Iterator[None]:
+    """Within the block, every CheapDropout layer of `modules` drops with
+    masks from `draws`; after it they are identities again."""
+    layers = [m for mod in modules for m in mod.modules() if isinstance(m, CheapDropout)]
+    for m in layers:
+        m.draws = draws
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.draws = None
+
+
 def _norm(live_bn: bool):
     return LiveBatchNorm if live_bn else FrozenBatchNorm
 
@@ -149,9 +261,8 @@ def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
 class Bottleneck(nn.Module):
     """ref resnet.py:74-128 plus the wrapper's stride surgery (:227-238).
 
-    `drop1`, `drop2d` and `drop3` hold the places of the MC-dropout layers
-    (after relu1, channelwise after relu2, after the residual relu); the
-    serving path is deterministic, so they are identities here.
+    `drop1`, `drop2d` and `drop3` are the MC-dropout layers at `drop_rate`
+    (after relu1, channelwise after relu2, after the residual relu).
     """
 
     def __init__(
@@ -163,6 +274,7 @@ class Bottleneck(nn.Module):
         has_downsample: bool = False,
         live_bn: bool = False,
         zero_init_residual: bool = False,
+        drop_rate: float = 0.0,
     ):
         super().__init__()
         norm = _norm(live_bn)
@@ -171,13 +283,13 @@ class Bottleneck(nn.Module):
         s2 = 1 if caffe_stride else stride
         self.conv1 = _conv(cin, planes, 1, s1)
         self.bn1 = norm(planes)
-        self.drop1 = nn.Identity()
+        self.drop1 = CheapDropout(drop_rate)
         self.conv2 = _conv(planes, planes, 3, s2)
         self.bn2 = norm(planes)
-        self.drop2d = nn.Identity()
+        self.drop2d = CheapDropout(drop_rate, channelwise=True)
         self.conv3 = _conv(planes, planes * EXPANSION, 1)
         self.bn3 = norm(planes * EXPANSION)
-        self.drop3 = nn.Identity()
+        self.drop3 = CheapDropout(drop_rate)
         self.downsample = (
             nn.Sequential(_conv(cin, planes * EXPANSION, 1, stride), norm(planes * EXPANSION))
             if has_downsample
@@ -246,6 +358,7 @@ class ResStage(nn.Sequential):
         basic: bool = False,
         live_bn: bool = False,
         zero_init_residual: bool = False,
+        drop_rate: float = 0.0,
     ):
         exp = 1 if basic else EXPANSION
         bn = dict(live_bn=live_bn, zero_init_residual=zero_init_residual)
@@ -256,7 +369,8 @@ class ResStage(nn.Sequential):
             if basic:
                 blocks.append(BasicBlock(cin, planes, s, needs_ds, **bn))
             else:
-                blocks.append(Bottleneck(cin, planes, s, caffe_stride, needs_ds, **bn))
+                blocks.append(Bottleneck(cin, planes, s, caffe_stride, needs_ds, **bn,
+                                         drop_rate=drop_rate))
             cin = planes * exp
         super().__init__(*blocks)
 
@@ -281,12 +395,13 @@ class ResNetStem(nn.Module):
 class _Backbone(nn.Module):
     """The stem and layer1..layer3 of ResNetC4 and ResNetPyramid."""
 
-    def __init__(self, num_layers: int, in_channels: int, live_bn: bool, zero_init_residual: bool):
+    def __init__(self, num_layers: int, in_channels: int, live_bn: bool, zero_init_residual: bool,
+                 drop_rate: float):
         super().__init__()
         blocks = _stage_blocks(num_layers)
         exp = _expansion(num_layers)
         self._stage_kw = dict(basic=exp == 1, live_bn=live_bn,
-                              zero_init_residual=zero_init_residual)
+                              zero_init_residual=zero_init_residual, drop_rate=drop_rate)
         self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _norm(live_bn)(64)
         self.layer1 = ResStage(64, 64, blocks[0], 1, **self._stage_kw)
@@ -303,9 +418,9 @@ class ResNetC4(_Backbone):
 
     def __init__(
         self, num_layers: int = 101, in_channels: int = 3, live_bn: bool = False,
-        zero_init_residual: bool = False,
+        zero_init_residual: bool = False, drop_rate: float = 0.0,
     ):
-        super().__init__(num_layers, in_channels, live_bn, zero_init_residual)
+        super().__init__(num_layers, in_channels, live_bn, zero_init_residual, drop_rate)
         self.out_channels = 256 * _expansion(num_layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -318,14 +433,16 @@ class ResNetLayer4(nn.Module):
     `out_channels` (2048, or 512 at BasicBlock depths)."""
 
     def __init__(
-        self, num_layers: int = 101, live_bn: bool = False, zero_init_residual: bool = False
+        self, num_layers: int = 101, live_bn: bool = False, zero_init_residual: bool = False,
+        drop_rate: float = 0.0,
     ):
         super().__init__()
         blocks = _stage_blocks(num_layers)
         exp = _expansion(num_layers)
         self.out_channels = 512 * exp
         self.layer4 = ResStage(256 * exp, 512, blocks[3], stride=1, basic=exp == 1,
-                               live_bn=live_bn, zero_init_residual=zero_init_residual)
+                               live_bn=live_bn, zero_init_residual=zero_init_residual,
+                               drop_rate=drop_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer4(x)
@@ -340,9 +457,9 @@ class ResNetPyramid(_Backbone):
 
     def __init__(
         self, num_layers: int = 101, in_channels: int = 3, live_bn: bool = False,
-        zero_init_residual: bool = False,
+        zero_init_residual: bool = False, drop_rate: float = 0.0,
     ):
-        super().__init__(num_layers, in_channels, live_bn, zero_init_residual)
+        super().__init__(num_layers, in_channels, live_bn, zero_init_residual, drop_rate)
         exp = _expansion(num_layers)
         self.out_channels = tuple(p * exp for p in (64, 128, 256, 512))
         # torchvision's stride placement

@@ -1,8 +1,8 @@
 """Box encode/decode and clipping on tensors, polymorphic over leading dims.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/ops/box_transform.py:21-88 (2D)
-and :96-157 (`_roi_bev_geometry`, `lidar_3d_bbox_transform` and its
-inverse).  Keeps the reference's diagonal-normalized dx/dy (divided by
+Port of faster_rcnn_pytorch_multimodal_tpu/ops/box_transform.py:21-88 (2D),
+:96-157 (`_roi_bev_geometry`, `lidar_3d_bbox_transform` and its inverse)
+and :166-214 (the uncertainty inverse transforms).  Keeps the reference's diagonal-normalized dx/dy (divided by
 sqrt(w^2 + h^2), not by w and h) and the +1 widths (parity waiver 2):
 checkpoints are only compatible with this variant.
 """
@@ -142,3 +142,53 @@ def lidar_3d_bbox_transform_inv(
         dim=-1,
     )
     return pred.reshape(deltas.shape)
+
+
+# -- uncertainty inverse transforms: a delta-space std -> a box-space variance
+
+
+def uncertainty_transform_inv(boxes: torch.Tensor, uncertainty: torch.Tensor) -> torch.Tensor:
+    """Image boxes (..., 4) and a delta-space std (..., 4K) -> box-space
+    variances (..., 4K): x and y scaled by the box's +1 width and height,
+    w and h through exp(u) - 1, then squared.  The 4-element layout of the
+    JAX package (its reference strides by 7 here, which the JAX package
+    does not copy; carried as it is)."""
+    lengths = boxes[..., 2] - boxes[..., 0] + 1.0
+    widths = boxes[..., 3] - boxes[..., 1] + 1.0
+    u = uncertainty.reshape(uncertainty.shape[:-1] + (-1, 4))
+    out = torch.stack(
+        [
+            u[..., 0] * lengths[..., None],
+            u[..., 1] * widths[..., None],
+            torch.exp(u[..., 2]) - 1.0,
+            torch.exp(u[..., 3]) - 1.0,
+        ],
+        dim=-1,
+    )
+    return (out**2).reshape(uncertainty.shape)
+
+
+def lidar_3d_uncertainty_transform_inv(
+    rois: torch.Tensor, anchors_3d: torch.Tensor, uncertainty: torch.Tensor
+) -> torch.Tensor:
+    """BEV RoIs (..., 4), their 3D anchors (..., 7) and a delta-space std
+    (..., 7K) -> 7-DoF variances (..., 7K): x, y by the RoI's +1 lengths, z
+    by the anchor's height, l, w, h through exp(u) - 1, the heading as it
+    is, then squared."""
+    lengths = rois[..., 2] - rois[..., 0] + 1.0
+    widths = rois[..., 3] - rois[..., 1] + 1.0
+    heights = anchors_3d[..., 5]
+    u = uncertainty.reshape(uncertainty.shape[:-1] + (-1, 7))
+    out = torch.stack(
+        [
+            u[..., 0] * lengths[..., None],
+            u[..., 1] * widths[..., None],
+            u[..., 2] * heights[..., None],
+            torch.exp(u[..., 3]) - 1.0,
+            torch.exp(u[..., 4]) - 1.0,
+            torch.exp(u[..., 5]) - 1.0,
+            u[..., 6],
+        ],
+        dim=-1,
+    )
+    return (out**2).reshape(uncertainty.shape)

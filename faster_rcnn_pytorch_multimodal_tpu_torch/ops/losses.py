@@ -1,8 +1,14 @@
-"""Detection losses without uncertainty.
+"""Detection losses, aleatoric attenuation, Bayesian cross-entropy and the
+uncertainty statistics.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/ops/losses.py `huber_loss`,
-`smooth_l1_loss` (:17-78: the image and the 7-DoF lidar branch, no aleatoric
-variance) and `cross_entropy`.
+Port of faster_rcnn_pytorch_multimodal_tpu/ops/losses.py: `huber_loss`,
+`smooth_l1_loss` (:17-78, the image and the 7-DoF lidar branch, with the
+aleatoric variance), `compute_bbox_var`, `categorical_entropy`,
+`categorical_mutual_information`, `logit_distort`, the three Bayesian
+cross-entropies (:81-187) and `cross_entropy`.
+
+Nothing here draws: the logit draws take their (T, N, C) standard normals
+from the caller, where the JAX package takes a key.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ def smooth_l1_loss(
     bbox_targets: torch.Tensor,
     bbox_inside_weights: torch.Tensor,
     bbox_outside_weights: torch.Tensor,
+    bbox_var: Optional[torch.Tensor] = None,
     *,
     lidar_det: bool = False,
     en_ry_sin: bool = True,
@@ -42,7 +49,11 @@ def smooth_l1_loss(
 
     lidar_det: (..., 7K) second-stage 7-DoF boxes; the heading channel's
     residual goes through its sine when en_ry_sin, and each of the 7
-    elements is weighted by reg_loss_weight (LIDAR.REG_LOSS_WEIGHT)."""
+    elements is weighted by reg_loss_weight (LIDAR.REG_LOSS_WEIGHT).
+
+    bbox_var: a predicted log-variance s for aleatoric attenuation: the
+    elementwise loss L becomes (0.5 * L * exp(-s) + 0.5 * s) times the
+    inside weights; None leaves L as it is."""
     pred = bbox_pred * bbox_inside_weights
     targets = bbox_targets * bbox_inside_weights
     if lidar_det:
@@ -53,6 +64,9 @@ def smooth_l1_loss(
         in_loss = (loss * weight).reshape(pred.shape)
     else:
         in_loss = huber_loss(pred, targets, 1.0)
+    if bbox_var is not None:
+        in_loss = 0.5 * in_loss * torch.exp(-bbox_var) + 0.5 * bbox_var
+        in_loss = in_loss * bbox_inside_weights
     out_loss = bbox_outside_weights * in_loss
     return out_loss.sum(dim=tuple(sum_axes)).mean()
 
@@ -68,3 +82,100 @@ def cross_entropy(
         return nll.mean()
     w = weights.to(nll.dtype)
     return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def compute_bbox_var(samples: torch.Tensor) -> torch.Tensor:
+    """Unbiased per-element variance over the leading sample axis, over
+    max(n - 1, 1) (a single sample has variance 0), clipped at 0."""
+    n = samples.shape[0]
+    mean_sq = samples.sum(dim=0) ** 2
+    var = (samples**2).sum(dim=0) - mean_sq / n
+    return torch.clamp(var / max(n - 1, 1), min=0.0)
+
+
+def categorical_entropy(cls_prob: torch.Tensor) -> torch.Tensor:
+    """Shannon entropy in bits over the last (class) axis, log2 of the
+    probabilities clipped at 1e-12."""
+    return -(cls_prob * torch.log2(torch.clamp(cls_prob, min=1e-12))).sum(dim=-1)
+
+
+def categorical_mutual_information(cls_score: torch.Tensor) -> torch.Tensor:
+    """(T, N, C) logits over T samples -> (N,) mutual information between
+    the prediction and the posterior: the entropy of the mean softmax less
+    the mean entropy."""
+    cls_prob = torch.softmax(cls_score, dim=2)
+    total_entropy = categorical_entropy(cls_prob.mean(dim=0))
+    mi = (cls_prob * torch.log2(torch.clamp(cls_prob, min=1e-12))).sum(dim=2)
+    return mi.mean(dim=0) + total_entropy
+
+
+def logit_distort(
+    cls_score: torch.Tensor, cls_var: torch.Tensor, normals: torch.Tensor
+) -> torch.Tensor:
+    """(N, C) logits and per-logit variances -> (T, N, C) samples
+    logits + normals * sqrt(var), the variance clipped at 1e-12; `normals`
+    (T, N, C) standard normals from the caller."""
+    std = torch.sqrt(torch.clamp(cls_var, min=1e-12))
+    return cls_score[None] + normals * std[None]
+
+
+def _pick(logp: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """logp (..., N, C) at the (N,) target classes -> (..., N)."""
+    idx = targets.long().reshape((1,) * (logp.dim() - 2) + (-1, 1))
+    return logp.gather(-1, idx.expand(logp.shape[:-1] + (1,)))[..., 0]
+
+
+def bayesian_cross_entropy(
+    cls_score: torch.Tensor,
+    cls_var: torch.Tensor,
+    targets: torch.Tensor,
+    normals: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Aleatoric classification loss: the NLL of the target class under the
+    mean softmax of the distorted logits (logit_distort with `normals`).
+    With (N,) weights (the RPN: ignored anchor lanes weigh 0) the weighted
+    mean over max(sum of weights, 1).  Returns (loss, (N,) mutual
+    information of the samples)."""
+    samples = logit_distort(cls_score, cls_var, normals)
+    avg_softmax = torch.softmax(samples, dim=2).mean(dim=0)
+    nll = -_pick(torch.log(torch.clamp(avg_softmax, min=1e-12)), targets)
+    if weights is None:
+        loss = nll.mean()
+    else:
+        w = weights.to(nll.dtype)
+        loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return loss, categorical_mutual_information(samples)
+
+
+def bayesian_cross_entropy_simple(
+    cls_score: torch.Tensor, cls_var: torch.Tensor, targets: torch.Tensor, normals: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-entropy of each distorted sample, averaged; and the (N,)
+    mutual information."""
+    samples = logit_distort(cls_score, cls_var, normals)
+    nll = -_pick(torch.log_softmax(samples, dim=2), targets)
+    return nll.mean(), categorical_mutual_information(samples)
+
+
+def bayesian_elu_cross_entropy(
+    cls_score: torch.Tensor, cls_var: torch.Tensor, targets: torch.Tensor, normals: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ELU-regularized variant: the undistorted NLL u and the distorted
+    one d (bayesian_cross_entropy's), loss -elu(d - u) * u + u +
+    exp(mean variance) - 1, averaged; and the (N,) mutual information."""
+    undist = -_pick(torch.log_softmax(cls_score, dim=-1), targets)
+    samples = logit_distort(cls_score, cls_var, normals)
+    avg_softmax = torch.softmax(samples, dim=2).mean(dim=0)
+    dist = -_pick(torch.log(torch.clamp(avg_softmax, min=1e-12)), targets)
+    diff_elu = -torch.nn.functional.elu(-(undist - dist))
+    regularizer = cls_var.mean(dim=1)
+    loss = diff_elu * undist + undist + torch.exp(regularizer) - 1.0
+    return loss.mean(), categorical_mutual_information(samples)
+
+
+BAYES_VARIANTS = {
+    "full": bayesian_cross_entropy,
+    "simple": bayesian_cross_entropy_simple,
+    "elu": bayesian_elu_cross_entropy,
+}

@@ -295,8 +295,11 @@ def proposal_target(
     e, k = num_bbox_elem, num_classes
     cls_onehot = (labels[..., None] == torch.arange(k, device=device)).float()  # (B, S, K)
     fg_slot = (is_fg_slot & slot_valid & (labels > 0)).float()
-    bbox_targets = (cls_onehot[..., None] * targets[..., None, :]).reshape(b, s, k * e)
-    bbox_targets = bbox_targets * fg_slot[..., None]
+    # a select, not a product with the one-hot: a degenerate RoI's target
+    # (log of a width <= 0) is NaN, and NaN * 0 would reach the loss; XLA
+    # folds the JAX package's product into this select in its jitted step
+    on = (cls_onehot * fg_slot[..., None]) > 0
+    bbox_targets = torch.where(on[..., None], targets[..., None, :], 0.0).reshape(b, s, k * e)
     bbox_inside = (cls_onehot[..., None] * fg_slot[..., None, None]) * torch.ones(e, device=device)
     bbox_inside = bbox_inside.reshape(b, s, k * e)
     bbox_outside = (bbox_inside > 0).float()

@@ -17,7 +17,10 @@ in train mode (batch statistics); `detect` runs a serving pass in eval mode
 (running statistics) and puts the model back in the mode it found.
 
 The random draws of a step (TrainDraws) come from an explicit
-torch.Generator on the model's device.  Snapshots, resume and the val cycle
+torch.Generator on the model's device; with uncertainty that generator also
+gives the step's dropout masks and the Bayesian cross-entropies' normals
+(TrainDraws.uc), and `detect` draws the serving pass's from one the caller
+gives.  Snapshots, resume and the val cycle
 are not ported yet.
 """
 
@@ -33,9 +36,11 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.inference import eval_mode, model_
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import (
     FasterRCNN,
     TrainDraws,
+    UCDraws,
     check_supported,
     init_detector,
     live_bn_stats,
+    uses_uncertainty,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
 from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
@@ -73,12 +78,16 @@ def compute_call(model: FasterRCNN, method: str, *args, **kwargs):
         model, cast_for_compute(model), args, dict(kwargs, method=method))
 
 
-def detect(model: FasterRCNN, images: torch.Tensor, window: torch.Tensor) -> Dict[str, torch.Tensor]:
+def detect(
+    model: FasterRCNN, images: torch.Tensor, window: torch.Tensor,
+    draws: Optional[UCDraws] = None,
+) -> Dict[str, torch.Tensor]:
     """One serving pass of a model in training (forward_test in the compute
     dtype, in eval mode, without gradients), as the JAX package's quality
-    runs call forward_test on cast_for_compute(params)."""
+    runs call forward_test on cast_for_compute(params); `draws` gives the
+    uncertainty's masks and normals (see FasterRCNN.forward_test)."""
     with eval_mode(model), torch.no_grad():
-        return compute_call(model, "forward_test", images, window)
+        return compute_call(model, "forward_test", images, window, draws=draws)
 
 
 def batch_to_device(batch: Mapping[str, object], device: torch.device) -> Dict[str, object]:
@@ -103,15 +112,17 @@ def draw_train_keys(
     model: FasterRCNN, batch: Mapping[str, object], generator: torch.Generator
 ) -> TrainDraws:
     """The step's random draws for a device batch, from `generator` (which
-    lives on the batch's device)."""
+    lives on the batch's device); with uncertainty a UCDraws on the same
+    generator for the step's dropout masks and normals."""
     data, gt = batch["data"], batch["gt_boxes"]
     b, g = gt.shape[:2]
     n, r = model.train_lane_counts(tuple(data.shape[1:3]), g)
     kw = dict(generator=generator, device=data.device)
     noise = torch.randn((b, g, 4), **kw) if model.cfg.train.use_gt_noise else None
+    uc = UCDraws(generator) if uses_uncertainty(model.cfg) else None
     return TrainDraws(
         torch.rand((b, n), **kw), torch.rand((b, n), **kw),
-        torch.rand((b, r), **kw), torch.rand((b, r), **kw), noise,
+        torch.rand((b, r), **kw), torch.rand((b, r), **kw), noise, uc,
     )
 
 

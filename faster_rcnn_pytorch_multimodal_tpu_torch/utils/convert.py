@@ -16,7 +16,16 @@ FPN model, whose 'fpn' (latlayer2..5, aalayer2..4) and FCTail
 Bottleneck's without conv3/bn3: conv1/conv2/bn1/bn2/downsample.  With live
 BN (FIXED_BLOCKS -1) the JAX package keeps the BN statistics in the
 `batch_stats` collection (.../bn1/mean, var) and only scale and bias under
-`params`; they map to running_mean / running_var all the same.  Every leaf
+`params`; they map to running_mean / running_var all the same.
+
+Uncertainty adds the RPN's variance convs at the root
+(rpn_bbox_al_var_net, rpn_cls_al_var_net), the predictors' cls_al_var_net
+and bbox_al_var_net, and the epistemic stacks, which flax names
+EpistemicStack_0 and _1 in the order they are built (the class stack first
+when there is one) and the port cls_stack and bbox_stack:
+predictors/EpistemicStack_i/cls_fc1/kernel <-> predictors.cls_stack.cls_fc1.weight.
+A stack's BN (lidar) is a frozen one: its statistics stay under `params`
+even with live BN.  Every leaf
 must map, in both directions: an unknown path or key raises.  Shapes carry
 over as they are, so a LiDAR net's 15-channel stem and 7K-wide box head
 convert like the image net's.
@@ -34,10 +43,16 @@ _BN_TO_TORCH = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var"
 _BN_TO_FLAX = {v: k for k, v in _BN_TO_TORCH.items()}
 _HEADS = {
     "rpn": ("rpn_net", "rpn_cls_score_net", "rpn_bbox_pred_net"),
-    "predictors": ("cls_score_net", "bbox_pred_net"),
+    "predictors": ("cls_score_net", "bbox_pred_net", "cls_al_var_net", "bbox_al_var_net"),
     "fpn": ("latlayer2", "latlayer3", "latlayer4", "latlayer5", "aalayer2", "aalayer3", "aalayer4"),
     "tail": ("t_fc1", "t_fc2", "t_fc3"),
 }
+_ROOT_CONVS = ("rpn_bbox_al_var_net", "rpn_cls_al_var_net")
+_STACK_LAYER = re.compile(r"(cls|bbox)_(fc|bn)[12]")
+
+
+def _is_stack_path(path: Tuple[str, ...]) -> bool:
+    return len(path) > 1 and path[0] == "predictors" and path[1].startswith("EpistemicStack_")
 
 
 def resnet_key_to_flax(key: str, use_fpn: bool) -> Tuple[str, ...] | None:
@@ -101,6 +116,14 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
     if root in _HEADS and len(rest) == 2 and rest[0] in _HEADS[root]:
         leaf = {"kernel": "weight", "bias": "bias"}[rest[1]]
         return f"{root}.{rest[0]}.{leaf}"
+    if root in _ROOT_CONVS and len(rest) == 1 and rest[0] in ("kernel", "bias"):
+        return f"{root}.{'weight' if rest[0] == 'kernel' else 'bias'}"
+    if _is_stack_path(path) and len(rest) == 3:
+        m = _STACK_LAYER.fullmatch(rest[1])
+        if m is not None:
+            bn_map = _BN_TO_TORCH if m.group(2) == "bn" else {"kernel": "weight", "bias": "bias"}
+            if rest[2] in bn_map:
+                return f"predictors.{m.group(1)}_stack.{rest[1]}.{bn_map[rest[2]]}"
     if root in ("backbone", "tail"):
         if rest[0] == "stem" and len(rest) == 3:
             mod, leaf = rest[1], rest[2]
@@ -120,12 +143,23 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
     raise KeyError(f"unmapped flax path {'/'.join(path)}")
 
 
-def torch_key_to_flax_path(key: str) -> Tuple[str, ...]:
-    """Inverse of flax_path_to_torch_key."""
+def torch_key_to_flax_path(key: str, cls_stack: bool = True) -> Tuple[str, ...]:
+    """Inverse of flax_path_to_torch_key.  `cls_stack`: whether the model
+    has a class stack, which takes EpistemicStack_0 before the box stack."""
     root, _, rest = key.partition(".")
     parts = rest.split(".")
     if root in _HEADS and len(parts) == 2 and parts[0] in _HEADS[root]:
         return (root, parts[0], {"weight": "kernel", "bias": "bias"}[parts[1]])
+    if root in _ROOT_CONVS and parts in (["weight"], ["bias"]):
+        return (root, "kernel" if parts[0] == "weight" else "bias")
+    if root == "predictors" and len(parts) == 3 and parts[0] in ("cls_stack", "bbox_stack"):
+        m = _STACK_LAYER.fullmatch(parts[1])
+        kind = parts[0][: -len("_stack")]
+        if m is not None and m.group(1) == kind:
+            bn_map = _BN_TO_FLAX if m.group(2) == "bn" else {"weight": "kernel", "bias": "bias"}
+            if parts[2] in bn_map:
+                i = 1 if kind == "bbox" and cls_stack else 0
+                return ("predictors", f"EpistemicStack_{i}", parts[1], bn_map[parts[2]])
     if root in ("backbone", "tail"):
         path = resnet_key_to_flax(rest, use_fpn=root == "backbone")
         if path is None or path[0] != root:
@@ -166,7 +200,7 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         leaves += [(path, v, True) for path, v in _flatten(stats).items()]
     sd = {}
     for path, v, is_stat in leaves:
-        if stats is not None and (path[-1] in _STATS) != is_stat:
+        if stats is not None and (path[-1] in _STATS and not _is_stack_path(path)) != is_stat:
             where = "batch_stats" if is_stat else "params"
             raise KeyError(f"flax path {'/'.join(path)} under {where} with live BN")
         key = flax_path_to_torch_key(path)
@@ -179,12 +213,13 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
 def to_flax_variables(state_dict: Mapping[str, torch.Tensor], live_bn: bool = False) -> Dict:
     """The port's state dict -> {'params': tree} of float32 numpy leaves;
     with live_bn the BN statistics go to {'batch_stats': tree} instead, as
-    the JAX package lays out a FIXED_BLOCKS -1 model."""
+    the JAX package lays out a FIXED_BLOCKS -1 model (but a stack BN's)."""
     flat, stats = {}, {}
+    cls_stack = any(k.startswith("predictors.cls_stack.") for k in state_dict)
     for key, v in state_dict.items():
         arr = v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-        path = torch_key_to_flax_path(key)
-        to = stats if live_bn and path[-1] in _STATS else flat
+        path = torch_key_to_flax_path(key, cls_stack)
+        to = stats if live_bn and path[-1] in _STATS and not _is_stack_path(path) else flat
         to[path] = np.ascontiguousarray(_to_flax_layout(arr))
     out = {"params": _unflatten(flat)}
     if live_bn:

@@ -1,0 +1,153 @@
+"""Fault F6, step 1: does the port's training trajectory part from the JAX
+package's?  The image_overfit recipe (tools/quality_run_torch.build_cfg:
+res18 from scratch, live BN, zero-init residual terminators, lr 0.01) at a
+reduced size: float32, one batch of two 128x192 frames of the recipe's
+frozen synthetic frame, RPN_POST_NMS_TOP_N 64 and ROI_BATCH_SIZE 32.
+
+Both packages start from one set of weights (the port's init, bridged to
+JAX) and take 20 steps on that batch with the same draws: JAX's own jitted
+make_train_step and the port's make_train_step fed JAX's key chain
+(fold_in(rng, step) -> test_torch_port_train.jax_draws).  Each side chooses
+its own proposals by its own NMS, and no ReLU tie is pinned: the test is of
+the trajectory as each package runs it.  After every step the four losses
+must agree within rtol 1e-4 and the running statistics within 1e-5 of max
+(tests/test_torch_port_live_bn.py's float32 tolerances); after the 20th an
+eval-mode forward (the running statistics) must give cls_prob within 3e-3 of
+max and the final detections' scores within 3e-3.  The printout names the
+first step at which any reading parts, if one does.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from faster_rcnn_pytorch_multimodal_tpu.config import cfg_from_list  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu.models import detector as j_det  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu.ops import filter as j_filter  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu.training import optim as j_optim  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu.training import solver as j_solver  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch import config as t_config  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.models import detector as t_det  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import filter_detections  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.training import solver as t_solver  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD  # noqa: E402
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.convert import (  # noqa: E402
+    flax_path_to_torch_key,
+    load_flax_variables,
+    to_flax_variables,
+)
+from tests.test_torch_port_train import _flat, jax_draws  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import quality_run  # noqa: E402
+import quality_run_torch  # noqa: E402
+
+B, H, W, K = 2, 128, 192, 2
+STEPS = 20
+LOSSES = ("rpn_cross_entropy", "rpn_loss_box", "cross_entropy", "loss_box")
+REDUCED = ("COMPUTE_DTYPE", "float32", "STATIC.NMS_PRE_TRAIN", "256",
+           "TRAIN.RPN_POST_NMS_TOP_N", "64", "TRAIN.ROI_BATCH_SIZE", "32",
+           "STATIC.NMS_PRE_TEST", "256", "TEST.RPN_POST_NMS_TOP_N", "32")
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.fixture(scope="module")
+def trajectories():
+    cfg = cfg_from_list(quality_run.build_cfg("image", "res18", 0.01, True), REDUCED)
+    tcfg = t_config.cfg_from_list(quality_run_torch.build_cfg("image", "res18", 0.01, True),
+                                  REDUCED)
+    ds = SyntheticDataset(tcfg, num_frames=B, num_classes=K, image_hw=(H, W), seed=0)
+    host = BatchLoader(ds, tcfg, batch_size=B, device="cpu", seed=0, augment=False).next()
+    batch = {k: np.asarray(host[k]) for k in ("data", "gt_boxes", "gt_mask", "window")}
+    port = t_det.init_detector(tcfg, K, seed=0).train()
+    variables = to_flax_variables(port.state_dict(), live_bn=True)
+
+    # JAX: its own jitted step on its own state
+    model = j_det.FasterRCNN(cfg=cfg, num_classes=K)
+    opt = j_optim.build_optimizer(variables, cfg)
+    state = j_det.TrainState(params=jax.tree.map(jnp.asarray, variables),
+                             opt_state=opt.init(variables), step=jnp.zeros((), jnp.int32))
+    j_step = j_solver.make_train_step(model, opt)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    rng = jax.random.PRNGKey(0)
+
+    # the port on the same weights and JAX's draws
+    load_flax_variables(port, variables)
+    t_step = t_solver.make_train_step(port, DetectorSGD(port, tcfg))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    n, r = port.train_lane_counts((H, W), batch["gt_boxes"].shape[1])
+
+    steps = []
+    for i in range(STEPS):
+        state, j_losses = j_step(state, jb, rng)
+        t_losses, _ = t_step(tb, jax_draws(jax.random.fold_in(rng, jnp.int32(i)), B, n, r,
+                                           batch["gt_boxes"].shape[1]))
+        j_stats = {flax_path_to_torch_key(p): np.asarray(v)
+                   for p, v in _flat(state.params["batch_stats"])}
+        sd = port.state_dict()
+        steps.append({
+            "losses": {k: (float(t_losses[k]), float(j_losses[k])) for k in LOSSES},
+            "stats": max(_rel(sd[k].numpy(), v) for k, v in j_stats.items()),
+        })
+
+    def serve(m, images, window):
+        out = m.forward_test(images, window)
+        return out["cls_prob"], out["bbox_pred"], out["roi_valid"]
+
+    j_cls, j_boxes, j_valid = jax.tree.map(np.asarray, jax.jit(
+        lambda p, x, w: model.apply(p, x, w, method=serve))(state.params, jb["data"], jb["window"]))
+    with torch.no_grad():
+        t_out = t_solver.detect(port, tb["data"], tb["window"])
+    return steps, (j_cls, j_boxes, j_valid), t_out
+
+
+def _parts(step) -> list:
+    out = [k for k, (t, j) in step["losses"].items() if abs(t - j) > 1e-4 * abs(j) + 1e-12]
+    return out + (["running statistics"] if step["stats"] > 1e-5 else [])
+
+
+def test_losses_and_running_stats_follow_jax_for_20_steps(trajectories):
+    steps, _, _ = trajectories
+    first = next(((i + 1, _parts(s)) for i, s in enumerate(steps) if _parts(s)), None)
+    for i, s in enumerate(steps):
+        errs = {k: abs(t - j) / max(abs(j), 1e-12) for k, (t, j) in s["losses"].items()}
+        print(f"step {i + 1}: total port {sum(t for t, _ in s['losses'].values()):.6f} JAX "
+              f"{sum(j for _, j in s['losses'].values()):.6f}; loss errors {errs}; running "
+              f"statistics {s['stats']:.3g}")
+    print(f"first step that parts: {first}")
+    assert first is None, first
+    # the recipe learns on these frames: the losses fall
+    total = [sum(j for _, j in s["losses"].values()) for s in steps]
+    assert total[-1] < total[0]
+
+
+def test_eval_forward_after_20_steps_follows_jax(trajectories):
+    """cls_prob within 3e-3 of max on the running statistics, and the final
+    detections (filter_detections at the eval threshold 0.05): the same
+    count a class and their scores within 3e-3."""
+    _, (j_cls, j_boxes, j_valid), t_out = trajectories
+    assert _rel(t_out["cls_prob"].numpy(), j_cls) <= 3e-3
+    kw = dict(num_classes=K, bbox_elem=4, max_dets=100, thresh=0.05, nms_thresh=0.3)
+    got = filter_detections(t_out["cls_prob"], t_out["bbox_pred"], t_out["roi_valid"], **kw)
+    for i in range(B):
+        want = j_filter.filter_detections(jnp.asarray(j_cls[i]), jnp.asarray(j_boxes[i]),
+                                          jnp.asarray(j_valid[i]), **kw)
+        g, w = got["valid"][i].numpy(), np.asarray(want["valid"])
+        assert (g.sum(-1) == w.sum(-1)).all()
+        gs = np.sort(got["scores"][i].numpy()[g])
+        ws = np.sort(np.asarray(want["scores"])[w])
+        np.testing.assert_allclose(gs, ws, atol=3e-3)

@@ -228,16 +228,18 @@ def test_lidar_filter_keeps_equal_jax():
 @pytest.mark.parametrize("extra,training", [
     (("NET_VARIANT", "vgg16"), True),
     (("USE_LIDAR_FPN", "True"), False),
-    (("UC.EN_BBOX_ALEATORIC", "True"), True),
-    (("UC.EN_CLS_EPISTEMIC", "True"), False),
+    (("UC.EN_CLS_ALEATORIC", "True", "UC.BAYES_VARIANT", "probit"), True),
+    (("USE_FPN", "True", "POOLING_MODE", "multiscale"), False),
 ])
 def test_unported_lidar_options_raise(extra, training):
     _, cfg = _cfgs(*extra)
     with pytest.raises(NotImplementedError):
         t_det.check_supported(cfg, training=training)
     # lidar serving, with rotated NMS too, and lidar training are ported,
-    # with live BN (RESNET.FIXED_BLOCKS -1) too
+    # with live BN (RESNET.FIXED_BLOCKS -1) and uncertainty too
     t_det.check_supported(_cfgs()[1])
+    t_det.check_supported(_cfgs("UC.EN_BBOX_ALEATORIC", "True", "UC.EN_CLS_EPISTEMIC", "True")[1],
+                          training=training)
     t_det.check_supported(_cfgs("TEST.ROTATED_NMS", "True")[1])
     t_det.check_supported(_cfgs()[1], training=True)
     t_det.check_supported(_cfgs("RESNET.FIXED_BLOCKS", "-1")[1], training=training)

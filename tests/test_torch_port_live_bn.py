@@ -339,7 +339,7 @@ def test_detector_builds_every_depth(depth, net, fixed_blocks):
 def test_check_supported_still_raises():
     _, tcfg = _cfgs(IMAGE)
     for extra, match in (
-        (("UC.EN_CLS_ALEATORIC", "True"), "UC"),
+        (("UC.EN_CLS_ALEATORIC", "True", "USE_FPN", "True", "POOLING_MODE", "multiscale"), "UC"),
         (("NET_VARIANT", "vgg16"), "NET_VARIANT"),
         (("USE_FPN", "True", "POOLING_MODE", "align"), "F2"),
     ):

@@ -1,7 +1,8 @@
 """tools/quality_run_torch.py, the port's quality harness, against
 tools/quality_run.py on the CPU: every leg's config field by field, the
-suite's legs, the false-positive taxonomy, and a 2-iteration image leg and
-BEV leg at a tiny size that write the JSON of QUALITY_r5.json's legs."""
+suite's legs, the false-positive taxonomy, the uncertainty separation
+statistics (uc_stats), and a 2-iteration image leg, BEV leg and --uc leg at
+a tiny size that write the JSON of QUALITY_r5.json's legs."""
 
 from __future__ import annotations
 
@@ -62,15 +63,7 @@ def _leg_cfgs(argv):
             want = cfg_from_list(want, (keys[0], str(flag)))
     if args.rotated_nms:
         want = cfg_from_list(want, ("TEST.ROTATED_NMS", "True", "TEST.NMS_THRESH", "0.3"))
-    if args.uc:
-        with pytest.raises(NotImplementedError, match="uc"):
-            quality_run_torch.leg_config(targs)
-        targs.uc = False
-        got = quality_run_torch.build_cfg(targs.mode, targs.net, targs.lr, targs.overfit,
-                                          targs.stepsize, fpn=targs.fpn, uc=True)
-    else:
-        got = quality_run_torch.leg_config(targs)
-    return want, got
+    return want, quality_run_torch.leg_config(targs)
 
 
 @pytest.mark.parametrize("name", [n for n, _ in quality_run_torch.SUITE])
@@ -158,6 +151,39 @@ def test_two_iteration_leg_writes_the_quality_json(tmp_path, leg):
     assert res["final"] == written["final"]
 
 
-def test_uc_leg_is_not_ported():
-    with pytest.raises(NotImplementedError, match="uc"):
-        quality_run_torch.main(["--mode", "image", "--uc", "--iters", "1", "--device", "cpu"])
+def test_uc_leg_is_not_ported(tmp_path):
+    """The --uc leg (image_uc_scratch), which raised while uncertainty was
+    not ported, runs: 2 iterations at a tiny size, T = 2 MC samples, the
+    JSON of QUALITY_r5.json's image_uc_scratch leg, every number finite."""
+    flags, sets = TINY_IMAGE
+    out = str(tmp_path / "uc.json")
+    res = quality_run_torch.main(flags + ["--uc", "--out", out, "--set"] + sets
+                                 + ["UC.E_NUM_SAMPLE", "2", "UC.A_NUM_CE_SAMPLE", "20"])
+    with open(QUALITY) as f:
+        ref = json.load(f)["image_uc_scratch"]
+    assert set(ref) <= set(res)
+    for c in res["curve"]:
+        assert np.isfinite(c["total_loss"]) and 0.0 <= c["map"] <= 1.0
+        for key, st in c.get("uc_stats", {}).items():
+            assert set(st) == set(ref["final"]["uc_stats"][key])
+            assert 0.0 <= st["auc_fp_ranked_higher"] <= 1.0
+
+
+def test_uc_separation_is_the_mann_whitney_share():
+    """uc_stats on random detections: the TP and FP means and the share of
+    (FP, TP) pairs with the FP higher, ties counted half, per key; a key
+    without rows, or a side without detections, is left out."""
+    rng = np.random.RandomState(3)
+    dets = [{"a_entropy": float(rng.choice([0.1, 0.5, 0.9])), "e_mutual_info": float(rng.rand())}
+            for _ in range(50)]
+    fps = dets[::3]
+    got = quality_run_torch.uc_separation(dets, fps)
+    for key in quality_run_torch.UC_KEYS:
+        fp = np.array([d[key] for d in fps])
+        tp = np.array([d[key] for i, d in enumerate(dets) if i % 3])
+        pairs = [(f > t) + 0.5 * (f == t) for f in fp for t in tp]
+        assert got[key] == {"tp_mean": round(float(tp.mean()), 5),
+                            "fp_mean": round(float(fp.mean()), 5),
+                            "auc_fp_ranked_higher": round(float(np.mean(pairs)), 4)}
+    assert quality_run_torch.uc_separation(dets, []) == {}
+    assert quality_run_torch.uc_separation([{"confidence": 1.0}], []) == {}

@@ -11,9 +11,13 @@ forward_test in eval mode on the running statistics -> filter_detections
 @ 0.5 (2d for images, 3d and BEV for lidar), class-agnostic RPN proposal
 recall @ 0.5, and a false-positive taxonomy (duplicate / localization /
 background), and the run's JSON is written again after each eval, so a leg
-cut short still leaves its curve.
-
-Not ported: --uc (uncertainty) raises NotImplementedError.
+cut short still leaves its curve.  With --uc (class and box aleatoric and
+epistemic uncertainty, the image_uc_scratch leg) each eval also records
+`uc_stats`: for a_entropy and e_mutual_info the mean over the true and the
+false positives and the share of (FP, TP) pairs where the FP carries the
+higher value (auc_fp_ranked_higher), as tools/quality_run.py does; each
+eval's MC masks and normals come from a generator seeded 0, as the JAX tool
+serves with a fixed key.
 
     python tools/quality_run_torch.py --mode image --overfit --iters 200 --eval_every 100 --lr 0.01 --out chiprun_out/quality/image_overfit.json
     python tools/quality_run_torch.py --emit chiprun_out/quality/QUALITY_torch.json
@@ -113,6 +117,34 @@ def fp_taxonomy(fps: list, gt_frames: dict, iou_fn, thresh: float) -> dict:
     return out
 
 
+UC_KEYS = ("a_entropy", "e_mutual_info")
+
+
+def uc_separation(detections: list, fps: list) -> dict:
+    """Whether the reported uncertainty ranks false positives above true
+    positives: per key of UC_KEYS the TP and FP means and the Mann-Whitney
+    share of (FP, TP) pairs with the FP higher (ties count half), as
+    tools/quality_run.py computes them.  Empty without uncertainty rows."""
+    out = {}
+    fp_ids = {id(d) for d in fps}
+    for key in UC_KEYS:
+        if not (detections and key in detections[0]):
+            continue
+        fp_v = np.array([d[key] for d in detections if id(d) in fp_ids])
+        tp_v = np.array([d[key] for d in detections if id(d) not in fp_ids])
+        if len(fp_v) == 0 or len(tp_v) == 0:
+            continue
+        gt_cnt = (fp_v[None, :] > tp_v[:, None]).sum()
+        eq_cnt = (fp_v[None, :] == tp_v[:, None]).sum()
+        out[key] = {
+            "tp_mean": round(float(tp_v.mean()), 5),
+            "fp_mean": round(float(fp_v.mean()), 5),
+            "auc_fp_ranked_higher": round(
+                float((gt_cnt + 0.5 * eq_cnt) / (len(fp_v) * len(tp_v))), 4),
+        }
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["image", "bev"], default="image")
@@ -130,7 +162,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="bev: TEST.ROTATED_NMS at 0.3")
     ap.add_argument("--fpn", action="store_true", help="USE_FPN + multiscale RoIAlign")
     ap.add_argument("--uc", action="store_true",
-                    help="cls+bbox aleatoric AND epistemic uncertainty (not ported)")
+                    help="cls+bbox aleatoric AND epistemic uncertainty (uc_stats per eval)")
     ap.add_argument("--rpn_pos", type=float, default=None,
                     help="TRAIN.RPN_POSITIVE_OVERLAP override")
     ap.add_argument("--rpn_neg", type=float, default=None,
@@ -165,8 +197,6 @@ def leg_config(args):
     then --set."""
     from faster_rcnn_pytorch_multimodal_tpu_torch.config import cfg_from_list
 
-    if args.uc:
-        raise NotImplementedError("quality_run_torch: --uc (uncertainty) is not ported")
     cfg = build_cfg(args.mode, args.net, args.lr, args.overfit, args.stepsize,
                     fpn=args.fpn, uc=args.uc)
     if args.rpn_pos is not None:
@@ -195,6 +225,7 @@ def run_one(args) -> dict:
         evaluate_class,
         iou as eval_iou,
     )
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import UCDraws
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import (
         filter_detections,
         to_per_class_lists,
@@ -255,7 +286,8 @@ def run_one(args) -> dict:
         idx = 0
         while idx < n_eval:
             batch = batch_to_device(val_loader.next(), device)
-            out = detect(model, batch["data"], batch["window"])
+            draws = UCDraws(torch.Generator(device=device).manual_seed(0)) if args.uc else None
+            out = detect(model, batch["data"], batch["window"], draws)
             filt = filter_detections(
                 out["cls_prob"], out["bbox_pred"], out["roi_valid"], num_classes=2,
                 bbox_elem=bbox_elem, max_dets=cfg.test.max_dets, thresh=args.thresh,
@@ -263,6 +295,9 @@ def run_one(args) -> dict:
                 rotated_nms=cfg.test.rotated_nms,
             )
             filt = {k: v.cpu().numpy() for k, v in filt.items()}
+            # each detection's uncertainty through the same (src, keep)
+            # gather as its box (ops/filter.py to_per_class_lists)
+            unc = {k: out["uncertainties"][k].cpu().numpy() for k in UC_KEYS} if args.uc else {}
             rois_all = out["rois"].cpu()
             for i in range(batch["window"].shape[0]):
                 if idx >= n_eval:
@@ -275,11 +310,13 @@ def run_one(args) -> dict:
                         np.ascontiguousarray(gtb, np.float32))).numpy()
                     prop_hits += int((ious.max(axis=0) >= 0.5).sum())
                     prop_total += len(gtb)
-                boxes_j, _ = to_per_class_lists({k: v[i] for k, v in filt.items()}, {}, 2,
-                                                bbox_elem)
-                for row in boxes_j[1]:
-                    detections.append({"frame_id": fid, "bbox": row[:bbox_elem],
-                                       "confidence": row[-1]})
+                boxes_j, uc_j = to_per_class_lists({k: v[i] for k, v in filt.items()},
+                                                   {k: v[i] for k, v in unc.items()}, 2, bbox_elem)
+                for r_i, row in enumerate(boxes_j[1]):
+                    det = {"frame_id": fid, "bbox": row[:bbox_elem], "confidence": row[-1]}
+                    for key in unc:
+                        det[key] = float(uc_j[1][key][r_i, 0])
+                    detections.append(det)
                 idx += 1
         res = evaluate_class(detections, gt_frames, iou_thresh=iou_t, eval_type=eval_type)
         res_bev = (evaluate_class(detections, gt_frames, iou_thresh=iou_t, eval_type="bev")
@@ -299,6 +336,7 @@ def run_one(args) -> dict:
                 matched[det["frame_id"]][j] = True
             else:
                 fps.append(det)
+        uc_stats = uc_separation(order, fps)
         out_d = {
             "map": float(res["ap"]), "tp": res["tp"], "fp": res["fp"], "npos": res["npos"],
             "proposal_recall": prop_hits / max(prop_total, 1),
@@ -309,6 +347,8 @@ def run_one(args) -> dict:
         if res_bev is not None:
             out_d["map_bev"] = float(res_bev["ap"])
             out_d["tp_bev"] = res_bev["tp"]
+        if uc_stats:
+            out_d["uc_stats"] = uc_stats
         return out_d
 
     curve, step_ms = [], []

@@ -8,11 +8,16 @@ events, the stages run one after another on the same batch, median of
 --reps runs after a warm-up.  A stage's time includes the device waiting
 for the host to launch its kernels.  Then torch.profiler over --reps whole
 batches: kernels launched per batch, device busy share of the kernel span,
-and the CUDA time by kernel name.
+and the CUDA time by kernel name.  With --uc the configuration carries
+class and box aleatoric and epistemic uncertainty (bench.py's
+uncertainty_config): the tail stage runs the UC.E_NUM_SAMPLE MC samples
+stacked over the once-pooled RoIs, and the last stage adds the 8-key
+uncertainties.
 
     python tools/stage_times_torch.py --net_type lidar
     python tools/stage_times_torch.py --net_type image --reps 5
     python tools/stage_times_torch.py --net_type image --fpn
+    python tools/stage_times_torch.py --net_type image --uc
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ def parse_args(argv=None):
     parser.add_argument("--net_type", default="lidar", choices=("lidar", "image"))
     parser.add_argument("--fpn", action="store_true",
                         help="the FPN image detector (USE_FPN, multiscale pooling)")
+    parser.add_argument("--uc", action="store_true",
+                        help="class and box aleatoric and epistemic uncertainty (C4 only)")
     parser.add_argument("--reps", default=5, type=int)
     parser.add_argument("--top", default=12, type=int, help="kernels listed by CUDA time")
     return parser.parse_args(argv)
@@ -45,7 +52,7 @@ def main(argv=None):
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
     from faster_rcnn_pytorch_multimodal_tpu_torch.inference import detect_batch, filter_batch
-    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import build_detector
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import UCDraws, build_detector
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.voxelize import raster_kwargs, voxelize_bev
     from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
 
@@ -54,12 +61,15 @@ def main(argv=None):
     lidar = args.net_type == "lidar"
     if args.fpn and lidar:
         raise SystemExit("stage_times_torch: --fpn is for --net_type image")
+    if args.fpn and args.uc:
+        raise SystemExit("stage_times_torch: uncertainty is ported on the C4 paths only")
+    uc = cs.UC_OVERRIDES if args.uc else ()
     if lidar:
-        cfg = cs.make_config(cs.BEV_OVERRIDES, cs.BEV_SERVING_OVERRIDES)
+        cfg = cs.make_config(cs.BEV_OVERRIDES, cs.BEV_SERVING_OVERRIDES, uc)
         db = SyntheticDataset(cfg, num_frames=cs.B, num_classes=2, mode="val", seed=101)
     else:
         fpn = cs.FPN_OVERRIDES if args.fpn else ()
-        cfg = cs.make_config(cs.IMAGE_OVERRIDES, fpn, cs.SERVING_OVERRIDES)
+        cfg = cs.make_config(cs.IMAGE_OVERRIDES, fpn, cs.SERVING_OVERRIDES, uc)
         db = SyntheticDataset(cfg, num_frames=cs.B, num_classes=2, image_hw=cs.FRAME_HW,
                               mode="val", seed=101)
     device = torch.device("cuda")
@@ -102,18 +112,32 @@ def main(argv=None):
 
         def tail():
             r = state["rois"]
-            state["det"] = m.pooled_head(state["pooled"], r.shape[0], r.shape[1])
+            if not args.uc:
+                state["det"] = m.pooled_head(state["pooled"], r.shape[0], r.shape[1])
+                return
+            state["draws"] = UCDraws(torch.Generator(device=device).manual_seed(0))
+            state["det"] = m._mc_samples(state["draws"], (m.tail, m.predictors), state["pooled"],
+                                         lambda x: m.pooled_head(x, x.shape[0], r.shape[1]))
 
         def decode_and_filter():
             out = {"roi_valid": state["ok"]}
-            out["cls_prob"], out["bbox_pred"] = m.decode(
-                state["det"], state["rois"], window, state["a3d"])
+            det, rois = state["det"], state["rois"]
+            if args.uc:  # the mean over the samples, and the uncertainties
+                out["cls_prob"] = torch.softmax(det["cls_score"], dim=-1).mean(dim=0)
+                out["bbox_pred"] = m.decode_boxes(det["bbox_pred"].mean(dim=0), rois, window,
+                                                  state["a3d"])
+                m.det_uncertainties(det, rois, state["a3d"], state["draws"])
+            else:
+                out["cls_prob"], out["bbox_pred"] = m.decode(det, rois, window, state["a3d"])
             filter_batch(m, out, cfg.test.thresh)
 
         stages = [("voxelize_bev", raster)] if lidar else []
         if args.fpn:
             names = ("backbone (stem + layer1-4) + FPN", "multiscale RoI align kernel",
                      "tail (FCTail: 3 dense layers, predictors)")
+        elif args.uc:
+            names = ("backbone (stem + layer1-3)", "RoI align kernel",
+                     f"tail x {cfg.uc.e_num_sample} MC samples (layer4, mean, stacks, predictors)")
         else:
             names = ("backbone (stem + layer1-3)", "RoI align kernel",
                      "tail (layer4, mean, predictors)")
@@ -145,7 +169,8 @@ def main(argv=None):
             whole_ms.append(timer.stop())
         smi = cs.smi_name_power()
         shape = tuple(images.shape)
-        print(f"{cfg.net_variant}{' FPN' if args.fpn else ''} {cfg.compute_dtype} "
+        print(f"{cfg.net_variant}{' FPN' if args.fpn else ''}{' UC' if args.uc else ''} "
+              f"{cfg.compute_dtype} "
               f"{args.net_type} input {shape} ({smi}); "
               f"median of {args.reps} runs, CUDA events:")
         for name, ms in times.items():
