@@ -141,6 +141,22 @@ non-zero and never prints its last line):
      same flags, the stacks' BN) from scratch, 10 steps, then one serving
      batch of the trained model: the voxelizer, NMS, RoI align and its
      backward launched.
+ 23. the Solver path (image): the image config (res101 C4, bf16, batch 8,
+     512x960, frozen BN, terminators at 0.25) through training.solver.Solver
+     with synthetic train and val loaders, the train loader's prefetch on,
+     the val cycle every 5 steps (val losses and activation summaries;
+     TRAIN.DRAW_VAL_DETECTIONS False, so that the script needs no PIL),
+     snapshots at 10
+     and 20, 20 steps; then a new Solver in the same output directory resumes
+     from iter_10 and runs to 20: its losses within rtol 1e-3 of the first
+     run's (bitwise equality printed too).  NMS, RoI align and its backward
+     launched.  The Solver's wall ms a step and frames/s, the loader's host
+     ms a batch (next() without prefetch) and the bare train loop's ms a step,
+     each with the card's name and power limit (run_solver_path).
+ 24. the Solver path (BEV): the BEV training config, 10 steps with a
+     snapshot at 5, then a resume to 10 held as in 23; the voxelizer must
+     have run in the prefetch thread, NMS, RoI align and its backward in
+     the steps.
 Phase 3 also holds the multiscale RoI-align kernels against their twins at
 the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
@@ -163,14 +179,15 @@ RoI align and its backward at the res18 C4 maps' 256 channels, (8, 32,
 60, 256) x 300 and (8, 25, 22, 256) x 256, under the same limits; and the
 rotated IoU kernel on 300 pairs with collinear sides within 1e-6 of a
 float64 oracle (fault F5: the twin, as JAX, is far off there).
-Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20, 21, 22) runs with the launch counts
-set to 0 just before it and read just after.  Then one JSON line describing the
-kernels (each kernel's `launches` is the count on the newest path that runs
-it: BEV training for the voxelizer, NMS, RoI align and its backward, rotated
-BEV serving for the rotated NMS, FPN serving and FPN training for the
-multiscale kernels; its times, error and bound are from phase 3 at that
-path's shapes; `launches_by_path` has all fourteen), the nvidia-smi
-name/power line, and the result line {"ok": true, "device": ...}.
+Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20, 21, 22, 23, 24) runs with the launch
+counts set to 0 just before it and read just after.  Then one JSON line describing
+the kernels (each kernel's `launches` is the count on the newest path that runs
+it: the BEV Solver path for the voxelizer, NMS, RoI align and its backward (the
+BEV training config's shapes), rotated BEV serving for the rotated NMS, FPN
+serving and FPN training for the multiscale kernels; its times, error and
+bound are from phase 3 at that path's shapes; `launches_by_path` has all
+sixteen), the nvidia-smi name/power line, and the result line
+{"ok": true, "device": ...}.
 
 Imports nothing of JAX; needs the repository checkout around it.
 """
@@ -2086,6 +2103,141 @@ def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd"), scale=Tru
     return launches, model
 
 
+SOLVER_OVERRIDES = ("TRAIN.DISPLAY", "5", "TRAIN.SNAPSHOT_KEPT", "10", "TRAIN.EN_ACT_SUMMARIES",
+                    "True", "TRAIN.DRAW_VAL_DETECTIONS", "False")
+SOLVER_RTOL = 1e-3
+LOADER_BATCHES = 5  # batches the loader's host time is taken over
+BARE_STEPS = 5  # steps of the bare train loop beside the Solver
+
+
+def run_solver_path(cfg, smi, steps, snap, need):
+    """The Solver path (training.solver.Solver, as tools/trainval_net_torch.py
+    drives it): synthetic train and val loaders, the train loader's prefetch
+    on, the val cycle every 5 steps (val losses and activation summaries; no
+    drawing, so that the script needs no PIL), snapshots at `snap` and at
+    `steps`, counted.
+    Then a new Solver in the same output directory resumes from iter_<snap>
+    (the later snapshot removed) and runs to `steps`: its losses must equal
+    the first run's within SOLVER_RTOL.  Then, timed alone in this process,
+    the loader's host ms a batch (next() without prefetch) and the bare
+    train loop's ms a step.  Returns the first run's launches."""
+    import shutil
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.config import cfg_from_list
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import live_bn_stats
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training import solver as S
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
+
+    cfg = cfg_from_list(cfg, SOLVER_OVERRIDES + ("TRAIN.SNAPSHOT_ITERS", str(snap)))
+    lidar = cfg.net_type == "lidar"
+    name = f"Solver path ({'BEV' if lidar else 'image'})"
+    out = REPO / "build" / "chip_smoke_solver"
+    shutil.rmtree(out, ignore_errors=True)
+    train_db = SyntheticDataset(cfg, num_frames=4 * B, num_classes=2, image_hw=FRAME_HW, seed=0)
+    val_db = SyntheticDataset(cfg, num_frames=2 * B, num_classes=2, image_hw=FRAME_HW, seed=101,
+                              mode="val")
+
+    def solver():
+        train_loader = BatchLoader(train_db, cfg, B, device="cuda", seed=cfg.rng_seed)
+        val_loader = BatchLoader(val_db, cfg, B, device="cuda", augment=False,
+                                 seed=cfg.rng_seed + 1)
+        model, _ = S.create_train_state(cfg, 2, "cuda", seed=0)
+        return S.Solver(cfg, scale_terminators(model), train_loader, val_loader,
+                        output_dir=str(out))
+
+    try:
+        first = solver()
+        n_stats = len(live_bn_stats(first.model))
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        res = first.train(steps)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCH_COUNTS)
+        raster_thread = first.train_loader.last_raster_thread
+        with open(out / "tb_val" / "scalars.jsonl") as f:
+            val = [json.loads(line) for line in f]
+        snaps = sorted((p.name for p in (out / "checkpoints").iterdir()),
+                       key=lambda n: int(n.split("_")[1]))
+        for p in (out / "checkpoints").iterdir():
+            if int(p.name.split("_")[1]) > snap:
+                p.unlink()
+        again = solver()
+        resumed = again.train(steps)
+        torch.cuda.synchronize()
+        # one snapshot write and one val cycle, timed alone
+        t0 = time.perf_counter()
+        again.snapshot(steps + 1)
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        again._val_cycle(steps + 1)
+        torch.cuda.synchronize()
+        val_ms = (time.perf_counter() - t0) * 1e3
+
+        # the loader's host time a batch, and the bare loop on the trained model
+        plain = BatchLoader(train_db, cfg, B, device="cuda", seed=cfg.rng_seed)
+        host_ms = []
+        for _ in range(LOADER_BATCHES):
+            t0 = time.perf_counter()
+            plain.next()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        model = first.model
+        t0 = time.perf_counter()
+        bare = S.train(model, DetectorSGD(model, cfg), plain, BARE_STEPS,
+                       torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        bare_wall = (time.perf_counter() - t0) * 1e3 / BARE_STEPS
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+    want, got = res["history"][snap:], resumed["history"]
+    worst = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for g, w in zip(got, want) for k in w)
+    bitwise = got == want
+    finite = all(np.isfinite(v) for losses in res["history"] + got for v in losses.values())
+    print(f"{name}: {cfg.net_variant} {cfg.compute_dtype} batch {B}, prefetch on, val every "
+          f"{cfg.train.display} steps, snapshots {snaps}; TRAIN.DRAW_VAL_DETECTIONS False "
+          f"(the script needs no PIL; the drawing is tested on the CPU)")
+    n_val, n_snap = steps // cfg.train.display, len(snaps)
+    steady = (res["wall_s"] * 1e3 - res["ms"][0] - n_val * val_ms - n_snap * snap_ms) / (steps - 1)
+    print(f"{name} ({smi}): Solver wall {res['wall_s'] * 1e3 / steps} ms/step over {steps} "
+          f"steps (val cycles and snapshots included), {res['frames_per_sec']} frames/s; one "
+          f"snapshot write {snap_ms} ms, one val cycle {val_ms} ms; the steps alone after the "
+          f"first (wall less the first step's device ms, {n_val} val cycles and {n_snap} "
+          f"snapshots) {steady} ms/step, {B / (steady / 1e3)} frames/s; device "
+          f"ms/step median {float(np.median(res['ms']))} (first {res['ms'][0]}); loader host "
+          f"{float(np.median(host_ms))} ms/batch median of {LOADER_BATCHES} ({host_ms}; "
+          f"next() without prefetch{', the raster on the card included' if lidar else ''}); "
+          f"bare train loop {float(np.median(bare['ms']))} ms/step device median, {bare_wall} "
+          f"ms/step wall, over {BARE_STEPS} steps")
+    print(f"{name}: resumed from iter_{snap} at step {resumed['step'] - len(got)}, ran to "
+          f"{resumed['step']}; losses against the uninterrupted run: largest relative "
+          f"difference {worst} (rtol {SOLVER_RTOL}; deterministic algorithms off), bitwise "
+          f"equal {bitwise}")
+    keys = {"total_loss", "act_conv0/mean", "act_conv0/std", "act_conv0/absmax"}
+    val_ok = [v["step"] for v in val] == list(range(5, steps + 1, 5)) and all(
+        keys <= set(v) and all(np.isfinite(v[k]) for k in keys) for v in val)
+    print(f"{name}: val cycle at steps {[v['step'] for v in val]}, val losses and activation "
+          f"summaries finite: {val_ok}; first val {val[0]}; live-BN running statistics: "
+          f"{n_stats} (frozen BN; that the val cycle leaves live statistics as they are is held "
+          f"on the CPU, tests/test_torch_port_solver.py)")
+    print(f"{name}: losses finite {finite}, kernel launches {launches}"
+          + (f"; voxelize_bev launched from the thread {raster_thread!r}" if lidar else ""))
+    if not finite or not val_ok:
+        raise AssertionError(f"{name}: non-finite losses or a val cycle missing")
+    if len(got) != steps - snap or resumed["step"] != steps or worst > SOLVER_RTOL:
+        raise AssertionError(f"{name}: the resumed run does not follow the uninterrupted one")
+    if not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"{name}: a kernel never launched: {launches}")
+    if lidar and raster_thread != "BatchLoader-prefetch":
+        raise AssertionError(f"{name}: the raster was made on {raster_thread!r}")
+    return launches
+
+
 def check_live_stats(model, name):
     """Every live-BN running statistic float32, finite and moved from its
     init (mean 0, var 1)."""
@@ -2542,13 +2694,22 @@ def main() -> int:
     bev_uc_serving = run_trained_serving(bev_uc_model, make_config(
         BEV_OVERRIDES, BEV_SERVING_OVERRIDES, UC_OVERRIDES, LIVE_OVERRIDES), smi)
 
+    phase("Solver path (image)")
+    solver_image = run_solver_path(image_cfg, smi, steps=20, snap=10,
+                                   need=("nms", "roi_align", "roi_align_bwd"))
+
+    phase("Solver path (BEV)")
+    solver_bev = run_solver_path(bev_train_cfg, smi, steps=10, snap=5,
+                                 need=("voxelize_bev", "nms", "roi_align", "roi_align_bwd"))
+
     paths = {"serving": serving, "training": training, "bev_serving": bev_serving,
              "fpn_serving": fpn_serving, "fpn_training": fpn_training,
              "bev_training": bev_training, "bev_rotated_serving": bev_rotated,
              "live_training": live_training, "bev_live_training": bev_live_training,
              "bev_live_serving": bev_live_serving, "uc_serving": uc_serving,
              "uc_training": uc_training, "bev_uc_training": bev_uc_training,
-             "bev_uc_serving": bev_uc_serving}
+             "bev_uc_serving": bev_uc_serving, "solver_image": solver_image,
+             "solver_bev": solver_bev}
 
     def entry(name, source, replaces, path, measured):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -2560,12 +2721,12 @@ def main() -> int:
     nms_err = max(r["max_abs_err"] for r in (nms_prop, nms_filter, nms_train, nms_bev,
                                              nms_bev_filter, nms_bev_train))
     kernels = {"kernels": [
-        entry("voxelize_bev", "voxelize.cu", "ops/voxelize.py:39", "bev_training", vox),
-        entry("nms", "nms.cu", "ops/nms.py:53", "bev_training",
+        entry("voxelize_bev", "voxelize.cu", "ops/voxelize.py:39", "solver_bev", vox),
+        entry("nms", "nms.cu", "ops/nms.py:53", "solver_bev",
               {**nms_bev_train, "max_abs_err": nms_err}),
-        entry("roi_align", "roi_align.cu", "ops/roi_align.py:122", "bev_training",
+        entry("roi_align", "roi_align.cu", "ops/roi_align.py:122", "solver_bev",
               roi_bev_train[torch.bfloat16]),
-        entry("roi_align_bwd", "roi_align.cu", "ops/roi_align.py:122 (VJP)", "bev_training",
+        entry("roi_align_bwd", "roi_align.cu", "ops/roi_align.py:122 (VJP)", "solver_bev",
               roi_bwd_bev[torch.bfloat16]),
         entry("roi_align_multiscale", "roi_align.cu", "ops/roi_align.py:208", "fpn_serving",
               ms_fwd[torch.bfloat16]),

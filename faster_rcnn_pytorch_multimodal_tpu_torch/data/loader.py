@@ -17,13 +17,26 @@ Outputs are padded to static shapes:
 The raster's grid uses TRAIN.SCALES[0] even at test time, as the JAX loader
 does (:453); serving configs set TRAIN.SCALES and TEST.SCALES alike.
 
-Not ported yet: prefetch threads (`start`), worker processes, the sampler's
-state_dict and the minibatch drawing; asking for the first two, or for
-DEBUG.DRAW_MINIBATCH, raises NotImplementedError.
+The sampler's resume state (`state_dict`, `load_state_dict`: cur, perm,
+epoch and the full MT19937 state, JAX :200-249) and the background prefetch
+thread (`start`, `kill`, JAX :310-354, :412-441) are JAX's: each prefetched
+task keeps the sampler state it was drawn from, so `state_dict` names the
+next batch `next()` has not handed out yet, however far the thread has run
+ahead.  On a CUDA device the thread makes its batches' device work (the
+points' copy, `voxelize_bev`, the caller's `transfer`) on a stream of its
+own from pinned host memory; `next()` makes the consumer's stream wait for
+that batch's event and marks its tensors as used there, so the caching
+allocator cannot hand their memory out while the step still reads them.
+
+Not ported: worker processes and the minibatch drawing; asking for either
+(`workers > 0`, DEBUG.DRAW_MINIBATCH) raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
@@ -118,12 +131,31 @@ def _assemble_batch(dataset, cfg: Config, augment: bool, task) -> Dict[str, np.n
     return batch
 
 
+class _Failure:
+    """An exception raised in the prefetch thread, handed to next()."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`: through pinned memory, without blocking the
+    host, on a CUDA device."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 class BatchLoader:
     """Batches of a dataset in sampler order; lidar rasters on `device`.
 
     device: where lidar batches are rasterized (required; image batches
-    stay numpy on the host).  `last_raster_ms` holds the device time of the
-    last batch's voxelize_bev call (CUDA events on a card)."""
+    stay numpy on the host unless a `transfer` moves them).
+    `last_raster_ms` holds the device time of the last batch's voxelize_bev
+    call (CUDA events on the stream that ran it), `last_raster_thread` the
+    name of the thread that launched it.  prefetch: the depth of the
+    background queue (`start`)."""
 
     def __init__(
         self,
@@ -135,6 +167,7 @@ class BatchLoader:
         augment: bool = True,
         shuffle: bool = True,
         seed: int = 3,
+        prefetch: int = 4,
         rasterize: bool = True,
         workers: int = 0,
     ):
@@ -153,11 +186,65 @@ class BatchLoader:
         self._cur = 0
         self._epoch = 0
         self._peeked: Optional[Dict[str, np.ndarray]] = None
+        self._q: Optional[queue.Queue] = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._prefetch = prefetch
+        self._transfer = None
+        self._stream = None
+        # resume bookkeeping: the sampler state each in-flight prefetched
+        # batch was drawn from (see state_dict)
+        self._state_lock = threading.Lock()
+        self._inflight: deque = deque()
         self._grid = None
         if cfg.net_type == "lidar" and rasterize:
             self._grid = raster_kwargs(cfg, float(cfg.train.scales[0]))
         self._timer = DeviceTimer(self.device)
         self.last_raster_ms: Optional[float] = None
+        self.last_raster_thread: Optional[str] = None
+
+    # -- sampler state (resume) -------------------------------------------
+
+    def _capture_state(self) -> Dict[str, np.ndarray]:
+        # the full MT19937 state, so that a resumed run draws the same
+        # shuffle and augmentation stream as an uninterrupted one
+        kind, keys, pos, has_gauss, cached = self._rng.get_state()
+        assert kind == "MT19937"
+        return {
+            "cur": np.asarray(self._cur),
+            "perm": np.asarray(self._perm),
+            "epoch": np.asarray(self._epoch),
+            "rng": np.asarray(keys),
+            "rng_pos": np.asarray(pos),
+            "rng_has_gauss": np.asarray(has_gauss),
+            "rng_cached": np.asarray(cached),
+        }
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        """Sampler state of the next unconsumed batch.  With prefetch
+        running the live sampler has drawn ahead of what next() handed out;
+        each in-flight task remembers the state it was drawn from, and the
+        front of that queue is where a resume must restart."""
+        with self._state_lock:
+            if self._inflight:
+                return dict(self._inflight[0])
+            return self._capture_state()
+
+    def load_state_dict(self, state: Dict[str, np.ndarray]) -> None:
+        with self._state_lock:
+            self._inflight.clear()
+            self._cur = int(state["cur"])
+            self._perm = np.asarray(state["perm"])
+            self._epoch = int(state["epoch"])
+            if "rng" in state:
+                # pos 624 (an exhausted block) for a state without it
+                self._rng.set_state((
+                    "MT19937",
+                    np.asarray(state["rng"], np.uint32),
+                    int(state.get("rng_pos", 624)),
+                    int(state.get("rng_has_gauss", 0)),
+                    float(state.get("rng_cached", 0.0)),
+                ))
 
     # -- iteration -------------------------------------------------------
 
@@ -180,15 +267,20 @@ class BatchLoader:
             self._cur += 1
         return np.asarray(out)
 
-    def _sample_task(self):
-        """One batch's (indices, seeds, scale_idx) from the sampler rng."""
-        indices = self._next_indices()
-        scales = self.cfg.train.scales
-        if self.augment and self.cfg.net_type != "lidar" and len(scales) > 1:
-            scale_idx = int(self._rng.randint(len(scales)))
-        else:
-            scale_idx = 0
-        seeds = [int(self._rng.randint(1 << 31)) for _ in indices]
+    def _sample_task(self, track: bool = False):
+        """One batch's (indices, seeds, scale_idx) from the sampler rng;
+        track=True (the prefetch thread) records the state it was drawn
+        from for state_dict."""
+        with self._state_lock:
+            if track:
+                self._inflight.append(self._capture_state())
+            indices = self._next_indices()
+            scales = self.cfg.train.scales
+            if self.augment and self.cfg.net_type != "lidar" and len(scales) > 1:
+                scale_idx = int(self._rng.randint(len(scales)))
+            else:
+                scale_idx = 0
+            seeds = [int(self._rng.randint(1 << 31)) for _ in indices]
         return np.asarray(indices), seeds, scale_idx
 
     def peek(self) -> Dict[str, object]:
@@ -200,23 +292,108 @@ class BatchLoader:
         if self._peeked is not None:
             b, self._peeked = self._peeked, None
             return b
-        return self._build_batch(self._sample_task())
+        if self._thread is None:
+            return self._build_batch(self._sample_task())
+        b = self._q.get()
+        if isinstance(b, _Failure):
+            raise RuntimeError("BatchLoader: the prefetch thread failed") from b.error
+        with self._state_lock:
+            if self._inflight:
+                self._inflight.popleft()
+        ready = b.pop("_ready", None)
+        if ready is not None:
+            # the batch's device work ran on the loader's stream: the
+            # consumer's stream waits for it, and its tensors count as used
+            # there until the consumer's work on them is done
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(ready)
+            for v in b.values():
+                if isinstance(v, torch.Tensor) and v.is_cuda:
+                    v.record_stream(consumer)
+        return b
 
-    def start(self, transfer=None):
-        raise NotImplementedError("BatchLoader: background prefetch is not ported")
+    # -- background prefetch ----------------------------------------------
+
+    def start(self, transfer=None) -> None:
+        """Begin the background prefetch: a daemon thread samples tasks,
+        assembles batches, makes the lidar raster and applies `transfer`
+        (host batch -> device batch, e.g. training.solver.batch_to_device)
+        while the consumer's step runs, into a queue of `prefetch` batches."""
+        if self._thread is not None:
+            if transfer is not None and transfer is not self._transfer:
+                raise RuntimeError(
+                    "BatchLoader: already started with a different transfer; kill() it first")
+            return
+        self._q = queue.Queue(maxsize=self._prefetch)
+        self._stop.clear()
+        self._transfer = transfer
+        if self.device.type == "cuda" and self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+
+        def put(item) -> None:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.25)
+                    return
+                except queue.Full:
+                    continue
+
+        def run() -> None:
+            try:
+                while not self._stop.is_set():
+                    put(self._build_batch(self._sample_task(track=True), self._stream))
+            except BaseException as e:  # handed to the consumer by next()
+                put(_Failure(e))
+
+        self._thread = threading.Thread(target=run, name="BatchLoader-prefetch", daemon=True)
+        self._thread.start()
+
+    def kill(self) -> None:
+        """Stop the prefetch thread and rewind the sampler to the next
+        unconsumed batch: batches prefetched but never handed out are drawn
+        again by whoever iterates next."""
+        if self._thread is None:
+            return
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join()
+        self._thread = None
+        self._transfer = None
+        with self._state_lock:
+            front = dict(self._inflight[0]) if self._inflight else None
+            self._inflight.clear()
+        if front is not None:
+            self.load_state_dict(front)
 
     # -- batch assembly ----------------------------------------------------
 
-    def _build_batch(self, task) -> Dict[str, object]:
-        return self._finalize(_assemble_batch(self.dataset, self.cfg, self.augment, task))
+    def _build_batch(self, task, stream=None) -> Dict[str, object]:
+        batch = _assemble_batch(self.dataset, self.cfg, self.augment, task)
+        if stream is None:
+            return self._finalize(batch)
+        with torch.cuda.stream(stream):
+            batch = self._finalize(batch)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        batch["_ready"] = ready
+        return batch
 
     def _finalize(self, batch: Dict[str, np.ndarray]) -> Dict[str, object]:
-        """The lidar raster on the device: points up, raster stays there."""
+        """The device work on an assembled host batch, on the current
+        stream: the lidar raster (points up, raster stays there), then the
+        optional transfer."""
         batch.pop("_indices", None)
         if self._grid is not None and "points" in batch:
-            points = torch.from_numpy(batch.pop("points")).to(self.device)
-            valid = torch.from_numpy(batch.pop("point_valid")).to(self.device)
+            points = host_to_device(batch.pop("points"), self.device)
+            valid = host_to_device(batch.pop("point_valid"), self.device)
             self._timer.start()
             batch["data"] = voxelize_bev(points, valid, **self._grid)
             self.last_raster_ms = self._timer.stop()
+            self.last_raster_thread = threading.current_thread().name
+        if self._transfer is not None:
+            batch = self._transfer(batch)
         return batch

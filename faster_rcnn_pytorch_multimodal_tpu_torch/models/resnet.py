@@ -112,11 +112,15 @@ class LiveBatchNorm(FrozenBatchNorm):
     as the JAX package's `batch_stats` collection does.  The update is in
     place on the tensors the module holds, so under
     torch.func.functional_call it lands on the model only when the call is
-    given the model's own buffers (training.solver.cast_for_compute)."""
+    given the model's own buffers (training.solver.cast_for_compute).
+    With `update_stats` False (training.solver.make_eval_step) train mode
+    still takes the batch's statistics but leaves the running ones as they
+    are, as the JAX package's step does when `batch_stats` is not mutable."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(features, eps)
         self.momentum = momentum
+        self.update_stats = True
         del self.weight, self.bias
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -140,6 +144,8 @@ class LiveBatchNorm(FrozenBatchNorm):
         # jnp.var: the mean of the squared deviations
         var = (xf - mean.reshape((1, -1) + (1,) * (x.dim() - 2))).square().mean(dims)
         n = xf.numel() // xf.shape[1]
+        if not self.update_stats:
+            return _bn_affine(x, mean, var, self.weight, self.bias, self.eps)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)

@@ -153,3 +153,12 @@ class DetectorSGD:
         self.sgd.step()
         self.step_count += 1
         return norm
+
+    def state_dict(self) -> Dict:
+        """The momentum buffers and the update count that drives the
+        schedule (the JAX package's TrainState.opt_state and step)."""
+        return {"sgd": self.sgd.state_dict(), "step_count": self.step_count}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.sgd.load_state_dict(state["sgd"])
+        self.step_count = int(state["step_count"])

@@ -1,7 +1,6 @@
-"""The training step and a minimal train loop.
+"""The training step, the training loop and the Solver around it.
 
-Port of faster_rcnn_pytorch_multimodal_tpu/training/solver.py
-`make_train_step` and `create_train_state`.  The parameters stay float32
+Port of faster_rcnn_pytorch_multimodal_tpu/training/solver.py.  The parameters stay float32
 masters.  With COMPUTE_DTYPE bfloat16 the forward runs on bfloat16 casts of
 every float32 parameter and buffer, as the JAX package's `cast_for_compute`
 does, through torch.func.functional_call; the casts are differentiable, so
@@ -20,19 +19,36 @@ The random draws of a step (TrainDraws) come from an explicit
 torch.Generator on the model's device; with uncertainty that generator also
 gives the step's dropout masks and the Bayesian cross-entropies' normals
 (TrainDraws.uc), and `detect` draws the serving pass's from one the caller
-gives.  Snapshots, resume and the val cycle
-are not ported yet.
+gives.
+
+`Solver` (JAX :199-579) drives `train` with what a real run needs:
+snapshots of the model, the optimizer and the loader's sampler every
+TRAIN.SNAPSHOT_ITERS steps and at the end (keep-last-TRAIN.SNAPSHOT_KEPT,
+written to a temporary name and renamed), resume from the newest one,
+exact because each step's draws depend only on (seed, step)
+(`step_generator`, as JAX folds the step into its key); a stop on SIGINT or
+SIGTERM that snapshots after the step in flight; the val cycle every
+TRAIN.DISPLAY steps (`make_eval_step`'s losses, `act_summary`'s activation
+statistics, val detections drawn or RPN recall logged); staged pretrained
+preload (modes 1 and 2); and the MetricsWriter logs.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, Optional
+import contextlib
+import os
+import re
+import shutil
+import signal
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
-from faster_rcnn_pytorch_multimodal_tpu_torch.inference import eval_mode, model_device
+from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import host_to_device
+from faster_rcnn_pytorch_multimodal_tpu_torch.inference import eval_mode, filter_batch, model_device
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import (
     FasterRCNN,
     TrainDraws,
@@ -42,7 +58,10 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import (
     live_bn_stats,
     uses_uncertainty,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import LiveBatchNorm
+from faster_rcnn_pytorch_multimodal_tpu_torch.training.metrics import MetricsWriter
 from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.convert import torch_key_to_flax_path
 from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
 
 
@@ -91,10 +110,10 @@ def detect(
 
 
 def batch_to_device(batch: Mapping[str, object], device: torch.device) -> Dict[str, object]:
-    """A loader batch on `device`: arrays become tensors, tensors (a lidar
-    batch's raster, made on the loader's device) move if they are elsewhere,
-    scale_idx an int; keys starting with '_' (loader bookkeeping) are
-    dropped."""
+    """A loader batch on `device`: arrays become tensors (through pinned
+    memory on a card), tensors (a lidar batch's raster, made on the loader's
+    device) move if they are elsewhere, scale_idx an int; keys starting
+    with '_' (loader bookkeeping) are dropped."""
     out: Dict[str, object] = {}
     for k, v in batch.items():
         if k.startswith("_"):
@@ -104,7 +123,7 @@ def batch_to_device(batch: Mapping[str, object], device: torch.device) -> Dict[s
         elif isinstance(v, torch.Tensor):
             out[k] = v.to(device, non_blocking=True)
         else:
-            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
+            out[k] = host_to_device(v, device)
     return out
 
 
@@ -146,33 +165,394 @@ def make_train_step(model: FasterRCNN, optimizer: DetectorSGD) -> Callable:
     return step
 
 
+def step_generator(seed: int, step: int, device: torch.device | str) -> torch.Generator:
+    """The generator of step `step`'s draws, seeded from (seed, step) alone
+    through numpy's SeedSequence, as the JAX package folds the step into
+    its key (fold_in(rng, state.step)): a resumed run draws what an
+    uninterrupted one does."""
+    s = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]) >> 1
+    return torch.Generator(device=device).manual_seed(s)
+
+
 def train(
     model: FasterRCNN,
     optimizer: DetectorSGD,
     loader,
     iters: int,
-    generator: torch.Generator,
-    on_step: Optional[Callable[[int, Dict[str, float], float], None]] = None,
+    generator: Union[torch.Generator, Callable[[int], torch.Generator]],
+    on_step: Optional[Callable[[int, Dict[str, float], float], Optional[bool]]] = None,
+    first_step: int = 0,
 ) -> Dict[str, List]:
-    """Run `iters` steps: loader batch -> H2D -> draws -> step.  Each step
-    is timed from the H2D copy to the end of the update (CUDA events on a
+    """Run `iters` steps, numbered from first_step: loader batch -> H2D ->
+    draws -> step.  `generator` gives the draws: one generator for every
+    step, or a callable step -> generator (`step_generator`).  Each step is
+    timed from the H2D copy to the end of the update (CUDA events on a
     card, the host clock on the CPU).  Returns per-step float losses and
-    milliseconds; on_step(i, losses, ms) is called after each step.  The
-    model is put in train mode."""
+    milliseconds; on_step(i, losses, ms) is called after step i, and when it
+    returns True the loop ends there.  The model is put in train mode."""
     device = model_device(model)
     model.train()
     step = make_train_step(model, optimizer)
     timer = DeviceTimer(device)
     all_losses, all_ms = [], []
-    for i in range(iters):
+    for i in range(first_step, first_step + iters):
         host = loader.next()
         timer.start()
         batch = batch_to_device(host, device)
-        losses, _ = step(batch, draw_train_keys(model, batch, generator))
+        gen = generator(i) if callable(generator) else generator
+        losses, _ = step(batch, draw_train_keys(model, batch, gen))
         ms = timer.stop()
         losses = {k: float(v) for k, v in losses.items()}
         all_losses.append(losses)
         all_ms.append(ms)
-        if on_step is not None:
-            on_step(i, losses, ms)
+        if on_step is not None and on_step(i, losses, ms):
+            break
     return {"losses": all_losses, "ms": all_ms}
+
+
+# -- the val cycle (JAX solver.py:95-173) --------------------------------------
+
+
+@contextlib.contextmanager
+def frozen_running_stats(model: torch.nn.Module):
+    """Within the block live BN in train mode normalizes with the batch's
+    statistics but leaves the running statistics as they are."""
+    bns = [m for m in model.modules() if isinstance(m, LiveBatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield model
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
+def make_eval_step(model: FasterRCNN) -> Callable:
+    """eval_step(batch, draws) -> detached losses: forward_train on a val
+    batch without an update, in train mode (live BN on the batch's
+    statistics), the running statistics untouched, as the JAX package's
+    eval step applies forward_train with `batch_stats` not mutable."""
+
+    def eval_step(batch, draws: TrainDraws) -> Dict[str, torch.Tensor]:
+        was_training = model.training
+        model.train()
+        try:
+            with frozen_running_stats(model), torch.no_grad():
+                losses, _ = compute_call(
+                    model, "forward_train", batch["data"], batch["gt_boxes"], batch["gt_mask"],
+                    batch["window"], draws, gt_boxes_dc=batch.get("gt_boxes_dc"),
+                    dc_mask=batch.get("dc_mask"), scale_idx=batch.get("scale_idx"))
+        finally:
+            model.train(was_training)
+        return {k: v.detach() for k, v in losses.items()}
+
+    return eval_step
+
+
+def act_summary(model: FasterRCNN, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Mean, std and absmax of the map the JAX package sows as `act_conv`
+    (the C4 backbone output, or p2 under FPN), from `features` in eval mode
+    (running statistics), keyed act_conv0/mean|std|absmax as JAX's
+    make_act_summary_step keys its one sown leaf."""
+    with eval_mode(model), torch.no_grad():
+        feats = compute_call(model, "features", images)
+    a = (feats[0] if isinstance(feats, tuple) else feats).float()
+    return {"act_conv0/mean": a.mean(), "act_conv0/std": a.std(unbiased=False),
+            "act_conv0/absmax": a.abs().max()}
+
+
+# -- snapshots and weights -------------------------------------------------------
+
+
+def read_weights(path: str) -> Dict[str, torch.Tensor]:
+    """A state dict in the port's layout from `path`: an `.npz` of arrays,
+    a `.pt` written by torch.save, or a Solver snapshot (its model entry)."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: torch.from_numpy(z[k]) for k in z.files}
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in state and "optimizer" in state and "step" in state:
+        return state["model"]
+    return state
+
+
+def _loader_state_to_tensors(state: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    # torch.load(weights_only=True) takes tensors, not numpy arrays; the
+    # MT19937 key words (uint32) travel as int64
+    out = {}
+    for k, v in state.items():
+        a = np.asarray(v)
+        out[k] = torch.from_numpy(np.array(a, np.int64 if a.dtype == np.uint32 else a.dtype))
+    return out
+
+
+def _loader_state_from_tensors(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.numpy() for k, v in state.items()}
+
+
+_SNAPSHOT = re.compile(r"iter_(\d+)")
+
+
+class _GracefulKiller:
+    """SIGINT and SIGTERM set kill_now; the Solver snapshots after the step
+    in flight and stops.  Off the main thread signal.signal raises
+    ValueError and the killer stays inert, as in the JAX package."""
+
+    def __init__(self):
+        self.kill_now = False
+        self._previous = {}
+        try:
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                self._previous[sig] = signal.signal(sig, self._handler)
+        except ValueError:
+            pass
+
+    def _handler(self, *_args):
+        self.kill_now = True
+
+    def restore(self) -> None:
+        for sig, handler in self._previous.items():
+            signal.signal(sig, handler)
+        self._previous = {}
+
+
+class Solver:
+    """The Solver of the JAX package (solver.py:215-579): train(max_iters) resumes
+    from the newest snapshot in output_dir/checkpoints or preloads
+    `pretrained_path` (PRELOAD_FULL: mode 2, else mode 1), then runs the
+    steps with the train loader's prefetch on, the val cycle, the snapshots
+    and the logs (output_dir/tb, and output_dir/tb_val with a val loader).
+
+    `model` is the detector on its device (create_train_state); the
+    optimizer is built in train()."""
+
+    def __init__(
+        self,
+        cfg: Config,
+        model: FasterRCNN,
+        train_loader,
+        val_loader=None,
+        output_dir: str = "output",
+        seed: Optional[int] = None,
+        pretrained_path: Optional[str] = None,
+    ):
+        self.cfg = cfg
+        self.model = model
+        self.optimizer: Optional[DetectorSGD] = None
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.output_dir = output_dir
+        self.seed = cfg.rng_seed if seed is None else seed
+        self.pretrained_path = pretrained_path
+        self.device = model_device(model)
+        out = os.path.abspath(output_dir)
+        self._ckpt_dir = os.path.join(out, "checkpoints")
+        self.metrics = MetricsWriter(os.path.join(out, "tb"))
+        self.metrics_val = (MetricsWriter(os.path.join(out, "tb"), "val")
+                            if val_loader is not None else None)
+
+    # -- checkpointing ------------------------------------------------------
+
+    def _snapshots(self) -> List[str]:
+        if not os.path.isdir(self._ckpt_dir):
+            return []
+        names = [d for d in os.listdir(self._ckpt_dir) if _SNAPSHOT.fullmatch(d)]
+        return sorted(names, key=lambda d: int(_SNAPSHOT.fullmatch(d).group(1)))
+
+    def snapshot(self, step: int) -> str:
+        """Write checkpoints/iter_<step>: the model's state dict (float32
+        masters, live-BN running statistics), the optimizer's state, the
+        train loader's sampler state and the step.  It is written under a
+        temporary name and renamed, so a stop mid-write leaves nothing that
+        find_previous would pick; then keep-last-N."""
+        os.makedirs(self._ckpt_dir, exist_ok=True)
+        state = {
+            "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+            "optimizer": self.optimizer.state_dict(),
+            "loader": _loader_state_to_tensors(self.train_loader.state_dict()),
+            "step": int(step),
+        }
+        path = os.path.join(self._ckpt_dir, f"iter_{step}")
+        tmp = os.path.join(self._ckpt_dir, f".iter_{step}.tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+        self._gc_snapshots()
+        return path
+
+    def _gc_snapshots(self) -> None:
+        """keep-last-N (TRAIN.SNAPSHOT_KEPT)."""
+        for d in self._snapshots()[: -self.cfg.train.snapshot_kept]:
+            os.remove(os.path.join(self._ckpt_dir, d))
+
+    def find_previous(self) -> Optional[str]:
+        snaps = self._snapshots()
+        return os.path.join(self._ckpt_dir, snaps[-1]) if snaps else None
+
+    def restore(self, path: str) -> int:
+        """Load a snapshot into the model, the optimizer and the train
+        loader; returns its step."""
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.train_loader.load_state_dict(_loader_state_from_tensors(state["loader"]))
+        return int(state["step"])
+
+    def load_pretrained(self, path: str, mode: int = 1) -> List[str]:
+        """Staged preload: mode 1 keeps the `backbone` and `tail` scopes of
+        the weights at `path` (read_weights), mode 2 every scope but
+        `predictors`; a key's scope is the root of its JAX path
+        (utils.convert.torch_key_to_flax_path).  Frozen and live BN share
+        their keys, so either loads into the other.  A kept key that is
+        missing or of another shape raises, with the keys named.  Returns
+        the keys replaced."""
+        loaded = read_weights(path)
+        own = self.model.state_dict()
+        scope = {k: torch_key_to_flax_path(k)[0] for k in own}
+        roots = list(dict.fromkeys(scope.values()))
+        keep = ("backbone", "tail") if mode == 1 else tuple(r for r in roots if r != "predictors")
+        keys = [k for k in own if scope[k] in keep]
+        missing = [k for k in keys if k not in loaded]
+        wrong = [f"{k} {tuple(loaded[k].shape)} != {tuple(own[k].shape)}"
+                 for k in keys if k in loaded and loaded[k].shape != own[k].shape]
+        if missing or wrong:
+            raise ValueError(f"load_pretrained {path}: {len(missing)} keys missing "
+                             f"{missing[:8]}, {len(wrong)} of another shape {wrong[:8]}")
+        self.model.load_state_dict({k: loaded[k] for k in keys}, strict=False)
+        print(f"preloaded mode={mode} scopes={keep} from {path}")
+        return keys
+
+    def _debug_draws(self) -> None:
+        raise NotImplementedError(
+            "Solver: DEBUG.DRAW_ANCHORS, DRAW_ANCHOR_T and DRAW_PROPOSAL_T are not ported "
+            "(utils/debug_draw.py)")
+
+    # -- the val cycle --------------------------------------------------------
+
+    def _val_draws(self, batch) -> TrainDraws:
+        """The val losses' draws: one generator seeded `seed` every cycle,
+        as the JAX package passes its base key to the eval step."""
+        return draw_train_keys(self.model, batch, torch.Generator(
+            device=self.device).manual_seed(self.seed))
+
+    def _val_detections(self, val_batch, step: int, max_draw: int = 4) -> Dict[str, float]:
+        """Full inference on the val batch: draw detections (full net) or
+        log proposal recall (RPN only).  Returns scalars for the val log."""
+        from faster_rcnn_pytorch_multimodal_tpu_torch.evaluation.drawing import (
+            draw_frame_detections,
+            proposal_recall,
+        )
+        from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import to_per_class_lists
+
+        cfg = self.cfg
+        draws = (UCDraws(torch.Generator(device=self.device).manual_seed(self.seed))
+                 if uses_uncertainty(cfg) else None)
+        out = detect(self.model, val_batch["data"], val_batch["window"], draws)
+        gt, gt_mask = val_batch["gt_boxes"], val_batch["gt_mask"].cpu().numpy()
+        if not cfg.enable_full_net:
+            if cfg.net_type == "lidar":
+                from faster_rcnn_pytorch_multimodal_tpu_torch.ops.iou import bbox_3d_to_bev_aabb
+
+                gt = bbox_3d_to_bev_aabb(gt[..., :7])
+            covered, total = proposal_recall(out["rois"].cpu().numpy(),
+                                             out["roi_valid"].cpu().numpy(),
+                                             gt.cpu().numpy(), gt_mask)
+            recall = covered / max(total, 1)
+            print(f"val rpn recall@0.5: {recall:.4f} ({covered}/{total})")
+            return {"rpn_recall": recall}
+
+        classes = (getattr(self.val_loader.dataset, "classes", None)
+                   or [f"cls_{j}" for j in range(self.model.num_classes)])
+        filt = {k: v.cpu().numpy() for k, v in filter_batch(self.model, out, 0.5).items()}
+        uc = {k: v.cpu().numpy() for k, v in out.get("uncertainties", {}).items()}
+        data = val_batch["data"].cpu().numpy()
+        gt = gt.cpu().numpy()
+        draw_dir = os.path.join(self.output_dir, "val_draws", f"iter_{step}")
+        for i in range(min(data.shape[0], max_draw)):
+            boxes_j, uc_j = to_per_class_lists({k: v[i] for k, v in filt.items()},
+                                               {k: v[i] for k, v in uc.items()},
+                                               len(classes), cfg.num_bbox_elem)
+            canvas = draw_frame_detections(cfg, data[i], boxes_j, classes,
+                                           os.path.join(draw_dir, f"det_{i:03d}.png"),
+                                           gt_boxes=gt[i][gt_mask[i]], uc_j=uc_j)
+            if i == 0:
+                self.metrics_val.image(step, "val/detections", canvas, save_png=False)
+        return {}
+
+    def _val_cycle(self, step: int) -> Dict[str, float]:
+        cfg = self.cfg
+        batch = batch_to_device(self.val_loader.next(), self.device)
+        scalars = {k: float(v) for k, v in self._eval_step(batch, self._val_draws(batch)).items()}
+        if cfg.train.en_act_summaries:
+            scalars.update({k: float(v) for k, v in act_summary(self.model, batch["data"]).items()})
+        if cfg.train.draw_val_detections or not cfg.enable_full_net:
+            scalars.update(self._val_detections(batch, step))
+        self.metrics_val.scalars(step, scalars)
+        return scalars
+
+    # -- the main loop ----------------------------------------------------------
+
+    def train(self, max_iters: int, log_every: Optional[int] = None) -> Dict:
+        """Train to step max_iters.  Returns the last logged losses,
+        frames/s over the run (wall clock), the step it ended at, every
+        step's losses and device ms (from `train`) and the wall seconds."""
+        cfg = self.cfg
+        log_every = log_every or cfg.train.display
+        killer = _GracefulKiller()
+        self.optimizer = DetectorSGD(self.model, cfg)
+        start = 0
+        prev = self.find_previous()
+        if prev is not None:
+            print(f"restoring from {prev}")
+            start = self.restore(prev)
+        elif self.pretrained_path:
+            self.load_pretrained(self.pretrained_path, 2 if cfg.preload_full else 1)
+        elif cfg.resnet.fixed_blocks >= 0 and cfg.net_variant.startswith("res"):
+            # fixed_blocks >= 0 freezes every BN on the assumption that
+            # pretrained statistics and affines were loaded
+            print("WARNING: training from scratch with RESNET.FIXED_BLOCKS="
+                  f"{cfg.resnet.fixed_blocks} >= 0: frozen random BN affines will not train. "
+                  "Set FIXED_BLOCKS=-1 or preload weights.")
+        if cfg.debug.draw_anchors or cfg.debug.draw_anchor_t or cfg.debug.draw_proposal_t:
+            self._debug_draws()
+        self._eval_step = make_eval_step(self.model) if self.val_loader is not None else None
+
+        last: Dict[str, float] = {}
+        end = {"step": start}
+        t_start = time.time()
+
+        def on_step(it: int, losses: Dict[str, float], _ms: float) -> bool:
+            n = it + 1
+            end["step"] = n
+            if n % log_every == 0 or n == max_iters:
+                last.clear()
+                last.update(losses)
+                self.metrics.scalars(n, losses)
+                dt = time.time() - t_start
+                print(f"iter: {n} / {max_iters}, total loss: {losses['total_loss']:.6f}\n"
+                      + "".join(f" >>> {k}: {v:.6f}\n" for k, v in losses.items()
+                                if k != "total_loss")
+                      + f"speed: {dt / max(n - start, 1):.3f}s / iter, "
+                      f"{(n - start) * self.train_loader.batch_size / dt:.2f} frames/s")
+            if self._eval_step is not None and n % log_every == 0:
+                self._val_cycle(n)
+            snapped = n % cfg.train.snapshot_iters == 0 or n == max_iters
+            if snapped:
+                self.snapshot(n)
+            if killer.kill_now:
+                if not snapped:
+                    self.snapshot(n)
+                print(f"stopped by a signal after iteration {n}")
+                return True
+            return False
+
+        self.train_loader.start(transfer=lambda b: batch_to_device(b, self.device))
+        try:
+            res = train(self.model, self.optimizer, self.train_loader, max(max_iters - start, 0),
+                        lambda i: step_generator(self.seed, i, self.device), on_step, start)
+        finally:
+            self.train_loader.kill()
+            killer.restore()
+        wall = time.time() - t_start
+        return {"losses": last, "frames_per_sec": len(res["ms"]) * self.train_loader.batch_size
+                / max(wall, 1e-9), "step": end["step"], "history": res["losses"],
+                "ms": res["ms"], "wall_s": wall}

@@ -141,9 +141,9 @@ def test_loader_refuses_what_is_not_ported():
     db = t_synth.SyntheticDataset(cfg, num_frames=2, image_hw=(32, 32))
     with pytest.raises(NotImplementedError):
         t_loader.BatchLoader(db, cfg, 2, device="cpu", workers=2)
-    loader = t_loader.BatchLoader(db, cfg, 2, device="cpu")
+    drawing = t_config.cfg_from_list(cfg, ("DEBUG.DRAW_MINIBATCH", "True"))
     with pytest.raises(NotImplementedError):
-        loader.start()
+        t_loader.BatchLoader(db, drawing, 2, device="cpu")
 
 
 def _eval_case(eval_type, rng):

@@ -1,7 +1,7 @@
 """The port's import boundary and kernel dispatch.
 
-* Importing every module of the port (and its CLIs, its quality harness
-  and chip_smoke.py) in a
+* Importing every module of the port (and its CLIs, demo and reval, its
+  quality harness and chip_smoke.py) in a
   fresh interpreter leaves JAX, the JAX package and bench.py out of
   sys.modules: the port keeps its own copies of what it needs.
 * On CPU tensors the kernel wrappers run their plain twins and launch
@@ -63,6 +63,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
     names.append(m.name)
 for path in ({tools!r} + "/test_net_torch.py", {tools!r} + "/trainval_net_torch.py",
+             {tools!r} + "/demo_torch.py", {tools!r} + "/reval_torch.py",
              {tools!r} + "/quality_run_torch.py", {repo!r} + "/chip_smoke.py"):
     spec = importlib.util.spec_from_file_location("mod_" + str(len(names)), path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

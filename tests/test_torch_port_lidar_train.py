@@ -14,6 +14,7 @@ LIDAR.REG_LOSS_WEIGHT, the lidar target normalization) is not zero.
 from __future__ import annotations
 
 import importlib.util
+import sys
 import types
 from functools import partial
 from pathlib import Path
@@ -485,19 +486,22 @@ def test_train_loop_on_lidar_batches():
     assert len(res["ms"]) == 2 and res["losses"][0]["loss_box"] > 0
 
 
-def test_trainval_cli_trains_lidar():
+def test_trainval_cli_trains_lidar(tmp_path, monkeypatch):
     """tools/trainval_net_torch.py --net_type lidar: one step on the loader's
-    synthetic LiDAR batch, finite losses."""
+    synthetic LiDAR batch, finite losses (the Solver's per-step history).
+    The Solver's logs are JSONL only here: torch.utils.tensorboard would
+    import TensorFlow into the test process."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     path = Path(__file__).resolve().parents[1] / "tools" / "trainval_net_torch.py"
     spec = importlib.util.spec_from_file_location("trainval_net_torch", path)
     cli = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cli)
     res = cli.main([
         "--device", "cpu", "--net", "res50", "--net_type", "lidar", "--scale", "0.25",
-        "--iters", "1", "--batch_size", "1",
+        "--iters", "1", "--batch_size", "1", "--out_dir", str(tmp_path),
         "--set", "COMPUTE_DTYPE", "float32", "STATIC.NMS_PRE_TRAIN", "256",
         "TRAIN.RPN_POST_NMS_TOP_N", "64", "TRAIN.ROI_BATCH_SIZE", "32",
         "STATIC.MAX_POINTS", "8192"])
     assert len(res["ms"]) == 1
-    assert all(np.isfinite(v) for v in res["losses"][0].values())
-    assert res["losses"][0]["total_loss"] > 0
+    assert all(np.isfinite(v) for v in res["history"][0].values())
+    assert res["history"][0]["total_loss"] > 0

@@ -151,7 +151,7 @@ def test_two_iteration_leg_writes_the_quality_json(tmp_path, leg):
     assert res["final"] == written["final"]
 
 
-def test_uc_leg_is_not_ported(tmp_path):
+def test_uc_leg_runs(tmp_path):
     """The --uc leg (image_uc_scratch), which raised while uncertainty was
     not ported, runs: 2 iterations at a tiny size, T = 2 MC samples, the
     JSON of QUALITY_r5.json's image_uc_scratch leg, every number finite."""

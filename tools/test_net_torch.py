@@ -9,9 +9,11 @@ forward_test -> batched per-class NMS -> per-class lists -> AP (2d @ 0.5 for
 images, LIDAR.EVAL_TYPE for lidar), timed with CUDA events on a card.
 
 --weights_file takes a state dict in the port's layout (a `.pt` written by
-torch.save or an `.npz` of arrays keyed like the port's state_dict); without
-one the detector is randomly initialized from the config's RNG_SEED.  Orbax
-checkpoints of the JAX package are not read here.
+torch.save, an `.npz` of arrays keyed like the port's state_dict, or a
+snapshot of tools/trainval_net_torch.py, OUT_DIR/NET_TYPE/DB/checkpoints/iter_<n>,
+whose model entry is read); without one the detector is randomly
+initialized from the config's RNG_SEED.  Orbax checkpoints of the JAX
+package are not read here.
 
     python tools/test_net_torch.py --db synthetic --net res101 --net_type image --max_frames 16
     python tools/test_net_torch.py --db synthetic --net res101 --net_type lidar --scale 0.5 --max_frames 16
@@ -36,15 +38,6 @@ def parse_args(argv=None):
     return test_parser().parse_args(argv)
 
 
-def load_weights(path: str):
-    import torch
-
-    if path.endswith(".npz"):
-        with np.load(path) as z:
-            return {k: torch.from_numpy(z[k]) for k in z.files}
-    return torch.load(path, map_location="cpu", weights_only=True)
-
-
 def main(argv=None):
     args = parse_args(argv)
     import torch
@@ -58,6 +51,7 @@ def main(argv=None):
     from faster_rcnn_pytorch_multimodal_tpu_torch.inference import evaluate
     from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import build_detector
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import read_weights
 
     cfg = build_config(args_to_train_ns(args))
     device = torch.device(args.device)
@@ -67,7 +61,7 @@ def main(argv=None):
     num_classes = len(db.classes)
     model = build_detector(cfg, num_classes, device, seed=cfg.rng_seed)
     if args.weights_file:
-        model.load_state_dict(load_weights(args.weights_file), strict=True)
+        model.load_state_dict(read_weights(args.weights_file), strict=True)
         print(f"loaded weights from {args.weights_file}")
     if device.type == "cuda":
         _, seconds, _ = _build.build()
