@@ -157,6 +157,36 @@ non-zero and never prints its last line):
      snapshot at 5, then a resume to 10 held as in 23; the voxelizer must
      have run in the prefetch thread, NMS, RoI align and its backward in
      the steps.
+ 25. the dataset path (Waymo lidar), run_waymo_path: a seeded tree in the
+     unpacked layout WaymoDB reads (24 train and 8 val frames of
+     160,000-180,000 points, 10-40 vehicles and some don't-care boxes a
+     frame, per-box difficulty and point counts) under build/;
+     bev_config with STATIC.MAX_POINTS 180000 and the lidar augmentation
+     on (every native op runs).  The first 3 batches of BatchLoader(
+     workers=4) equal the serial loader's: every host array and the points
+     bitwise (rasterize off), then in Solver.train the rasters (height and
+     density bitwise, meta within 1e-5); K3 from the collector thread;
+     a batch's round trip through a spawn-context queue (the workers'
+     pipe, 28.8 MB).  Solver.train for 30 steps with 4 workers, again with
+     the prefetch thread alone, then 5 steps of the bare train loop, each
+     counted (K1, K2, K2-bwd, K3 launched); the loader's host ms a batch
+     (next() without prefetch, median of 5), the Solver's wall ms a step,
+     the median ms between batches handed out after the first and over
+     the last 10 steps (the batches drawn ahead used up) and frames/s, and
+     the bare loop's device and wall ms a step, with the card's name and
+     power limit; K3 against its twin on a loader batch's points, (8,
+     180000) -> (8, 400, 350, 15); tools/test_net_torch.py --db waymo
+     --eval_det on the val split from the 4-worker run's snapshot: L1/L2
+     AP, det files, counted.
+ 26. the dataset path (KITTI lidar), run_kitti_path: a seeded KITTI tree
+     (16 train and 8 val frames of ~120,000 points; Car, Pedestrian,
+     Cyclist and DontCare lines of all three difficulties; the camera-FOV
+     crop keeps about a quarter of the points); the test-time rain and
+     dropout once, bitwise the native library's on the same draws;
+     Solver.train for 5 steps with 2 workers and the augmentation, then
+     tools/test_net_torch.py --db kitti --eval_det (easy/moderate/hard AP),
+     both counted.  Image databases are not run here (the card's machine has
+     no cv2); tests/test_torch_port_datasets.py holds them on the CPU.
 Phase 3 also holds the multiscale RoI-align kernels against their twins at
 the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
@@ -179,15 +209,18 @@ RoI align and its backward at the res18 C4 maps' 256 channels, (8, 32,
 60, 256) x 300 and (8, 25, 22, 256) x 256, under the same limits; and the
 rotated IoU kernel on 300 pairs with collinear sides within 1e-6 of a
 float64 oracle (fault F5: the twin, as JAX, is far off there).
-Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20, 21, 22, 23, 24) runs with the launch
+Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20-26) runs with the launch
 counts set to 0 just before it and read just after.  Then one JSON line describing
 the kernels (each kernel's `launches` is the count on the newest path that runs
-it: the BEV Solver path for the voxelizer, NMS, RoI align and its backward (the
-BEV training config's shapes), rotated BEV serving for the rotated NMS, FPN
-serving and FPN training for the multiscale kernels; its times, error and
-bound are from phase 3 at that path's shapes; `launches_by_path` has all
-sixteen), the nvidia-smi name/power line, and the result line
-{"ok": true, "device": ...}.
+it: the Waymo dataset path's 4-worker Solver run for the voxelizer (timed on
+that path's own batch), the BEV Solver path for NMS, RoI align and its
+backward (the BEV training config's shapes), rotated BEV serving for the
+rotated NMS, FPN serving and FPN training for the multiscale kernels; its
+times, error and bound are from phase 3 at that path's shapes;
+`launches_by_path` has every counted path), the nvidia-smi name/power line,
+and the result line {"ok": true, "device": ...}.  Worker processes are
+spawned: this file keeps its `if __name__ == "__main__":` guard, since a
+spawned child imports the main module again.
 
 Imports nothing of JAX; needs the repository checkout around it.
 """
@@ -1295,10 +1328,12 @@ def skew_points(rng, b, p, grid):
 REPLACED_VOX_MS = {(400, 350): 0.1872, (800, 700): 0.7251}
 
 
-def check_voxelize(rng, cfg, frame_scale, p, skew=False):
+def check_voxelize(rng, cfg, frame_scale, p, skew=False, points=None):
     """The voxelizer kernel against its twin (CPU copy) and its time: height
     and density channels equal and equal over two runs, meta within 1e-5,
-    the all-invalid frame zero.  skew: frame 0's points all in one tile."""
+    the all-invalid frame zero.  skew: frame 0's points all in one tile.
+    points: (pts, valid) of a loader batch in place of the drawn cloud (no
+    all-invalid frame then)."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.voxelize import (
@@ -1308,7 +1343,8 @@ def check_voxelize(rng, cfg, frame_scale, p, skew=False):
     )
 
     grid = raster_kwargs(cfg, frame_scale)
-    pts, valid = (skew_points if skew else bev_points)(rng, B, p, grid)
+    pts, valid = points if points is not None else (skew_points if skew else bev_points)(
+        rng, B, p, grid)
     tp, tv = torch.from_numpy(pts), torch.from_numpy(valid)
     dp, dv = tp.cuda(), tv.cuda()
     got = voxelize_bev(dp, dv, **grid)
@@ -1321,7 +1357,8 @@ def check_voxelize(rng, cfg, frame_scale, p, skew=False):
     repeat = torch.equal(got[..., :s + 1], again[..., :s + 1])
     err = float((got - want).abs().max())
     meta_err = float((got[..., s + 1:] - want[..., s + 1:]).abs().max())
-    if not exact or not repeat or not meta_err <= 1e-5 or bool(got[1].any()):
+    empty_ok = points is not None or not bool(got[1].any())
+    if not exact or not repeat or not meta_err <= 1e-5 or not empty_ok:
         raise AssertionError(f"voxelize_bev {tuple(got.shape)} skew {skew}: height/density equal "
                              f"{exact}, equal over two runs {repeat}, meta err {meta_err}, "
                              f"all-invalid frame zero {not bool(got[1].any())}")
@@ -1337,9 +1374,11 @@ def check_voxelize(rng, cfg, frame_scale, p, skew=False):
     bound, by = bound_ms(dp.numel() * 4 + dv.numel() + got.numel() * 4, flops)
     hw = tuple(got.shape[1:3])
     replaced = (f"the scatter-and-finalize kernel it replaced: {REPLACED_VOX_MS[hw]} ms, PERF.md"
-                if not skew else "the replaced kernel was not timed on this case")
-    print(f"voxelize_bev points {tuple(dp.shape)} -> {tuple(got.shape)}"
-          f"{' (frame 0: every point in one tile)' if skew else ''}: height and density "
+                if not skew and points is None else
+                "the replaced kernel was not timed on this case")
+    case = (" (frame 0: every point in one tile)" if skew else
+            f" (a loader batch: {int(valid.sum())} valid points)" if points is not None else "")
+    print(f"voxelize_bev points {tuple(dp.shape)} -> {tuple(got.shape)}{case}: height and density "
           f"channels equal, and equal over two runs; meta channels max err {meta_err} (limit "
           f"1e-5), filled cells {int((want[..., s] > 0).sum())}; kernel {spread(t)} ({replaced}), "
           f"plain twin on the card {plain_ms} ms, bound {bound} ms ({by})")
@@ -2510,6 +2549,555 @@ def run_trained_serving(model, cfg, smi):
     return launches
 
 
+# -- the dataset paths: seeded Waymo and KITTI trees, real-sized frames --------
+
+DATASET_ROOT = REPO / "build" / "chip_smoke_datasets"
+# the dataset paths: bev_config at a Waymo top-lidar sweep's size, the JAX
+# defaults' augmentation (flips, gauss jitter, dropout, the x/y swap:
+# config.py:250-254) plus the rotation, so that every native op runs
+WAYMO_OVERRIDES = ("STATIC.MAX_POINTS", "180000", "LIDAR.EN_AUG_ROTATE", "True")
+DATASET_STEPS = 30  # the loaders run ahead up to 16 batches: the last 10 steps are the steady ones
+STEADY_STEPS = 10
+PIPE_TRIPS = 5
+KITTI_STEPS = 5
+RECORDED_BATCHES = 3
+WAYMO_TRAIN, WAYMO_VAL = 24, 8
+KITTI_TRAIN, KITTI_VAL = 16, 8
+# a KITTI-like calibration (P2 and Tr_velo_to_cam of the raw KITTI rig)
+KITTI_CALIB = """P0: 721.5377 0 609.5593 0 0 721.5377 172.854 0 0 0 1 0
+P1: 721.5377 0 609.5593 -387.5744 0 721.5377 172.854 0 0 0 1 0
+P2: 721.5377 0 609.5593 44.85728 0 721.5377 172.854 0.2163791 0 0 1 0.002745884
+P3: 721.5377 0 609.5593 -339.5242 0 721.5377 172.854 2.199936 0 0 1 0.002729905
+R0_rect: 0.9999239 0.00983776 -0.007445048 -0.009869795 0.9999421 -0.004278459 0.007402527 0.004351614 0.9999631
+Tr_velo_to_cam: 0.007533745 -0.9999714 -0.000616602 -0.004069766 0.01480249 0.0007280733 -0.9998902 -0.07631618 0.9998621 0.007523790 0.01480755 -0.2717806
+Tr_imu_to_velo: 0.9999976 0.0007553071 -0.002035826 -0.8086759 -0.0007854027 0.9998898 -0.01482298 0.3195559 0.002024406 0.01482454 0.9998881 -0.7997231
+"""
+
+
+def box_points(rng, box, n):
+    """n points inside a 7-DoF box [xc, yc, zc, l, w, h, heading]."""
+    local = (rng.uniform(-0.5, 0.5, (n, 3)) * box[3:6]).astype(np.float64)
+    c, s = np.cos(box[6]), np.sin(box[6])
+    x = local[:, 0] * c - local[:, 1] * s + box[0]
+    y = local[:, 0] * s + local[:, 1] * c + box[1]
+    return np.stack([x, y, local[:, 2] + box[2]], 1)
+
+
+def sweep(rng, n, max_range, ground_z):
+    """n returns of a spinning lidar: ground rings denser near the sensor,
+    the rest on walls and vegetation up to max_range, all around."""
+    n_ground = int(n * 0.7)
+    az = rng.uniform(-np.pi, np.pi, n)
+    r = np.concatenate([2.5 + (max_range - 2.5) * rng.uniform(0, 1, n_ground) ** 2,
+                        rng.uniform(5, max_range, n - n_ground)])
+    z = np.concatenate([ground_z + rng.normal(0, 0.04, n_ground),
+                        ground_z + rng.uniform(0, 4.0, n - n_ground)])
+    return np.stack([r * np.cos(az), r * np.sin(az), z], 1)
+
+
+def waymo_frame(rng, n_points):
+    """One Waymo top-lidar sweep (vehicle frame, ground at z 0) with 10-40
+    vehicles and a few pedestrians, cyclists and signs (the don't-care
+    classes); returns the (n, 5) float32 points and the label dict's box,
+    class, difficulty and meta lists."""
+    n_veh, n_dc = rng.randint(10, 41), rng.randint(3, 9)
+    boxes, classes, diff, meta, chunks = [], [], [], [], []
+    for k in range(n_veh + n_dc):
+        vehicle = k < n_veh
+        r, az = rng.uniform(6, 68), rng.uniform(-0.9, 0.9)
+        dims = ([rng.uniform(3.8, 5.6), rng.uniform(1.7, 2.2), rng.uniform(1.4, 2.0)] if vehicle
+                else [rng.uniform(0.5, 1.8), rng.uniform(0.5, 0.9), rng.uniform(1.2, 1.9)])
+        box = np.array([r * np.cos(az), r * np.sin(az), dims[2] / 2, *dims,
+                        rng.uniform(-np.pi, np.pi)])
+        # returns fall off with range; some boxes are nearly empty (level 2)
+        n = int(min(2500, 9e4 / r ** 2) * rng.uniform(0.05, 1.0))
+        chunks.append(box_points(rng, box, n))
+        boxes.append({"xc": box[0], "yc": box[1], "zc": box[2], "lx": box[3], "wy": box[4],
+                      "hz": box[5], "heading": box[6]})
+        classes.append(1 if vehicle else int(rng.choice([2, 3, 4])))
+        diff.append(int(rng.choice([0, 2], p=[0.8, 0.2])))
+        meta.append({"pts": n, "avg_intensity": float(rng.uniform(0, 1)),
+                     "avg_elongation": float(rng.uniform(0, 0.2)),
+                     "return_ratio": float(rng.uniform(0.5, 1))})
+    xyz = np.concatenate(chunks)
+    xyz = np.concatenate([sweep(rng, n_points - len(xyz), 75.0, 0.0), xyz])
+    pts = np.concatenate([xyz, rng.uniform(0, 1, (len(xyz), 1)),
+                          rng.uniform(0, 0.3, (len(xyz), 1))], 1).astype(np.float32)
+    return pts, {"box": boxes, "class": classes, "difficulty": diff, "meta": meta}
+
+
+def make_waymo_tree(root: Path, seed: int = 0) -> None:
+    """The unpacked layout WaymoDB reads (tools/waymo_unpack_combined.py):
+    waymo/{train,val}/point_clouds/<frame>.npy of 160,000-180,000 points
+    (x, y, z, intensity, elongation) and labels/lidar_labels.json."""
+    rng = np.random.RandomState(seed)
+    frame = 0
+    for split, count in (("train", WAYMO_TRAIN), ("val", WAYMO_VAL)):
+        base = root / "waymo" / split
+        (base / "point_clouds").mkdir(parents=True)
+        (base / "labels").mkdir()
+        labels = []
+        for _ in range(count):
+            stem = f"{frame:07d}"
+            pts, lab = waymo_frame(rng, rng.randint(160000, 180001))
+            np.save(base / "point_clouds" / f"{stem}.npy", pts)
+            lab.update({"assoc_frame": stem, "id": [f"t{frame}_{i}" for i in range(len(lab["box"]))],
+                        "scene_type": [{"tod": ("Day", "Night", "Dawn/Dusk")[frame % 3],
+                                        "weather": "sunny"}]})
+            labels.append(lab)
+            frame += 1
+        with open(base / "labels" / "lidar_labels.json", "w") as f:
+            json.dump(labels, f)
+
+
+def kitti_label(rng, calib, kind, box):
+    """A KITTI label line for a velo-frame box [xc, yc, zc, l, w, h, yaw]:
+    the bottom center and heading in the rectified camera frame, the 2D box
+    from the projected corners, occlusion and truncation drawn so that the
+    three difficulties all occur."""
+    from faster_rcnn_pytorch_multimodal_tpu_torch.utils.kitti_utils import Object3d, compute_box_3d
+
+    center = calib.project_velo_to_rect(box[None, :3])[0]
+    bottom = center + np.array([0.0, box[5] / 2, 0.0])
+    ry = -box[6] - np.pi / 2
+    ry = float(np.arctan2(np.sin(ry), np.cos(ry)))
+    line = (f"{kind} 0 0 0 0 0 1 1 {box[5]:.2f} {box[4]:.2f} {box[3]:.2f} "
+            f"{bottom[0]:.2f} {bottom[1]:.2f} {bottom[2]:.2f} {ry:.2f}")
+    _, uv = compute_box_3d(Object3d(line), calib)
+    x1, y1 = np.clip(uv.min(0), 0, [1241, 374])
+    x2, y2 = np.clip(uv.max(0), 0, [1241, 374])
+    trunc = float(rng.choice([0.0, 0.2, 0.4]))
+    occ = int(rng.choice([0, 1, 2]))
+    return (f"{kind} {trunc:.2f} {occ} {ry:.2f} {x1:.2f} {y1:.2f} {x2:.2f} {y2:.2f} "
+            f"{box[5]:.2f} {box[4]:.2f} {box[3]:.2f} {bottom[0]:.2f} {bottom[1]:.2f} "
+            f"{bottom[2]:.2f} {ry:.2f}")
+
+
+def make_kitti_tree(root: Path, seed: int = 1) -> None:
+    """The layout KittiDB reads: kitti/training/{velodyne/*.bin (x, y, z,
+    intensity; ~120,000 points, all around), label_2/*.txt (Car,
+    Pedestrian, Cyclist and DontCare lines), calib/*.txt} and
+    kitti/splits/{train,val}.txt."""
+    from faster_rcnn_pytorch_multimodal_tpu_torch.utils.kitti_utils import Calibration
+
+    rng = np.random.RandomState(seed)
+    base = root / "kitti" / "training"
+    for sub in ("velodyne", "label_2", "calib"):
+        (base / sub).mkdir(parents=True)
+    (root / "kitti" / "splits").mkdir()
+    (base / "calib" / "calib.txt").write_text(KITTI_CALIB)
+    calib = Calibration(str(base / "calib" / "calib.txt"))
+    (base / "calib" / "calib.txt").unlink()
+    ids = [f"{i:06d}" for i in range(KITTI_TRAIN + KITTI_VAL)]
+    for idx in ids:
+        lines, chunks = [], []
+        for k in range(rng.randint(6, 16)):
+            kind = "Car" if k < 4 else str(rng.choice(["Car", "Pedestrian", "Cyclist"]))
+            x = rng.uniform(6, 55)
+            dims = ([rng.uniform(3.5, 4.8), rng.uniform(1.5, 1.9), rng.uniform(1.4, 1.7)]
+                    if kind == "Car" else [rng.uniform(0.5, 1.8), rng.uniform(0.5, 0.8),
+                                           rng.uniform(1.5, 1.9)])
+            box = np.array([x, rng.uniform(-0.6, 0.6) * x, -1.73 + dims[2] / 2, *dims,
+                            rng.uniform(-np.pi, np.pi)])
+            chunks.append(box_points(rng, box, int(min(1500, 6e4 / x ** 2))))
+            lines.append(kitti_label(rng, calib, kind, box))
+        for _ in range(rng.randint(1, 4)):
+            x1, y1 = rng.uniform(0, 1100), rng.uniform(120, 300)
+            lines.append(f"DontCare -1 -1 -10 {x1:.2f} {y1:.2f} {x1 + rng.uniform(20, 120):.2f} "
+                         f"{y1 + rng.uniform(10, 60):.2f} -1 -1 -1 -1000 -1000 -1000 -10")
+        xyz = np.concatenate(chunks)
+        xyz = np.concatenate([sweep(rng, rng.randint(115000, 125001) - len(xyz), 80.0, -1.73), xyz])
+        pts = np.concatenate([xyz, rng.uniform(0, 1, (len(xyz), 1))], 1).astype(np.float32)
+        pts.tofile(base / "velodyne" / f"{idx}.bin")
+        (base / "label_2" / f"{idx}.txt").write_text("\n".join(lines) + "\n")
+        (base / "calib" / f"{idx}.txt").write_text(KITTI_CALIB)
+    (root / "kitti" / "splits" / "train.txt").write_text("\n".join(ids[:KITTI_TRAIN]))
+    (root / "kitti" / "splits" / "val.txt").write_text("\n".join(ids[KITTI_TRAIN:]))
+
+
+def test_net_tool():
+    """tools/test_net_torch.py as a module (its main takes argv)."""
+    import importlib.util
+
+    path = REPO / "tools" / "test_net_torch.py"
+    spec = importlib.util.spec_from_file_location("test_net_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def recording(loader, n, marks):
+    """Wrap loader.next: keep copies of the first n batches it hands out,
+    and the host time at each hand-out (marks)."""
+    import torch
+
+    kept, inner = [], loader.next
+
+    def next_batch():
+        b = inner()
+        marks.append(time.perf_counter())
+        if len(kept) < n:
+            kept.append({k: v.clone() if isinstance(v, torch.Tensor) else np.copy(v)
+                         for k, v in b.items()})
+        return b
+
+    loader.next = next_batch
+    return kept
+
+
+def as_host(v):
+    import torch
+
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def same_batches(got, want, s, name) -> dict:
+    """Loader batches against the serial loader's: every host array (and
+    the points) bitwise, the raster's height and density channels bitwise,
+    its meta channels within 1e-5 (sums in arrival order in the voxelizer's
+    tile blocks); raises otherwise.  Returns the raster's largest meta
+    difference and whether the rasters were bitwise equal too."""
+    meta, bitwise = 0.0, True
+    for i, (g, w) in enumerate(zip(got, want)):
+        if set(g) != set(w):
+            raise AssertionError(f"{name}: batch {i} keys {sorted(g)} vs {sorted(w)}")
+        for k in w:
+            a, b = as_host(g[k]), as_host(w[k])
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{name}: batch {i} {k} {a.shape} {a.dtype} vs "
+                                     f"{b.shape} {b.dtype}")
+            if k == "data" and a.dtype == np.float32:
+                if not np.array_equal(a[..., :s + 1], b[..., :s + 1]):
+                    raise AssertionError(f"{name}: batch {i}: raster height/density differ")
+                meta = max(meta, float(np.abs(a[..., s + 1:] - b[..., s + 1:]).max()))
+                bitwise &= np.array_equal(a.view(np.uint32), b.view(np.uint32))
+            elif not np.array_equal(a.view(np.uint8), b.view(np.uint8)):
+                raise AssertionError(f"{name}: batch {i}: {k} differs")
+    if meta > 1e-5:
+        raise AssertionError(f"{name}: raster meta channels differ by {meta}")
+    return {"meta_err": meta, "raster_bitwise": bitwise}
+
+
+def dataset_solver(cfg, db, out, workers, steps, marks, keep=0):
+    """Solver.train of `steps` steps on the real database through a
+    BatchLoader with `workers` worker processes (0: the prefetch thread),
+    counted; a fresh output directory, so nothing resumes.  Returns the
+    Solver, its result, the launches and the first `keep` batches."""
+    import shutil
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training import solver as S
+
+    shutil.rmtree(out, ignore_errors=True)
+    loader = BatchLoader(db, cfg, B, device="cuda", augment=cfg.train.augment_en,
+                         seed=cfg.rng_seed, workers=workers)
+    kept = recording(loader, keep, marks)
+    model, _ = S.create_train_state(cfg, len(db.classes), "cuda", seed=0)
+    solver = S.Solver(cfg, scale_terminators(model), loader, output_dir=str(out))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    res = solver.train(steps)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCH_COUNTS)
+    return solver, res, launches, kept
+
+
+def steady_ms(marks, last=None) -> float:
+    """Median host ms between batches handed to the step after the first
+    (the first waits for the workers' start), or over the last `last`
+    steps (the batches drawn ahead during the first steps used up)."""
+    marks = marks[1:] if last is None else marks[-last - 1:]
+    return float(np.median(np.diff(marks))) * 1e3 if len(marks) > 1 else float("nan")
+
+
+def pipe_ms(batch) -> list:
+    """Host ms of a batch's round trip through a spawn-context queue in this
+    process: the workers' pipe (pickled in the worker, written, read and
+    unpickled in the collector), PIPE_TRIPS times."""
+    import multiprocessing as mp
+
+    q = mp.get_context("spawn").Queue()
+    out = []
+    try:
+        for _ in range(PIPE_TRIPS):
+            t0 = time.perf_counter()
+            q.put(batch)
+            back = q.get()
+            out.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(back["points"], batch["points"]):
+                raise AssertionError("pipe: the batch came back changed")
+    finally:
+        q.close()
+        q.join_thread()
+    return out
+
+
+def check_finite(res, name):
+    if not all(np.isfinite(v) for losses in res["history"] for v in losses.values()):
+        raise AssertionError(f"{name}: a non-finite loss")
+
+
+def run_waymo_path(smi):
+    """Dataset path (Waymo lidar): a seeded Waymo tree of real-sized sweeps,
+    bev_config at STATIC.MAX_POINTS 180000 with the lidar augmentation on.
+    The first batches of 4 worker processes against the serial loader's
+    (rasterize off: every host array and the points bitwise); Solver.train
+    with 4 workers (its first batches' rasters against the serial loader's,
+    K3 from the collector thread), then with the prefetch thread alone, then
+    the bare loop on a serial loader, each counted; the loader's host ms a
+    batch; K3 against its twin on a loader batch's 180,000-point frames;
+    tools/test_net_torch.py --db waymo --eval_det on the val split from the
+    4-worker run's snapshot (L1/L2 AP, det files).  Returns the launches of
+    each run and K3's measurement."""
+    import shutil
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.datasets import get_db
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.native import pc_ops
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training import solver as S
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
+
+    root = DATASET_ROOT / "waymo_path"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    lib = pc_ops.build()
+    t_lib = time.perf_counter() - t0
+    make_waymo_tree(root / "data")
+    gen_s = time.perf_counter() - t0 - t_lib
+    cfg = make_config(BEV_OVERRIDES, WAYMO_OVERRIDES, (
+        "DATA_DIR", str(root / "data"), "CACHE_DIR", str(root / "cache"),
+        "TRAIN.SNAPSHOT_ITERS", str(DATASET_STEPS)))
+    db = get_db("waymo", cfg, "train")
+    sizes = [len(np.load(e["filename"], mmap_mode="r")) for e in db.roidb]
+    n_veh = [len(e["boxes"]) for e in db.roidb]
+    n_dc = [len(e["boxes_dc"]) for e in db.roidb]
+    print(f"Waymo tree: {len(db)} train frames of {min(sizes)}-{max(sizes)} points, {min(n_veh)}-"
+          f"{max(n_veh)} vehicles and {min(n_dc)}-{max(n_dc)} don't-care boxes a frame in range, "
+          f"written in {gen_s:.1f} s; native library {lib} (built in {t_lib:.2f} s); image "
+          f"databases are not run on the card (no cv2 there): tests/test_torch_port_datasets.py "
+          f"holds them on the CPU")
+    s = cfg.lidar.num_slices
+    try:
+        # the serial loader's first batches: host arrays with the points, and
+        # with the raster
+        host_serial = BatchLoader(db, cfg, B, device="cuda", seed=cfg.rng_seed, rasterize=False)
+        want_host = [host_serial._build_batch(host_serial._sample_task())
+                     for _ in range(RECORDED_BATCHES)]
+        serial = BatchLoader(db, cfg, B, device="cuda", seed=cfg.rng_seed)
+        want = [S.batch_to_device(serial._build_batch(serial._sample_task()), torch.device("cuda"))
+                for _ in range(RECORDED_BATCHES)]
+        workers = BatchLoader(db, cfg, B, device="cuda", seed=cfg.rng_seed, rasterize=False,
+                              workers=4)
+        t0 = time.perf_counter()
+        workers.start()
+        try:
+            got_host = [workers.next() for _ in range(RECORDED_BATCHES)]
+            first_s = time.perf_counter() - t0
+        finally:
+            workers.kill()
+        same_batches(got_host, want_host, s, "4 workers (host arrays, points)")
+        pipe = pipe_ms(want_host[0])
+        print(f"4 workers: the first {RECORDED_BATCHES} batches (rasterize off) equal the serial "
+              f"loader's bitwise, every host array and the points ({want_host[0]['points'].shape}"
+              f" float32, {want_host[0]['points'].nbytes / 1e6:.1f} MB a batch through the "
+              f"workers' pipe); {first_s:.2f} s from start() to the third batch, the workers' "
+              f"start included; one batch's round trip through a spawn-context queue in this "
+              f"process {float(np.median(pipe))} ms median of {PIPE_TRIPS} ({pipe})")
+
+        # Solver.train with 4 workers: counted; its first batches' rasters
+        marks_w: list = []
+        solver_w, res_w, launches_w, kept = dataset_solver(
+            cfg, db, root / "solver_workers", 4, DATASET_STEPS, marks_w, RECORDED_BATCHES)
+        check_finite(res_w, "Waymo Solver (4 workers)")
+        raster_thread = solver_w.train_loader.last_raster_thread
+        cmp = same_batches(kept, want, s, "4 workers (rasters)")
+        print(f"4 workers in Solver.train: the first {RECORDED_BATCHES} batches against the "
+              f"serial loader's: host arrays bitwise, raster height and density bitwise, meta "
+              f"max diff {cmp['meta_err']} (limit 1e-5), rasters bitwise {cmp['raster_bitwise']}; "
+              f"voxelize_bev launched from the thread {raster_thread!r}")
+        t0 = time.perf_counter()
+        solver_w.snapshot(DATASET_STEPS + 1)
+        snap_ms = (time.perf_counter() - t0) * 1e3
+
+        marks_t: list = []
+        _, res_t, launches_t, _ = dataset_solver(cfg, db, root / "solver_thread", 0,
+                                                 DATASET_STEPS, marks_t)
+        check_finite(res_t, "Waymo Solver (thread)")
+
+        # the loader's host time a batch, and the bare loop on a serial loader
+        plain = BatchLoader(db, cfg, B, device="cuda", seed=cfg.rng_seed)
+        host_ms = []
+        for _ in range(LOADER_BATCHES):
+            t0 = time.perf_counter()
+            plain.next()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        model = solver_w.model
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        bare = S.train(model, DetectorSGD(model, cfg), plain, BARE_STEPS,
+                       torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        bare_wall = (time.perf_counter() - t0) * 1e3 / BARE_STEPS
+        launches_bare = dict(_build.LAUNCH_COUNTS)
+        check_finite({"history": bare["losses"]}, "Waymo bare loop")
+
+        # K3 on a loader batch's own points
+        vox = check_voxelize(None, cfg, float(cfg.train.scales[0]), None,
+                             points=(want_host[0]["points"], want_host[0]["point_valid"]))
+
+        # evaluation through tools/test_net_torch.py on the val split
+        snap = root / "solver_workers" / "checkpoints" / f"iter_{DATASET_STEPS}"
+        argv = ["--db", "waymo", "--data_dir", str(root / "data"), "--cache_dir",
+                str(root / "cache"), "--net", "res101", "--net_type", "lidar", "--scale", "0.5",
+                "--batch_size", str(B), "--eval_det", "1", "--thresh", "0.05", "--weights_file",
+                str(snap), "--out_dir", str(root / "eval"), "--set", "STATIC.MAX_GT", "64",
+                "STATIC.MAX_POINTS", "180000", "STATIC.NMS_PRE_TEST", "2048",
+                "TEST.RPN_POST_NMS_TOP_N", "300"]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        ap = test_net_tool().main(argv)
+        torch.cuda.synchronize()
+        launches_eval = dict(_build.LAUNCH_COUNTS)
+        ev = root / "eval" / "eval" / "waymo_lidar_val"
+        det_lines = sum(1 for _ in open(ev / "det_val_vehicle.car.txt"))
+        written = all((ev / f).exists() for f in ("detections.pkl", "vehicle.car_pr.pkl"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    levels = sorted(k[1] for k in ap)
+    print(f"Waymo eval (tools/test_net_torch.py --db waymo --eval_det, {WAYMO_VAL} val frames, "
+          f"weights of the 4-worker run's iter_{DATASET_STEPS}): AP {ap}; det_val_vehicle.car.txt "
+          f"{det_lines} lines, detections.pkl and vehicle.car_pr.pkl written {written}; launches "
+          f"{launches_eval}")
+    for name, res, marks, launches in (("4 workers", res_w, marks_w, launches_w),
+                                       ("prefetch thread", res_t, marks_t, launches_t)):
+        steady, last = steady_ms(marks), steady_ms(marks, STEADY_STEPS)
+        print(f"Waymo Solver, {name} ({smi}): wall {res['wall_s'] * 1e3 / DATASET_STEPS} ms/step "
+              f"over {DATASET_STEPS} steps (the loader's start, the first step and one snapshot "
+              f"included), {res['frames_per_sec']} frames/s; ms between batches handed out "
+              f"(median): {steady} after the first, {last} over the last {STEADY_STEPS} steps "
+              f"({B / (last / 1e3)} frames/s); device ms/step median {float(np.median(res['ms']))}, "
+              f"over the last {STEADY_STEPS} {float(np.median(res['ms'][-STEADY_STEPS:]))} (first "
+              f"{res['ms'][0]}); launches {launches}")
+    print(f"Waymo ({smi}): one snapshot write {snap_ms} ms; loader host "
+          f"{float(np.median(host_ms))} ms/batch median of {LOADER_BATCHES} ({host_ms}; next() "
+          f"without prefetch, workers=0, {B} frames of 160,000-180,000 points read, augmented, "
+          f"padded to 180,000, copied up and rasterized); bare train loop "
+          f"{float(np.median(bare['ms']))} ms/step device median, {bare_wall} ms/step wall over "
+          f"{BARE_STEPS} steps (the serial loader included); launches {launches_bare}")
+    if levels != ["L1", "L2"] or not all(np.isfinite(v) for v in ap.values()) or not written:
+        raise AssertionError(f"Waymo eval: AP {ap}")
+    for name, launches, need in (
+            ("4 workers", launches_w, ("voxelize_bev", "nms", "roi_align", "roi_align_bwd")),
+            ("thread", launches_t, ("voxelize_bev", "nms", "roi_align", "roi_align_bwd")),
+            ("bare", launches_bare, ("voxelize_bev", "nms", "roi_align", "roi_align_bwd")),
+            ("eval", launches_eval, ("voxelize_bev", "nms", "roi_align"))):
+        if not all(launches[k] > 0 for k in need):
+            raise AssertionError(f"Waymo {name}: a kernel never launched: {launches}")
+    if raster_thread != "BatchLoader-collector":
+        raise AssertionError(f"Waymo: the raster was made on {raster_thread!r}")
+    return {"dataset_waymo": launches_w, "dataset_waymo_thread": launches_t,
+            "dataset_waymo_bare": launches_bare, "dataset_waymo_eval": launches_eval}, vox
+
+
+def run_kitti_path(smi):
+    """Dataset path (KITTI lidar): a seeded KITTI tree (~120,000 points a
+    sweep, the camera-FOV crop keeping about a quarter), bev_config with the
+    lidar augmentation; the test-time rain and dropout once through the
+    native library (against the library called directly on the same draws);
+    Solver.train of 5 steps with 2 worker processes, counted; then
+    tools/test_net_torch.py --db kitti --eval_det (easy/moderate/hard AP).
+    Returns the launches."""
+    import shutil
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.datasets import get_db
+    from faster_rcnn_pytorch_multimodal_tpu_torch.native import pc_ops
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+
+    root = DATASET_ROOT / "kitti_path"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_kitti_tree(root / "data")
+    gen_s = time.perf_counter() - t0
+    data = ("DATA_DIR", str(root / "data"), "CACHE_DIR", str(root / "cache"))
+    cfg = make_config(BEV_OVERRIDES, ("LIDAR.EN_AUG_ROTATE", "True", "TRAIN.SNAPSHOT_ITERS",
+                                      str(KITTI_STEPS)), data)
+    try:
+        db = get_db("kitti", cfg, "train")
+        raw = [len(np.fromfile(e["filename"], np.float32)) // 4 for e in db.roidb]
+        kept = [len(db._load_frame_data(e)) for e in db.roidb]
+        diff = np.concatenate([e["difficulty"] for e in db.roidb])
+        print(f"KITTI tree: {len(db)} train frames of {min(raw)}-{max(raw)} points, the "
+              f"camera-FOV crop keeps {min(kept)}-{max(kept)} ({np.mean(kept) / np.mean(raw):.3f}"
+              f" of them); cars by difficulty (easy, moderate, hard, other) "
+              f"{np.bincount(diff, minlength=4).tolist()}, written in {gen_s:.1f} s; image "
+              f"databases are not run on the card (no cv2 there): tests/test_torch_port_datasets.py "
+              f"holds them on the CPU")
+
+        # the test-time rain and dropout through the native library
+        rain_cfg = make_config(BEV_OVERRIDES, data, ("TEST.RAIN_SIM_EN", "True",
+                                                     "TEST.DROPOUT_EN", "True"))
+        val = get_db("kitti", rain_cfg, "val")
+        entry = val.roidb[0]
+        plain = val._load_frame_data(entry)
+        plain = np.hstack([plain, np.zeros((len(plain), 1), np.float32)])
+        got = val.frame(0, rng=np.random.RandomState(7))["points"]
+        rng = np.random.RandomState(7)
+        want = pc_ops.pc_rain_sim(plain, float(rain_cfg.test.rain_rate),
+                                  float(val._lidar_max_range()), int(rng.randint(1 << 31)))
+        want = pc_ops.pc_dropout(want, 0.8, int(rng.randint(1 << 31)))
+        if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+            raise AssertionError("KITTI test-time rain and dropout: the frame's points are not "
+                                 "the native library's")
+        print(f"KITTI test-time TEST.RAIN_SIM_EN and TEST.DROPOUT_EN (rain rate "
+              f"{rain_cfg.test.rain_rate}): {len(plain)} -> {len(got)} points, bitwise the native "
+              f"library's ({pc_ops.library_path()}) on the same draws")
+
+        marks: list = []
+        _, res, launches, _ = dataset_solver(cfg, db, root / "solver", 2, KITTI_STEPS, marks)
+        check_finite(res, "KITTI Solver (2 workers)")
+        snap = root / "solver" / "checkpoints" / f"iter_{KITTI_STEPS}"
+        argv = ["--db", "kitti", "--data_dir", str(root / "data"), "--cache_dir",
+                str(root / "cache"), "--net", "res101", "--net_type", "lidar", "--scale", "0.5",
+                "--batch_size", str(B), "--eval_det", "1", "--thresh", "0.05", "--weights_file",
+                str(snap), "--out_dir", str(root / "eval"), "--set", "STATIC.MAX_GT", "64",
+                "STATIC.MAX_POINTS", "32768", "STATIC.NMS_PRE_TEST", "2048",
+                "TEST.RPN_POST_NMS_TOP_N", "300"]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        ap = test_net_tool().main(argv)
+        torch.cuda.synchronize()
+        launches_eval = dict(_build.LAUNCH_COUNTS)
+        det_lines = sum(1 for _ in open(root / "eval" / "eval" / "kitti_lidar_val" /
+                                        "det_val_car.txt"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    steady = steady_ms(marks)
+    print(f"KITTI Solver, 2 workers ({smi}): wall {res['wall_s'] * 1e3 / KITTI_STEPS} ms/step over "
+          f"{KITTI_STEPS} steps (the workers' start, the first step and one snapshot included), "
+          f"steady {steady} ms between batches, {B / (steady / 1e3)} frames/s; device ms/step "
+          f"median {float(np.median(res['ms']))}; launches {launches}")
+    print(f"KITTI eval (tools/test_net_torch.py --db kitti --eval_det, {KITTI_VAL} val frames): AP "
+          f"{ap}; det_val_car.txt {det_lines} lines; launches {launches_eval}")
+    if sorted(k[1] for k in ap) != ["easy", "hard", "moderate"]:
+        raise AssertionError(f"KITTI eval: AP {ap}")
+    need = ("voxelize_bev", "nms", "roi_align", "roi_align_bwd")
+    if not all(launches[k] > 0 for k in need) or not all(
+            launches_eval[k] > 0 for k in need[:3]):
+        raise AssertionError(f"KITTI: a kernel never launched: {launches}, {launches_eval}")
+    return {"dataset_kitti": launches, "dataset_kitti_eval": launches_eval}
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc").is_dir():
         print(f"chip_smoke: {PKG}/ not found beside this script", file=sys.stderr)
@@ -2702,6 +3290,12 @@ def main() -> int:
     solver_bev = run_solver_path(bev_train_cfg, smi, steps=10, snap=5,
                                  need=("voxelize_bev", "nms", "roi_align", "roi_align_bwd"))
 
+    phase("Dataset path (Waymo lidar)")
+    waymo_paths, vox_waymo_path = run_waymo_path(smi)
+
+    phase("Dataset path (KITTI lidar)")
+    kitti_paths = run_kitti_path(smi)
+
     paths = {"serving": serving, "training": training, "bev_serving": bev_serving,
              "fpn_serving": fpn_serving, "fpn_training": fpn_training,
              "bev_training": bev_training, "bev_rotated_serving": bev_rotated,
@@ -2709,7 +3303,7 @@ def main() -> int:
              "bev_live_serving": bev_live_serving, "uc_serving": uc_serving,
              "uc_training": uc_training, "bev_uc_training": bev_uc_training,
              "bev_uc_serving": bev_uc_serving, "solver_image": solver_image,
-             "solver_bev": solver_bev}
+             "solver_bev": solver_bev, **waymo_paths, **kitti_paths}
 
     def entry(name, source, replaces, path, measured):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -2721,7 +3315,8 @@ def main() -> int:
     nms_err = max(r["max_abs_err"] for r in (nms_prop, nms_filter, nms_train, nms_bev,
                                              nms_bev_filter, nms_bev_train))
     kernels = {"kernels": [
-        entry("voxelize_bev", "voxelize.cu", "ops/voxelize.py:39", "solver_bev", vox),
+        entry("voxelize_bev", "voxelize.cu", "ops/voxelize.py:39", "dataset_waymo",
+              vox_waymo_path),
         entry("nms", "nms.cu", "ops/nms.py:53", "solver_bev",
               {**nms_bev_train, "max_abs_err": nms_err}),
         entry("roi_align", "roi_align.cu", "ops/roi_align.py:122", "solver_bev",
@@ -2737,7 +3332,8 @@ def main() -> int:
               {k: nms_rot[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}),
     ]}
     print("timed at the shapes of the path each entry's launches come from: voxelize_bev "
-          "(8, 32768) -> (8, 400, 350, 15) (the points counting-sorted by 8 x 32 tiles of the "
+          "(8, 180000) -> (8, 400, 350, 15) on a batch of the Waymo dataset path (the points "
+          "counting-sorted by 8 x 32 tiles of the "
           "raster, then one block a tile sums its list in shared memory and writes its cells "
           "once: no zeroed raster, no full-raster scratch); nms (8, 1024) -> 1024 slots @ 0.7 (BEV "
           "training; three launches: a cluster of 8 blocks a problem sorts the lanes (bitonic "
@@ -2762,7 +3358,8 @@ def main() -> int:
           "against the twin's IoU); library_ms null: no "
           "single PyTorch call computes these functions (torchvision's nms, roi_align and "
           "MultiScaleRoIAlign are not installed)")
-    print(f"also: voxelize_bev (8, 180000) -> 800 x 700: {vox_waymo}; frame 0 in one tile: "
+    print(f"also: voxelize_bev (8, 32768) -> 400 x 350 (the BEV paths' bench shape): {vox}; "
+          f"(8, 180000) -> 800 x 700: {vox_waymo}; frame 0 in one tile: "
           f"(8, 32768) -> 400 x 350 {vox_skew}, (8, 180000) -> 800 x 700 {vox_skew_waymo}; "
           f"roi_align_multiscale every RoI on p2: bf16 {ms_fwd_p2[torch.bfloat16]}, fp32 "
           f"{ms_fwd_p2[torch.float32]}; nms (8, 2048) -> 300: "

@@ -9,13 +9,18 @@ batch loader, the evaluation, the weight-key mapping, the CLIs' flags) it
 keeps as its own copies (config.py, data/, evaluation/, utils/convert.py,
 cli.py).
 
-Ported so far: the image C4 serving path (res50/101/152 backbone, RPN,
-proposals, RoI align, layer4 tail, predictors, final filtering), its
-training step (anchor and proposal targets, losses, the SGD chain, a minimal
-train loop), and the LiDAR BEV C4 serving path (the voxelizer, 3D anchors,
-7-DoF decode, the footprint NMS filter), with hand-written CUDA kernels for
-NMS, RoI align (forward and feature gradient) and the BEV voxelizer under
-csrc/, built at first use (ops/_build.py).
+Ported so far: every model path of the JAX package's C4 and FPN image
+detectors and its LiDAR BEV C4 detector (res18/34/50/101/152, frozen or
+live BN), serving and training, with axis-aligned or rotated NMS and with
+uncertainty on the C4 paths; the Solver (snapshots, exact resume, the val
+cycle, preload) and the loader (prefetch thread, worker processes, resume
+state); the KITTI, Waymo and CADC databases with their augmentation (the
+native point-cloud ops of csrc/pc_ops.cpp, built with g++ at first use,
+native/pc_ops.py) and their difficulty-aware evaluation; the CLIs
+tools/*_torch.py.  The device ops are hand-written CUDA kernels under csrc/
+(NMS axis-aligned and rotated, RoI align single-level and multiscale with
+their feature gradients, the BEV voxelizer), built with nvcc at first use
+(ops/_build.py).  ROADMAP.md lists what is left (Queue A).
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,8 @@ same flags and build the same configs:
   * `test_parser`: the flags of tools/test_net.py:19-46, plus --device;
   * `train_parser`: the flags of tools/trainval_net.py:22-54, plus --device;
   * `args_to_train_ns`: tools/test_net.py:345-360;
-  * `build_config` and `build_dataset`: tools/trainval_net.py:56-120, the
-    dataset for --db synthetic only (real datasets are not ported and raise).
+  * `build_config` and `build_dataset`: tools/trainval_net.py:56-120 (the
+    synthetic dataset, or a real database through data.datasets.get_db).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.config import (
     cfg_from_list,
     default_config,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch.data.datasets import get_db
 from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
 
 
@@ -151,9 +152,10 @@ def build_config(args):
 
 def build_dataset(cfg, db_name: str, mode: str):
     """The synthetic dataset of a split (disjoint frames per split, as the
-    JAX CLI seeds them); real datasets are not ported."""
-    if not db_name.startswith("synthetic"):
-        raise NotImplementedError(
-            f"--db {db_name}: real datasets are not ported yet; use --db synthetic")
-    seed = {"train": 0, "val": 101, "test": 202}.get(mode, 0)
-    return SyntheticDataset(cfg, num_frames=64, num_classes=2, mode=mode, seed=seed)
+    JAX CLI seeds them), or the real database `db_name` (kitti, waymo,
+    cadc) under DATA_DIR; nuscenes, voc and coco raise NotImplementedError,
+    an unknown name KeyError."""
+    if db_name.startswith("synthetic"):
+        seed = {"train": 0, "val": 101, "test": 202}.get(mode, 0)
+        return SyntheticDataset(cfg, num_frames=64, num_classes=2, mode=mode, seed=seed)
+    return get_db(db_name, cfg, mode)

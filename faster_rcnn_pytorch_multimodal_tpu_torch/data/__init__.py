@@ -1,1 +1,3 @@
-"""Data: the synthetic dataset and the batch loader (copied from the JAX package)."""
+"""Data (copied from the JAX package): the synthetic dataset, the KITTI,
+Waymo and CADC databases (`datasets.get_db`), their augmentation, and the
+batch loader with its prefetch thread and worker processes."""

@@ -28,12 +28,23 @@ own from pinned host memory; `next()` makes the consumer's stream wait for
 that batch's event and marks its tensors as used there, so the caching
 allocator cannot hand their memory out while the step still reads them.
 
-Not ported: worker processes and the minibatch drawing; asking for either
-(`workers > 0`, DEBUG.DRAW_MINIBATCH) raises NotImplementedError.
+With `workers > 0`, `start` assembles batches in worker processes, as the
+JAX loader does (:143-152, :355-410): spawned children run
+`_assemble_batch` (numpy; they never touch CUDA) on tasks a feeder thread
+samples with the same bookkeeping as the prefetch thread, and a collector
+thread puts their batches back in sampler order and finalizes each as the
+prefetch thread does (the points' pinned copy and `voxelize_bev` on the
+loader's stream, its event), so the stream is the serial loader's whatever
+the number of workers.  The workers start once per `start` and stop in
+`kill`.
+
+Not ported: the minibatch drawing; DEBUG.DRAW_MINIBATCH raises
+NotImplementedError (ROADMAP A7).
 """
 
 from __future__ import annotations
 
+import multiprocessing as mp
 import queue
 import threading
 from collections import deque
@@ -131,8 +142,24 @@ def _assemble_batch(dataset, cfg: Config, augment: bool, task) -> Dict[str, np.n
     return batch
 
 
+def _worker_loop(dataset, cfg: Config, augment: bool, task_q, result_q) -> None:
+    """A worker process: tasks in, assembled numpy batches out (JAX
+    :143-152).  An exception goes back in the batch's place."""
+    while True:
+        try:
+            seq, task = task_q.get()
+        except (EOFError, OSError):
+            return
+        try:
+            out = _assemble_batch(dataset, cfg, augment, task)
+        except BaseException as e:  # handed to the consumer by next()
+            out = _Failure(e)
+        result_q.put((seq, out))
+
+
 class _Failure:
-    """An exception raised in the prefetch thread, handed to next()."""
+    """An exception raised in the prefetch thread or a worker, handed to
+    next()."""
 
     def __init__(self, error: BaseException):
         self.error = error
@@ -155,7 +182,8 @@ class BatchLoader:
     `last_raster_ms` holds the device time of the last batch's voxelize_bev
     call (CUDA events on the stream that ran it), `last_raster_thread` the
     name of the thread that launched it.  prefetch: the depth of the
-    background queue (`start`)."""
+    background queue (`start`).  workers: the number of worker processes
+    `start` assembles batches in (0: the prefetch thread assembles them)."""
 
     def __init__(
         self,
@@ -171,8 +199,6 @@ class BatchLoader:
         rasterize: bool = True,
         workers: int = 0,
     ):
-        if workers > 0:
-            raise NotImplementedError("BatchLoader: worker processes are not ported")
         if cfg.debug.draw_minibatch:
             raise NotImplementedError("BatchLoader: DEBUG.DRAW_MINIBATCH is not ported")
         self.dataset = dataset
@@ -196,6 +222,9 @@ class BatchLoader:
         # batch was drawn from (see state_dict)
         self._state_lock = threading.Lock()
         self._inflight: deque = deque()
+        self._workers = workers
+        self._procs: list = []
+        self._feeder: Optional[threading.Thread] = None
         self._grid = None
         if cfg.net_type == "lidar" and rasterize:
             self._grid = raster_kwargs(cfg, float(cfg.train.scales[0]))
@@ -296,7 +325,7 @@ class BatchLoader:
             return self._build_batch(self._sample_task())
         b = self._q.get()
         if isinstance(b, _Failure):
-            raise RuntimeError("BatchLoader: the prefetch thread failed") from b.error
+            raise RuntimeError("BatchLoader: the prefetch thread or a worker failed") from b.error
         with self._state_lock:
             if self._inflight:
                 self._inflight.popleft()
@@ -318,7 +347,9 @@ class BatchLoader:
         """Begin the background prefetch: a daemon thread samples tasks,
         assembles batches, makes the lidar raster and applies `transfer`
         (host batch -> device batch, e.g. training.solver.batch_to_device)
-        while the consumer's step runs, into a queue of `prefetch` batches."""
+        while the consumer's step runs, into a queue of `prefetch` batches.
+        With workers > 0 the assembly runs in worker processes
+        (`_start_workers`)."""
         if self._thread is not None:
             if transfer is not None and transfer is not self._transfer:
                 raise RuntimeError(
@@ -338,6 +369,10 @@ class BatchLoader:
                 except queue.Full:
                     continue
 
+        if self._workers > 0:
+            self._start_workers(put)
+            return
+
         def run() -> None:
             try:
                 while not self._stop.is_set():
@@ -348,10 +383,69 @@ class BatchLoader:
         self._thread = threading.Thread(target=run, name="BatchLoader-prefetch", daemon=True)
         self._thread.start()
 
+    def _start_workers(self, put) -> None:
+        """Worker processes (JAX :355-410): a spawn context (the parent may
+        hold a CUDA context, which a forked child must not inherit); the
+        feeder thread samples tasks with the prefetch thread's bookkeeping,
+        the workers assemble them, and the collector thread reorders their
+        batches by sequence number and finalizes each on the loader's
+        stream, as the prefetch thread does."""
+        ctx = mp.get_context("spawn")
+        self._task_q = ctx.Queue(maxsize=self._prefetch + self._workers)
+        self._result_q = ctx.Queue(maxsize=self._prefetch + self._workers)
+        self._procs = [
+            ctx.Process(target=_worker_loop, name=f"BatchLoader-worker-{i}",
+                        args=(self.dataset, self.cfg, self.augment, self._task_q,
+                              self._result_q), daemon=True)
+            for i in range(self._workers)
+        ]
+        for p in self._procs:
+            p.start()
+
+        def feed() -> None:
+            seq = 0
+            while not self._stop.is_set():
+                task = self._sample_task(track=True)
+                while not self._stop.is_set():
+                    try:
+                        self._task_q.put((seq, task), timeout=0.25)
+                        seq += 1
+                        break
+                    except queue.Full:
+                        continue
+
+        def collect() -> None:
+            pending: Dict[int, object] = {}
+            expect = 0
+            try:
+                while not self._stop.is_set():
+                    try:
+                        seq, batch = self._result_q.get(timeout=0.25)
+                    except queue.Empty:
+                        if not all(p.is_alive() for p in self._procs):
+                            raise RuntimeError("BatchLoader: a worker process died")
+                        continue
+                    pending[seq] = batch
+                    while expect in pending:
+                        batch = pending.pop(expect)
+                        if isinstance(batch, _Failure):
+                            raise batch.error
+                        put(self._device_batch(batch, self._stream))
+                        expect += 1
+            except BaseException as e:  # handed to the consumer by next()
+                put(_Failure(e))
+
+        self._feeder = threading.Thread(target=feed, name="BatchLoader-feeder", daemon=True)
+        self._thread = threading.Thread(target=collect, name="BatchLoader-collector",
+                                        daemon=True)
+        self._feeder.start()
+        self._thread.start()
+
     def kill(self) -> None:
-        """Stop the prefetch thread and rewind the sampler to the next
-        unconsumed batch: batches prefetched but never handed out are drawn
-        again by whoever iterates next."""
+        """Stop the prefetch thread (and the workers, the feeder and the
+        collector) and rewind the sampler to the next unconsumed batch:
+        batches prefetched but never handed out are drawn again by whoever
+        iterates next."""
         if self._thread is None:
             return
         self._stop.set()
@@ -360,8 +454,24 @@ class BatchLoader:
                 self._q.get_nowait()
         except queue.Empty:
             pass
+        # the threads first: a worker stopped while it writes a batch would
+        # leave the collector reading the rest of it forever
+        if self._feeder is not None:
+            self._feeder.join()
+            self._feeder = None
         self._thread.join()
         self._thread = None
+        for p in self._procs:
+            p.terminate()
+        for p in self._procs:
+            p.join()
+        if self._procs:
+            # tasks still buffered for the dead workers must not hold the
+            # parent's exit on the queue's feeder thread
+            self._task_q.cancel_join_thread()
+            self._task_q.close()
+            self._result_q.close()
+        self._procs = []
         self._transfer = None
         with self._state_lock:
             front = dict(self._inflight[0]) if self._inflight else None
@@ -372,7 +482,12 @@ class BatchLoader:
     # -- batch assembly ----------------------------------------------------
 
     def _build_batch(self, task, stream=None) -> Dict[str, object]:
-        batch = _assemble_batch(self.dataset, self.cfg, self.augment, task)
+        return self._device_batch(_assemble_batch(self.dataset, self.cfg, self.augment, task),
+                                  stream)
+
+    def _device_batch(self, batch: Dict[str, np.ndarray], stream=None) -> Dict[str, object]:
+        """`_finalize` on `stream` (None: the current stream), with the event
+        next() waits on."""
         if stream is None:
             return self._finalize(batch)
         with torch.cuda.stream(stream):

@@ -1,8 +1,13 @@
 """Host-side evaluation geometry and AP (the port's copy).
 
-A copy of faster_rcnn_pytorch_multimodal_tpu/evaluation/eval_utils.py:
-the polygon helpers, `iou` with `_iou_2d`, `_aabb`, `_iou_bev`, `_iou_3d`
-(:29-168), `ap` (:170-186) and `evaluate_class` (:357-430), numpy only.
+A copy of faster_rcnn_pytorch_multimodal_tpu/evaluation/eval_utils.py, the
+whole module, numpy only: the polygon helpers, `iou` with `_iou_2d`,
+`_aabb`, `_iou_bev`, `_iou_3d` (:29-168), `ap` (:170-186), the uncertainty
+det-file surface (`uc_widths`, `extract_uncertainties`, `_infer_uc_keys`,
+`get_labels_filename`, `find_rec`, `accumulate_scene_uncertainty`,
+`write_scene_uncertainty`, `write_frame_uncertainty`,
+`display_frame_counts`, `save_detection_results`, :188-355),
+`evaluate_class` (:357-430) and `write_pr_pickle` (:432-449).
 
   iou(BBGT, bb, eval_type) with eval_type in {'2d', 'bev', 'bev_aa', '3d'}
   ap(rec, prec)
@@ -183,6 +188,169 @@ def ap(rec: np.ndarray, prec: np.ndarray, use_07_metric: bool = False) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Uncertainty det-file surface (ref waymo_eval.py:106, 148-155, 207-221 +
+# the missing eval_utils functions it calls, SURVEY.md §2.14)
+# ---------------------------------------------------------------------------
+
+# det-file trailing-column order (matches data.db_base.UC_KEYS / the
+# reference's stack_uncertainties dict insertion order, test.py:260-270)
+UC_ORDER = (
+    "a_entropy",
+    "a_mutual_info",
+    "a_cls_var",
+    "a_bbox_var",
+    "e_entropy",
+    "e_mutual_info",
+    "e_cls_var",
+    "e_bbox_var",
+)
+
+
+def uc_widths(bbox_elem: int, num_classes: int) -> dict:
+    """Column width of each uncertainty key in the det files."""
+    return {
+        "a_entropy": 1,
+        "a_mutual_info": 1,
+        "a_cls_var": num_classes,
+        "a_bbox_var": bbox_elem,
+        "e_entropy": 1,
+        "e_mutual_info": 1,
+        "e_cls_var": num_classes,
+        "e_bbox_var": bbox_elem,
+    }
+
+
+def extract_uncertainties(
+    bbox_elem: int,
+    splitlines: list,
+    num_classes: int = 2,
+    keys: tuple | None = None,
+) -> tuple:
+    """Parse det-file trailing uncertainty columns (ref waymo_eval.py:106).
+
+    splitlines: tokenized det-file lines [frame_id, score, b0..b_{E-1}, uc...].
+    keys: which uncertainty keys are present; None = infer from the column
+    count (enabled-UC flags determine the layout, like the reference's cfg).
+
+    Returns (uc_avg, uncertainties):
+      uncertainties: {key: (N, width) float array} per det line;
+      uc_avg: {key: {} } per-scene accumulators the caller fills via
+        uc_avg[key][scene] += uncertainties[key][i] (ref :148-155).
+    """
+    n = len(splitlines)
+    n_lead = 2 + bbox_elem
+    n_trail = (len(splitlines[0]) - n_lead) if n else 0
+    widths = uc_widths(bbox_elem, num_classes)
+    if keys is None:
+        keys = _infer_uc_keys(n_trail, widths)
+    uncertainties = {}
+    col = n_lead
+    for key in UC_ORDER:
+        if key not in keys:
+            continue
+        w = widths[key]
+        arr = np.zeros((n, w), np.float64)
+        for i, toks in enumerate(splitlines):
+            arr[i] = [float(t) for t in toks[col : col + w]]
+        uncertainties[key] = arr
+        col += w
+    uc_avg = {key: {} for key in uncertainties}
+    return uc_avg, uncertainties
+
+
+def _infer_uc_keys(n_trail: int, widths: dict) -> tuple:
+    """Infer the enabled-UC key set from the trailing column count.  Tries
+    the reference's three common configs (aleatoric / epistemic / both)."""
+    a_keys = ("a_entropy", "a_mutual_info", "a_cls_var", "a_bbox_var")
+    e_keys = ("e_entropy", "e_mutual_info", "e_cls_var", "e_bbox_var")
+    for cand in (a_keys + e_keys, a_keys, e_keys, ()):
+        if sum(widths[k] for k in cand) == n_trail:
+            return cand
+    raise ValueError(
+        f"cannot infer uncertainty layout from {n_trail} trailing columns"
+    )
+
+
+def get_labels_filename(db, eval_type: str) -> str:
+    """The ground-truth labels file for an eval type (ref waymo_eval.py:87):
+    '2d' reads the image labels, everything else the lidar labels."""
+    import os
+
+    base = getattr(db, "_devkit_path", getattr(db.cfg, "data_dir", "."))
+    name = "image_labels.json" if eval_type == "2d" else "lidar_labels.json"
+    return os.path.join(base, db.mode, "labels", name)
+
+
+def find_rec(class_recs, token):
+    """Frame record lookup by frame token (ref waymo_eval.py:141)."""
+    if isinstance(class_recs, dict):
+        return class_recs.get(token)
+    for rec in class_recs:
+        if rec.get("frame_id") == token or rec.get("idx") == token:
+            return rec
+    return None
+
+
+def accumulate_scene_uncertainty(
+    uc_avg: dict, uncertainties: dict, det_idx: int, scene: int
+):
+    """uc_avg[key][scene] += per-det uncertainty (ref waymo_eval.py:148-151)."""
+    for key, val in uncertainties.items():
+        acc = uc_avg[key]
+        acc[scene] = acc.get(scene, 0.0) + val[det_idx]
+
+
+def write_scene_uncertainty(uc_avg: dict, scene_dets: float, i) -> str:
+    """Per-scene average uncertainty line (ref waymo_eval.py:207-212);
+    '' when the scene produced no detections."""
+    if not scene_dets:
+        return ""
+    parts = [f"scene_idx: {i} num_dets: {int(scene_dets)}"]
+    for key in UC_ORDER:
+        if key in uc_avg and i in uc_avg[key]:
+            avg = np.atleast_1d(uc_avg[key][i] / scene_dets).ravel()
+            parts.append(f"{key}: " + " ".join(f"{v:.10f}" for v in avg))
+    return " ".join(parts) if len(parts) > 1 else ""
+
+
+def write_frame_uncertainty(uc_frame: dict, frame_dets: float, fid) -> str:
+    """Per-frame variant (ref waymo_eval.py write_frame_uncertainty)."""
+    if not frame_dets:
+        return ""
+    parts = [f"frame_id: {fid} num_dets: {int(frame_dets)}"]
+    for key in UC_ORDER:
+        if key in uc_frame and fid in uc_frame[key]:
+            avg = np.atleast_1d(uc_frame[key][fid] / frame_dets).ravel()
+            parts.append(f"{key}: " + " ".join(f"{v:.10f}" for v in avg))
+    return " ".join(parts) if len(parts) > 1 else ""
+
+
+def display_frame_counts(tp_frame, fp_frame, npos_frame) -> str:
+    """Frame-level TP/FP/npos table (ref waymo_eval.py:215-221)."""
+    lines = []
+    for fid in sorted(npos_frame):
+        lines.append(
+            f"frame {fid}: tp {int(tp_frame.get(fid, 0))} "
+            f"fp {int(fp_frame.get(fid, 0))} npos {int(npos_frame[fid])}"
+        )
+    out = "\n".join(lines)
+    print(out)
+    return out
+
+
+def save_detection_results(lines: list, out_dir: str, out_file: str) -> str:
+    """ref waymo_eval.py:218 (eval_utils.save_detection_results)."""
+    import os
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, out_file)
+    with open(path, "w") as f:
+        for line in lines:
+            f.write(str(line) + "\n")
+    return path
+
+
+# ---------------------------------------------------------------------------
 # Greedy matching evaluation (the skeleton shared by waymo/kitti/cadc eval)
 # ---------------------------------------------------------------------------
 
@@ -260,3 +428,23 @@ def evaluate_class(
         "fp_frame": fp_frame,
         "npos_frame": npos_frame,
     }
+
+
+def write_pr_pickle(output_dir: str, cls_name: str, results: list) -> str:
+    """Persist the per-class PR curve after eval: `<cls>_pr.pkl` holding
+    {'rec', 'prec', 'ap'} with one entry per difficulty level, matching the
+    reference's artifact (ref lib/datasets/waymo_lidb.py:601-602) that
+    parity comparison plots consume."""
+    import os
+    import pickle
+
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, f"{cls_name}_pr.pkl")
+    payload = {
+        "rec": [r["recall"] for r in results],
+        "prec": [r["precision"] for r in results],
+        "ap": np.asarray([r["ap"] for r in results]),
+    }
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return path

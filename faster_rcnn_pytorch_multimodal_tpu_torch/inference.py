@@ -12,6 +12,9 @@ With uncertainty (the UC.* flags) forward_test also returns the
 masks and normals from one generator and keeps every detection's
 uncertainty rows by class, as the JAX package's test loop does.
 
+`evaluate_roidb` writes a real database's result files and runs its own
+difficulty-aware evaluation (tools/test_net.py:176-273).
+
 Stages are timed with `DeviceTimer`: CUDA events on a card (host clock on
 the CPU), so the numbers are device time, not enqueue time.
 """
@@ -19,11 +22,14 @@ the CPU), so the numbers are device time, not enqueue time.
 from __future__ import annotations
 
 import contextlib
+import os
+import pickle
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from faster_rcnn_pytorch_multimodal_tpu_torch.evaluation import eval_utils as eu
 from faster_rcnn_pytorch_multimodal_tpu_torch.evaluation.eval_utils import evaluate_class
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import FasterRCNN, UCDraws
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import (
@@ -190,3 +196,96 @@ def evaluate(model: FasterRCNN, loader, db, n_frames: int, thresh: float) -> Dic
         "finite": finite,
         "min_proposals": min_proposals,
     }
+
+
+def evaluate_roidb(db, cfg, all_boxes: List[List[np.ndarray]], all_uc: List[List[dict]],
+                   n_frames: int, out_dir: str, eval_det: bool) -> Optional[Dict]:
+    """The result files and difficulty-aware evaluation of a real database,
+    as tools/test_net.py:176-273 makes them from `evaluate`'s per-class
+    lists (network space):
+      * the boxes back to meters (LiDAR, `db.boxes_voxel_grid_to_pc` at
+        TEST.SCALES[0]) or to raw pixels (images, / scale);
+      * detections.pkl, then the per-class det files through
+        `write_lidar_results` / `write_image_results`, with the uncertainty
+        columns when the detector has uncertainty;
+      * with uncertainty, the det files read back and averaged per scene
+        (`<class>_scene_uncertainty_results.txt`);
+      * with eval_det, `db.evaluate_detections` on every GT box of the
+        first n_frames roidb entries with its difficulty.
+    Returns what evaluate_detections returns (None without eval_det)."""
+    num_classes, bbox_elem = len(db.classes), cfg.num_bbox_elem
+    is_lidar = cfg.net_type == "lidar"
+    scale = float(cfg.test.scales[0])
+    boxes = [[[] for _ in range(n_frames)] for _ in range(num_classes)]
+    for j in range(1, num_classes):
+        for i in range(n_frames):
+            rows = (np.atleast_2d(np.array(all_boxes[j][i], np.float32))
+                    if len(all_boxes[j][i]) else np.zeros((0, bbox_elem + 1), np.float32))
+            if len(rows):
+                if is_lidar:
+                    rows[:, :7] = db.boxes_voxel_grid_to_pc(rows[:, :7], scale)
+                else:
+                    rows[:, :4] /= scale
+            boxes[j][i] = rows
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "detections.pkl"), "wb") as f:
+        pickle.dump(boxes, f)
+
+    frame_ids = [frame_id(db, i) for i in range(n_frames)]
+    have_uc = any(len(all_uc[j][i]) for j in range(1, num_classes) for i in range(n_frames))
+    uc_arg = all_uc if have_uc else None
+    if is_lidar:
+        db.write_lidar_results(boxes, frame_ids, out_dir, uncertainties=uc_arg)
+    else:
+        db.write_image_results(boxes, frame_ids, out_dir, uncertainties=uc_arg)
+
+    if have_uc:
+        scene_of_frame = {frame_ids[i]: int(db.roidb[i].get("scene_idx", 0))
+                          for i in range(n_frames)}
+        for j in range(1, num_classes):
+            det_path = os.path.join(out_dir, f"det_{db.mode}_{db.classes[j]}.txt")
+            if not os.path.exists(det_path):
+                continue
+            with open(det_path) as f:
+                splitlines = [line.strip().split(" ") for line in f if line.strip()]
+            if not splitlines:
+                continue
+            uc_avg, uc_per_det = eu.extract_uncertainties(bbox_elem, splitlines,
+                                                          num_classes=num_classes)
+            det_cnt: Dict[int, int] = {}
+            for i, toks in enumerate(splitlines):
+                scene = scene_of_frame.get(toks[0], 0)
+                eu.accumulate_scene_uncertainty(uc_avg, uc_per_det, i, scene)
+                det_cnt[scene] = det_cnt.get(scene, 0) + 1
+            lines = [eu.write_scene_uncertainty(uc_avg, det_cnt[s], s) for s in sorted(det_cnt)]
+            lines = [line for line in lines if line]
+            if lines:
+                if cfg.debug.print_scene_result:
+                    for line in lines:
+                        print(line)
+                p = eu.save_detection_results(
+                    lines, out_dir, f"{db.classes[j]}_scene_uncertainty_results.txt")
+                print(f"wrote scene uncertainty aggregates to {p}")
+
+    if not eval_det:
+        return None
+    det_by_class = {j: [] for j in range(1, num_classes)}
+    for j in range(1, num_classes):
+        for i in range(n_frames):
+            for row in boxes[j][i]:
+                det_by_class[j].append({"frame_id": frame_ids[i],
+                                        "bbox": row[:bbox_elem].copy(), "confidence": row[-1]})
+    gt_by_class = {}
+    for j in range(1, num_classes):
+        gt_by_class[j] = {}
+        for i in range(n_frames):
+            e = db.roidb[i]
+            sel = e["gt_classes"] == j
+            gt_by_class[j][frame_ids[i]] = {
+                "boxes": e["boxes"][sel],
+                "difficulty": e.get("difficulty", np.zeros(sel.sum()))[sel]
+                if len(e.get("difficulty", [])) == len(sel)
+                else np.zeros(int(sel.sum())),
+            }
+    return db.evaluate_detections(det_by_class, gt_by_class, out_dir)

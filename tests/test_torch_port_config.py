@@ -66,8 +66,18 @@ def test_cli_builds_the_jax_cli_config():
         "DB_NAME", "synthetic", "TEST.RPN_POST_NMS_TOP_N", "300"))
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert args.device == "cuda"
-    with pytest.raises(NotImplementedError):
-        cli.build_dataset(got, "waymo", "val")
+    # the real databases go to the registry: kitti, waymo and cadc need
+    # their tree under DATA_DIR (FileNotFoundError, as in JAX), the
+    # databases still to port raise, an unknown name is a KeyError
+    missing = t_config.cfg_from_list(got, ("DATA_DIR", "/nonexistent/data"))
+    for name in ("waymo", "kitti", "cadc"):
+        with pytest.raises(FileNotFoundError):
+            cli.build_dataset(missing, name, "val")
+    for name in ("nuscenes", "voc_2007_trainval", "pascal", "coco_2017"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            cli.build_dataset(got, name, "val")
+    with pytest.raises(KeyError, match="available"):
+        cli.build_dataset(got, "imaginary", "val")
 
 
 @pytest.mark.parametrize("net_type", ["image", "lidar"])
@@ -139,8 +149,7 @@ def test_loader_batches_equal(net_type, augment):
 def test_loader_refuses_what_is_not_ported():
     cfg = t_config.cfg_from_list(t_config.default_config(), ("NET_TYPE", "image"))
     db = t_synth.SyntheticDataset(cfg, num_frames=2, image_hw=(32, 32))
-    with pytest.raises(NotImplementedError):
-        t_loader.BatchLoader(db, cfg, 2, device="cpu", workers=2)
+    t_loader.BatchLoader(db, cfg, 2, device="cpu", workers=2)  # worker processes are ported
     drawing = t_config.cfg_from_list(cfg, ("DEBUG.DRAW_MINIBATCH", "True"))
     with pytest.raises(NotImplementedError):
         t_loader.BatchLoader(db, drawing, 2, device="cpu")

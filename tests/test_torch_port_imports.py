@@ -68,6 +68,7 @@ for path in ({tools!r} + "/test_net_torch.py", {tools!r} + "/trainval_net_torch.
     spec = importlib.util.spec_from_file_location("mod_" + str(len(names)), path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     names.append(path)
+print(" ".join(names))
 print(len(names))
 leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "bench"
           or m.split(".")[0] == "faster_rcnn_pytorch_multimodal_tpu"]
@@ -80,7 +81,11 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=str(REPO))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 30  # every module of the port was imported
+    assert int(proc.stdout.split()[-1]) >= 40  # every module of the port was imported
+    imported = set(proc.stdout.split())
+    for name in ("data.augment", "data.datasets", "data.db_base", "data.kitti", "data.waymo",
+                 "data.cadc", "native.pc_ops", "utils.kitti_utils", "utils.cadc_utils"):
+        assert f"faster_rcnn_pytorch_multimodal_tpu_torch.{name}" in imported, name
 
 
 def _boxes(rng, shape):

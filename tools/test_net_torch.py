@@ -5,8 +5,16 @@ with --en_fpn 1 the FPN image detector) on one device.
 The flags are tools/test_net.py's, plus --device (the port's cli module).
 The frame loop is faster_rcnn_pytorch_multimodal_tpu_torch.inference.evaluate:
 BatchLoader (for lidar: points up, `voxelize_bev` on the device) ->
-forward_test -> batched per-class NMS -> per-class lists -> AP (2d @ 0.5 for
-images, LIDAR.EVAL_TYPE for lidar), timed with CUDA events on a card.
+forward_test -> batched per-class NMS -> per-class lists, timed with CUDA
+events on a card.  On --db synthetic the AP is the self-contained one (2d @
+0.5 for images, LIDAR.EVAL_TYPE for lidar, in network space) and the
+per-class lists go to detections_torch.pkl.  On a real database (--db kitti,
+waymo, cadc) the boxes go back to meters or raw pixels, to detections.pkl
+and to the per-class det files (uncertainty columns and per-scene averages
+with UC on), and --eval_det runs the database's own difficulty-aware
+evaluation (KITTI easy/moderate/hard, Waymo L1/L2;
+inference.evaluate_roidb, after tools/test_net.py:176-273).  --data_dir
+holds the database's tree (README "Datasets"); image databases need cv2.
 
 --weights_file takes a state dict in the port's layout (a `.pt` written by
 torch.save, an `.npz` of arrays keyed like the port's state_dict, or a
@@ -19,6 +27,7 @@ package are not read here.
     python tools/test_net_torch.py --db synthetic --net res101 --net_type lidar --scale 0.5 --max_frames 16
     python tools/test_net_torch.py --db synthetic --net res101 --net_type lidar --scale 0.5 --max_frames 16 --set TEST.ROTATED_NMS True TEST.NMS_THRESH 0.3
     python tools/test_net_torch.py --db synthetic --net res101 --net_type image --en_fpn 1 --max_frames 16
+    python tools/test_net_torch.py --db waymo --data_dir data --net res101 --net_type lidar --scale 0.5 --weights_file output/lidar/waymo_lidar_train/checkpoints/iter_20
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ def main(argv=None):
         build_dataset,
     )
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
-    from faster_rcnn_pytorch_multimodal_tpu_torch.inference import evaluate
+    from faster_rcnn_pytorch_multimodal_tpu_torch.inference import evaluate, evaluate_roidb
     from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import build_detector
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
     from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import read_weights
@@ -84,6 +93,9 @@ def main(argv=None):
         print("warning: non-finite detector outputs")
 
     out_dir = os.path.join(args.out_dir, "eval", db.name)
+    if hasattr(db, "roidb"):  # a real database: its own files and evaluation
+        return evaluate_roidb(db, cfg, res["all_boxes"], res["all_uc"], n_frames, out_dir,
+                              bool(args.eval_det))
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "detections_torch.pkl"), "wb") as f:
         pickle.dump(res["all_boxes"], f)
