@@ -167,7 +167,7 @@ non-zero and never prints its last line):
      bitwise (rasterize off), then in Solver.train the rasters (height and
      density bitwise, meta within 1e-5); K3 from the collector thread;
      a batch's round trip through a spawn-context queue (the workers'
-     pipe, 28.8 MB).  Solver.train for 30 steps with 4 workers, again with
+     pipe, 28.8 MB).  Solver.train for 10 steps with 4 workers, again with
      the prefetch thread alone, then 5 steps of the bare train loop, each
      counted (K1, K2, K2-bwd, K3 launched); the loader's host ms a batch
      (next() without prefetch, median of 5), the Solver's wall ms a step,
@@ -187,6 +187,29 @@ non-zero and never prints its last line):
      tools/test_net_torch.py --db kitti --eval_det (easy/moderate/hard AP),
      both counted.  Image databases are not run here (the card's machine has
      no cv2); tests/test_torch_port_datasets.py holds them on the CPU.
+ 27. the VGG16 and MobileNet slices (MobileNet at depth multiplier 1),
+     float32: the image serving slice (phase 4's checks), the image
+     training slice (phase 6's, the gradients of fc6 / fc7 and the first
+     and last convs, or of layers 12-13, layer 11 and conv0), the BEV
+     serving slice (phase 8's; VGG16's map floors 350 to 21 columns) and
+     the BEV training slice, card against CPU.
+ 28. the VGG16 image path: the image config with NET_VARIANT vgg16, bf16,
+     b8, 512x960: one warm-up batch then 3 serving batches, then one
+     warm-up step then 10 training steps (run_serving, run_training).
+ 29. the MobileNet image path: the same with NET_VARIANT mobile.
+ 30. FPN x UC: the UC slice (phase 19's checks, res50 fp32, every UC flag,
+     the RPN's epistemic samples over the whole pyramid) on the FPN
+     detector; then the FPN config with the four det-stage flags of
+     bench.py's uncertainty_config at T = 10: the serving path (NMS
+     exactly twice and the multiscale RoI align exactly once a batch, the
+     single-level one never) and 10 training steps from scratch (live BN).
+ 31. FPN on BEV rasters: the BEV config with USE_FPN and multiscale
+     pooling (the RPN on p2 100 x 88 of the 400 x 350 raster): the BEV
+     serving and training slices card vs CPU, the serving path, once more
+     with TEST.ROTATED_NMS, 10 training steps (K2-FPN and its backward,
+     never K2), then K2-FPN and K2-FPN-bwd against their twins over the
+     BEV pyramid (p2 100 x 88 .. p5 13 x 11) on the RoIs the path's first
+     serving batch and first training step pooled.
 Phase 3 also holds the multiscale RoI-align kernels against their twins at
 the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
@@ -208,8 +231,12 @@ tolerant greedy check against the twin's IoU matrix (`greedy_violations`);
 RoI align and its backward at the res18 C4 maps' 256 channels, (8, 32,
 60, 256) x 300 and (8, 25, 22, 256) x 256, under the same limits; and the
 rotated IoU kernel on 300 pairs with collinear sides within 1e-6 of a
-float64 oracle (fault F5: the twin, as JAX, is far off there).
-Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20-26) runs with the launch
+float64 oracle (fault F5: the twin, as JAX, is far off there); and RoI
+align and its backward at VGG16's and MobileNet's 512-channel C4 maps:
+(8, 32, 60, 512) x 300, (8, 25, 21, 512) x 256 (VGG16's floored BEV map),
+(8, 25, 22, 512) x 256, the backward onto (8, 32, 60, 512) and (8, 25, 21,
+512).
+Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20-26, 28-31) runs with the launch
 counts set to 0 just before it and read just after.  Then one JSON line describing
 the kernels (each kernel's `launches` is the count on the newest path that runs
 it: the Waymo dataset path's 4-worker Solver run for the voxelizer (timed on
@@ -217,7 +244,8 @@ that path's own batch), the BEV Solver path for NMS, RoI align and its
 backward (the BEV training config's shapes), rotated BEV serving for the
 rotated NMS, FPN serving and FPN training for the multiscale kernels; its
 times, error and bound are from phase 3 at that path's shapes;
-`launches_by_path` has every counted path), the nvidia-smi name/power line,
+`launches_by_path` has every counted path; `at_512_channels` and
+`bev_pyramid` the checks at the new nets' shapes), the nvidia-smi name/power line,
 and the result line {"ok": true, "device": ...}.  Worker processes are
 spawned: this file keeps its `if __name__ == "__main__":` guard, since a
 spawned child imports the main module again.
@@ -240,6 +268,8 @@ REPO = Path(__file__).resolve().parent
 PKG = "faster_rcnn_pytorch_multimodal_tpu_torch"
 B, H_FEAT, W_FEAT, C_FEAT, R = 8, 32, 60, 1024, 300
 C_RES18 = 256  # the C4 map of a BasicBlock backbone (res18/34)
+C_VGG = 512  # the stride-16 map of VGG16 (conv5_3) and of MobileNet (layer 11) at multiplier 1
+VGG_BEV_FEAT_HW = (25, 21)  # VGG16's four 2x2 pools floor 350 to 21 columns
 R_TRAIN = 256  # TRAIN.ROI_BATCH_SIZE: RoIs pooled per training frame
 FRAME_HW = (512, 960)  # the serving and training frame: 32 x 60 C4 cells at stride 16
 BEV_FEAT_HW = (25, 22)  # the 400 x 350 BEV raster at stride 16
@@ -273,6 +303,7 @@ SERVING_OVERRIDES = ("STATIC.NMS_PRE_TEST", "2048", "TEST.RPN_POST_NMS_TOP_N", "
 FPN_OVERRIDES = ("USE_FPN", "True", "POOLING_MODE", "multiscale")
 FPN_STRIDES = (4, 8, 16, 32)
 FPN_MAP_HW = ((128, 240), (64, 120), (32, 60), (16, 30))  # p2..p5 of a 512x960 frame
+BEV_PYRAMID_HW = ((100, 88), (50, 44), (25, 22), (13, 11))  # p2..p5 of a 400 x 350 raster
 C_FPN = 256
 # the raster grid follows TRAIN.SCALES[0] in the loader; serving sets both
 BEV_SERVING_OVERRIDES = SERVING_OVERRIDES + ("TEST.SCALES", "(0.5,)", "COMPUTE_DTYPE", "bfloat16")
@@ -285,6 +316,9 @@ UC_OVERRIDES = (
     "UC.EN_BBOX_ALEATORIC", "True", "UC.EN_CLS_ALEATORIC", "True",
     "UC.EN_BBOX_EPISTEMIC", "True", "UC.EN_CLS_EPISTEMIC", "True",
 )
+# the two nets of the original repo beside ResNet (lib/nets/vgg16.py, mobilenet_v1.py)
+VGG_OVERRIDES = ("NET_VARIANT", "vgg16")
+MOBILE_OVERRIDES = ("NET_VARIANT", "mobile", "MOBILENET.DEPTH_MULTIPLIER", "1.0")
 # the card-vs-CPU UC slices: every flag, the RPN's too
 UC_ALL_OVERRIDES = UC_OVERRIDES + (
     "UC.EN_RPN_BBOX_ALEATORIC", "True", "UC.EN_RPN_CLS_ALEATORIC", "True",
@@ -1079,7 +1113,7 @@ def level_counts(levels) -> list:
     return [int((levels == i).sum()) for i in range(len(FPN_STRIDES))]
 
 
-def tap_cells(rois, levels, p=7, sr=2) -> list:
+def tap_cells(rois, levels, p=7, sr=2, map_hw=FPN_MAP_HW) -> list:
     """Per level p2..p5, the distinct (frame, y, x) cells whose C-channel rows
     the forward must read: the bilinear taps of the samples of the RoIs mapped
     there (zero-weight taps included, as the kernel loads them).  A RoI's
@@ -1091,7 +1125,7 @@ def tap_cells(rois, levels, p=7, sr=2) -> list:
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import _sample_coords, _taps
 
     cells = []
-    for lvl, ((h, w), stride) in enumerate(zip(FPN_MAP_HW, FPN_STRIDES)):
+    for lvl, ((h, w), stride) in enumerate(zip(map_hw, FPN_STRIDES)):
         on = levels == lvl
         frame = torch.nonzero(on)[:, 0]
         gy, gx = _sample_coords(rois[on], 1.0 / stride, p, sr, False)
@@ -1114,7 +1148,7 @@ def p2_rois(rng, b, r, frame_hw=FRAME_HW):
     return np.stack([x1, y1, x1 + side * aspect, y1 + side / aspect], -1).astype(np.float32)
 
 
-def staged_cells(rois, levels, p=7, sr=2) -> tuple[int, int]:
+def staged_cells(rois, levels, p=7, sr=2, map_hw=FPN_MAP_HW) -> tuple[int, int]:
     """What the forward stages, RoI by RoI on its level: (the tap cells it
     reads, each RoI's distinct tap rows x distinct tap columns, summed; the
     RoIs whose distinct tap columns exceed 1.5 x P x sr, for which the ring
@@ -1129,7 +1163,7 @@ def staged_cells(rois, levels, p=7, sr=2) -> tuple[int, int]:
         return 1 + (taps[:, 1:] != taps[:, :-1]).sum(-1)
 
     cells = one_row = 0
-    for lvl, ((h, w), stride) in enumerate(zip(FPN_MAP_HW, FPN_STRIDES)):
+    for lvl, ((h, w), stride) in enumerate(zip(map_hw, FPN_STRIDES)):
         gy, gx = _sample_coords(rois[levels == lvl], 1.0 / stride, p, sr, False)
         ny, nx = distinct(gy, h), distinct(gx, w)
         cells += int((ny * nx).sum())
@@ -1143,14 +1177,17 @@ def staged_cells(rois, levels, p=7, sr=2) -> tuple[int, int]:
 REPLACED_MS_FWD_MS = (0.1349, 0.2321)
 
 
-def check_multiscale_roi_align(rng, rois_np=None, label="16-900 px RoIs"):
+def check_multiscale_roi_align(rng, rois_np=None, label="16-900 px RoIs", map_hw=FPN_MAP_HW,
+                               one_level=True):
     """The multiscale forward kernel against its twin (CPU copies) at the FPN
     serving shape: every RoI on the twin's level, values within tol * max|F|.
     The kernel's time is the raw entry's device time (kernel_ms); the
     public wrapper's time back to back (cuda_ms), host included, is printed
     beside it.  The bound counts the tap rows the RoIs hit on their levels
     (tap_cells), not the whole maps.  rois_np: (B, R, 4) RoIs (default
-    fpn_rois, drawn after the maps, so that every level gets some)."""
+    fpn_rois, drawn after the maps, so that every level gets some; given
+    RoIs must all lie on one level unless one_level is False); map_hw: the
+    pyramid's p2..p5 sizes (default a 512x960 frame's)."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops.roi_align import (
@@ -1160,16 +1197,16 @@ def check_multiscale_roi_align(rng, rois_np=None, label="16-900 px RoIs"):
         roi_levels,
     )
 
-    maps = [rng.normal(size=(B, h, w, C_FPN)).astype(np.float32) for h, w in FPN_MAP_HW]
+    maps = [rng.normal(size=(B, h, w, C_FPN)).astype(np.float32) for h, w in map_hw]
     rois = torch.from_numpy(fpn_rois(rng, B, R) if rois_np is None else rois_np)
     want_levels = roi_levels(rois, len(FPN_STRIDES))
     counts = level_counts(want_levels)
     if rois_np is None and min(counts) == 0:
         raise AssertionError(f"multiscale roi_align: a level got no RoI: {counts}")
-    if rois_np is not None and max(counts) != sum(counts):
+    if rois_np is not None and one_level and max(counts) != sum(counts):
         raise AssertionError(f"multiscale roi_align {label}: RoIs on several levels: {counts}")
-    staged, one_row = staged_cells(rois, want_levels)
-    cells = tap_cells(rois, want_levels)
+    staged, one_row = staged_cells(rois, want_levels, map_hw=map_hw)
+    cells = tap_cells(rois, want_levels, map_hw=map_hw)
     results = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
         tm = [torch.from_numpy(m).to(dtype) for m in maps]
@@ -1216,7 +1253,7 @@ def check_multiscale_roi_align(rng, rois_np=None, label="16-900 px RoIs"):
 REPLACED_MS_BWD_MS = {"16-900 px RoIs": (1.084, 0.8399), "every RoI on p5": (1.041, 0.7955)}
 
 
-def check_multiscale_backward(rng, rois_np, label):
+def check_multiscale_backward(rng, rois_np, label, map_hw=FPN_MAP_HW):
     """The multiscale backward kernel against the twin's autograd gradients
     on CPU copies (see check_roi_align_backward), at dOut (8, 256, 7, 7,
     256): every element of each level within the sum-order limit
@@ -1232,7 +1269,7 @@ def check_multiscale_backward(rng, rois_np, label):
         roi_levels,
     )
 
-    maps = [rng.normal(size=(B, h, w, C_FPN)).astype(np.float32) for h, w in FPN_MAP_HW]
+    maps = [rng.normal(size=(B, h, w, C_FPN)).astype(np.float32) for h, w in map_hw]
     rois = torch.from_numpy(rois_np).cuda()
     counts = level_counts(roi_levels(rois, len(FPN_STRIDES)))
     grad_out = rng.normal(size=(B, rois.shape[1], 7, 7, C_FPN)).astype(np.float32)
@@ -1269,13 +1306,15 @@ def check_multiscale_backward(rng, rois_np, label):
         nbytes = (g.numel() * g.element_size() + rois.numel() * 4
                   + sum(m.numel() * m.element_size() for m in f))
         bound, by = bound_ms(nbytes, roi_align_flops(g.numel()))
+        replaced = REPLACED_MS_BWD_MS.get(label)
+        replaced = ("the replaced kernel was not timed on this case" if replaced is None else
+                    f"the float32-atomic kernel it replaced: {replaced[dtype == torch.float32]} "
+                    f"ms, PERF.md")
         print(f"roi_align_multiscale backward {label} {str(dtype).split('.')[-1]} dOut "
-              f"{tuple(g.shape)}, RoIs per level p2..p5 {counts}: max |dF - twin| / sum-order "
-              f"limit per level {ratios}; max abs err per level {errs} = "
+              f"{tuple(g.shape)} onto {shapes}, RoIs per level p2..p5 {counts}: max |dF - twin| "
+              f"/ sum-order limit per level {ratios}; max abs err per level {errs} = "
               f"{[e / m if m else 0.0 for e, m in zip(errs, gmax)]} x max|dF| per level {gmax}; "
-              f"two runs bitwise equal; kernel {spread(t)} (the float32-atomic kernel it "
-              f"replaced: {REPLACED_MS_BWD_MS[label][dtype == torch.float32]} ms, PERF.md), plain "
-              f"twin's autograd "
+              f"two runs bitwise equal; kernel {spread(t)} ({replaced}), plain twin's autograd "
               f"backward on the card {plain_ms} ms, bound {bound} ms ({by}: dOut, the rois and "
               f"each map's gradient once)")
         results[dtype] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
@@ -1385,16 +1424,33 @@ def check_voxelize(rng, cfg, frame_scale, p, skew=False, points=None):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
 
 
+HE_GAIN = 2.0 ** 0.5
+
+
 def scale_terminators(model, value=0.25):
     """Residual-terminator BN scales (bn3 of a Bottleneck, bn2 of a
     BasicBlock) to `value`, as bench.py does for random weights, so res101's
-    activations stay finite."""
+    activations stay finite.  VGG16 and MobileNet have no residuals; at
+    their lecun-normal init each ReLU halves the activations' second
+    moment (15 of them in VGG16, 27 ReLU6 in MobileNet), so a random net's
+    maps come out ~1e-4 of its input and every RoI scores alike: VGG16's
+    conv and fc weights, and MobileNet's BN scales, take He's gain sqrt(2)
+    instead."""
     import torch
 
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import FrozenBatchNorm
+
+    variant = model.cfg.net_variant
     with torch.no_grad():
-        for m in model.modules():
+        for name, m in model.named_modules():
             if hasattr(m, "terminator"):
                 m.terminator.weight.fill_(value)
+            elif not name.startswith(("backbone.", "tail.")):
+                continue
+            elif variant == "vgg16" and isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.weight.mul_(HE_GAIN)
+            elif variant == "mobile" and isinstance(m, FrozenBatchNorm):
+                m.weight.fill_(HE_GAIN)
     return model
 
 
@@ -1429,7 +1485,8 @@ def feature_err(got, want):
 
 
 def check_slice(cfg_base):
-    """res101 float32 on one 256x320 frame: card against CPU."""
+    """cfg_base's net (res101, FPN, VGG16, MobileNet) in float32 on one
+    256x320 frame: card against CPU."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.config import cfg_from_list
@@ -1461,7 +1518,8 @@ def check_slice(cfg_base):
     gr = g_out["rois"][0][g_out["roi_valid"][0]]
     matched = int((iou_plus1(cr, gr).max(dim=1).values >= 0.99).sum())
     fm = "p2..p5" if cfg.use_fpn else "C4"
-    print(f"slice {'FPN ' if cfg.use_fpn else ''}res101 fp32 {h}x{w}: {fm} max err {feat_err} "
+    print(f"slice {'FPN ' if cfg.use_fpn else ''}{cfg.net_variant} fp32 {h}x{w}: {fm} max err "
+          f"{feat_err} "
           f"(max|{fm}| {feat_max}); "
           f"fg_prob {fg_err}; deltas {delta_err}; proposals matched {matched}/{len(cr)} "
           f"at IoU >= 0.99; pinned cls_prob {cls_err}; pinned boxes {box_err} px")
@@ -1486,6 +1544,43 @@ def check_slice(cfg_base):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"slice card vs CPU out of tolerance: {failed}")
+
+
+NET_NAMES = {"vgg16": "VGG16", "mobile": "MobileNet"}
+
+
+def path_name(cfg, kind: str) -> str:
+    """A path's name from its config: e.g. 'serving', 'UC FPN training',
+    'FPN BEV serving', 'VGG16 BEV training'."""
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import uses_uncertainty
+
+    parts = ["live-BN" if cfg.resnet.fixed_blocks == -1 and cfg.net_variant.startswith("res")
+             else "", "UC" if uses_uncertainty(cfg) else "", NET_NAMES.get(cfg.net_variant, ""),
+             "FPN" if cfg.use_fpn else "", "BEV" if cfg.net_type == "lidar" else "", kind]
+    return " ".join(p for p in parts if p)
+
+
+@contextlib.contextmanager
+def recording_multiscale_rois(store: list):
+    """Within the block, the rois of the first call of the detector's
+    multiscale RoI align are appended to `store` (a float32 numpy copy),
+    the call itself unchanged.  The first call puts the detector's own
+    function back, so later calls (a path's timed batches and steps, after
+    its warm-up) run untouched: no host copy, no wait for the card."""
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models import detector
+
+    inner = detector.multiscale_roi_align_batched
+
+    def recorded(maps, rois, *args, **kwargs):
+        detector.multiscale_roi_align_batched = inner
+        store.append(rois.detach().float().cpu().numpy())
+        return inner(maps, rois, *args, **kwargs)
+
+    detector.multiscale_roi_align_batched = recorded
+    try:
+        yield store
+    finally:
+        detector.multiscale_roi_align_batched = inner
 
 
 def run_serving(cfg, smi, need=("nms", "roi_align"), never=(), per_batch=None):
@@ -1522,8 +1617,9 @@ def run_serving(cfg, smi, need=("nms", "roi_align"), never=(), per_batch=None):
     launches = dict(_build.LAUNCH_COUNTS)
     peak = torch.cuda.max_memory_allocated()
     ms = np.asarray(res["detect_ms"]) + np.asarray(res["filter_ms"])
-    name = "FPN serving" if cfg.use_fpn else "UC serving" if "uncertainties" in warm_out else "serving"
-    print(f"{name} res101 bf16 {FRAME_HW[0]}x{FRAME_HW[1]} batch {B} ({smi}): "
+    name = path_name(cfg, "serving")
+    print(f"{name} {cfg.net_variant} {cfg.compute_dtype} {FRAME_HW[0]}x{FRAME_HW[1]} batch {B} "
+          f"({smi}): "
           f"detect ms/batch {res['detect_ms']}, filter ms/batch {res['filter_ms']}, "
           f"mean {float(ms.mean())} ms/batch, {B * len(ms) / (float(ms.sum()) / 1e3)} frames/s, "
           f"peak memory {peak / 2**30} GiB, random-weight mAP {res['mAP']}")
@@ -1570,6 +1666,24 @@ FPN_TRAIN_LEAVES = TRAIN_LEAVES[:4] + (
     "tail.t_fc1.weight", "fpn.latlayer2.weight", "fpn.aalayer2.weight",
     "backbone.layer4.0.conv1.weight",
 )
+VGG_TRAIN_LEAVES = TRAIN_LEAVES[:4] + (
+    "tail.fc6.weight", "tail.fc7.weight", "backbone.late_conv12.weight",
+    "backbone.early_conv0.weight",
+)
+MOBILE_TRAIN_LEAVES = TRAIN_LEAVES[:4] + (
+    "tail.layer13.pointwise.weight", "tail.layer12.depthwise.weight",
+    "backbone.layer11.pointwise.weight", "backbone.conv0.weight",
+)
+
+
+def train_leaves(cfg) -> tuple:
+    """The leaves whose gradients a train slice compares: the RPN's and the
+    predictors', and the net's own (the last block of layer3 for ResNet)."""
+    if cfg.net_variant == "vgg16":
+        return VGG_TRAIN_LEAVES
+    if cfg.net_variant == "mobile":
+        return MOBILE_TRAIN_LEAVES
+    return FPN_TRAIN_LEAVES if cfg.use_fpn else TRAIN_LEAVES
 LOSSES = ("rpn_cross_entropy", "rpn_loss_box", "cross_entropy", "loss_box")
 
 
@@ -1623,10 +1737,17 @@ def train_slice_batch(cfg, cpu, rng):
 
 
 def check_train_slice(cfg_base):
-    """res101 float32 training forward and backward on one frame (image
-    256x320, or a 400 x 350 x 15 BEV raster with 7-DoF GT): card against
-    CPU, on the same draws; the card's second stage pinned to the CPU's
-    proposal lanes (its boxes still come from the card's deltas)."""
+    """cfg_base's net (res101 C4 or FPN, VGG16, MobileNet) in float32,
+    training forward and backward on one frame (image 256x320, or a 400 x
+    350 x 15 BEV raster with 7-DoF GT): card against CPU, on the same
+    draws; the card's second stage pinned to the CPU's proposal lanes (its
+    boxes still come from the card's deltas), each ReLU unit at 0 within
+    rounding to the CPU's gate and, on VGG16 (the only net with max-pool
+    modules, pool_sites), each max-pool window whose two largest values tie
+    within rounding to the CPU's pick (card_ties; ties_few: few, and
+    small); the gradients of train_leaves(cfg) compared.  Unpinned, one
+    such tie reaches a leaf's gradient at up to 1e-3 of its max|g| on the
+    res101 FPN BEV slice and 5e-3 on VGG16's first conv."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.config import cfg_from_list
@@ -1647,16 +1768,21 @@ def check_train_slice(cfg_base):
     x, win, gt, mask = train_slice_batch(cfg, cpu, rng)
     batch = {"data": x, "gt_boxes": gt, "gt_mask": mask, "window": win}
     draws = draw_train_keys(cpu, batch, torch.Generator().manual_seed(4))
-    c_losses, c_aux = cpu.forward_train(x, gt, mask, win, draws)
+    with relu_inputs(cpu) as c_relu, pool_inputs(cpu) as c_pool:
+        c_losses, c_aux = cpu.forward_train(x, gt, mask, win, draws)
     c_losses["total_loss"].backward()
     pin = (c_aux.proposal_src.cuda(), c_aux.proposal_valid.cuda())
     g_draws = TrainDraws(*(None if t is None else t.cuda() for t in draws))
-    g_losses, g_aux = gpu.forward_train(x.cuda(), gt.cuda(), mask.cuda(), win.cuda(), g_draws,
-                                        proposals=pin)
+    g_args = (x.cuda(), gt.cuda(), mask.cuda(), win.cuda(), g_draws)
+    ties, pools = card_ties(gpu, c_relu, g_args, pin, c_pool)
+    with pinned_ties(gpu, ties), pinned_pool_ties(gpu, pools):
+        g_losses, g_aux = gpu.forward_train(*g_args, proposals=pin)
     g_losses["total_loss"].backward()
     torch.cuda.synchronize()
+    few, units, tie_size = ties_few(ties, c_relu, pools, c_pool)
 
     checks = {
+        "ties few": few,
         "anchor samples": torch.equal(g_aux.anchor_targets.sel.cpu(), c_aux.anchor_targets.sel)
         and torch.equal(g_aux.anchor_targets.labels.cpu(), c_aux.anchor_targets.labels),
         "roi labels": torch.equal(g_aux.proposal_targets.labels.cpu(), c_aux.proposal_targets.labels),
@@ -1668,18 +1794,24 @@ def check_train_slice(cfg_base):
         checks[f"loss {k}"] = loss_err[k] <= 1e-3 and np.isfinite(g)
     grad_err = {}
     c_params, g_params = dict(cpu.named_parameters()), dict(gpu.named_parameters())
-    last_layer3 = f"backbone.layer3.{len(cpu.backbone.layer3) - 1}.conv3.weight"
-    for name in (FPN_TRAIN_LEAVES if cfg.use_fpn else TRAIN_LEAVES) + (last_layer3,):
+    leaves = train_leaves(cfg)
+    if cfg.net_variant.startswith("res"):
+        leaves += (f"backbone.layer3.{len(cpu.backbone.layer3) - 1}.conv3.weight",)
+    for name in leaves:
         cg, gg = c_params[name].grad, g_params[name].grad
         scale = float(cg.abs().max())
         grad_err[name] = float((gg.cpu() - cg).abs().max()) / scale
         checks[f"grad {name}"] = scale > 0 and grad_err[name] <= 1e-3
     labels = c_aux.proposal_targets.labels
-    kind = "BEV " if cfg.net_type == "lidar" else "FPN " if cfg.use_fpn else ""
+    kind = ("BEV " if cfg.net_type == "lidar" else "") + ("FPN " if cfg.use_fpn else "")
     print(f"train slice {kind}{cfg.net_variant} fp32 {tuple(x.shape)}: losses cpu "
           f"{ {k: float(c_losses[k].detach()) for k in LOSSES} }, relative errors {loss_err} "
           f"(rpn losses unpinned, second stage pinned); sampled RoIs fg {int((labels > 0).sum())} "
-          f"bg {int((labels == 0).sum())}; gradient error / max|g| per leaf {grad_err}")
+          f"bg {int((labels == 0).sum())}; gradient error / max|g| per leaf {grad_err}; ReLU "
+          f"units pinned to the CPU's gate {len(ties)} of {units}, the largest |input| / "
+          f"max|input| of its ReLU {tie_size}; max-pool windows pinned to the CPU's pick "
+          f"{len(pools)}, the largest gap / max|input| of its pool "
+          f"{max((t[3] for t in pools), default=0.0)}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"train slice card vs CPU out of tolerance: {failed}")
@@ -1688,21 +1820,27 @@ def check_train_slice(cfg_base):
 def relu_sites(model):
     """The detector's ReLU inputs: {(module path, residual): (module,
     block)}.  Each module's output is a ReLU's input (bn1/bn2 of a block, the
-    stem's bn1, the RPN's 3x3 conv, the FPN tail's t_fc layers, the
-    epistemic stacks' fc or BN layers); with
+    stem's bn1, the RPN's 3x3 conv, the FPN tail's t_fc layers, VGG16's
+    convs and fc6/fc7, MobileNet's bn0, dw_bn and pw_bn (ReLU6: its gate at
+    0), the epistemic stacks' fc or BN layers); with
     residual=True it is the block's terminator, whose output plus the
     block's identity is."""
     import torch
 
-    sites = {("backbone.bn1", False): (model.backbone.bn1, None),
-             ("rpn.rpn_net", False): (model.rpn.rpn_net, None)}
+    sites = {("rpn.rpn_net", False): (model.rpn.rpn_net, None)}
+    if hasattr(model.backbone, "bn1"):  # the ResNet stem
+        sites[("backbone.bn1", False)] = (model.backbone.bn1, None)
     for name, m in model.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
         if hasattr(m, "terminator"):
             for k in ("bn1", "bn2", "bn3"):
                 if hasattr(m, k):
                     bn = getattr(m, k)
                     sites[(f"{name}.{k}", bn is m.terminator)] = (bn, m)
-        elif isinstance(m, torch.nn.Linear) and name.startswith("tail.t_fc"):
+        elif isinstance(m, torch.nn.Linear) and name.startswith(("tail.t_fc", "tail.fc")):
+            sites[(name, False)] = (m, None)
+        elif ((name.startswith("backbone.") and leaf.startswith(("early_conv", "late_conv")))
+              or leaf in ("bn0", "dw_bn", "pw_bn")):
             sites[(name, False)] = (m, None)
         elif name in ("predictors.cls_stack", "predictors.bbox_stack"):
             # an epistemic stack's fc (or its BN under lidar) feeds each ReLU
@@ -1796,6 +1934,133 @@ def pinned_ties(model, ties):
             h.remove()
 
 
+def pool_sites(model) -> dict:
+    """The model's 2x2 max pools as modules (VGG16's pool0..3): {path: module}."""
+    import torch
+
+    return {name: m for name, m in model.named_modules() if isinstance(m, torch.nn.MaxPool2d)}
+
+
+@contextlib.contextmanager
+def pool_inputs(model):
+    """Within the block, record each pool_sites input of the model's
+    forward: a dict that receives {path: float32 CPU tensor}."""
+    got, hooks = {}, []
+    for path, mod in pool_sites(model).items():
+        hooks.append(mod.register_forward_pre_hook(
+            lambda _m, args, key=path: got.__setitem__(key, args[0].detach().float().cpu())))
+    try:
+        yield got
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def find_pool_ties(want: dict, got: dict, skip=()) -> list:
+    """The 2x2 max-pool windows whose largest element is another one in
+    `got` than in `want` (pool_inputs of two runs), their largest value
+    above 0: (path, (n, c, oy, ox), the wanted element's flat index in its
+    plane, the gap), except those at (path, (n, c, oy, ox)) in `skip`.  The
+    gap is the larger of the two runs' differences between the window's
+    largest value and its value at the other run's pick, over max|input| of
+    that pool in `want`: for a tie it is rounding-sized (ties_few bounds
+    it), and the pool routes the gradient to another pixel on each device.
+    (A window of zeros passes no gradient below its ReLU, whichever zero it
+    picks.)"""
+    import torch
+
+    ties = []
+    for path, w in want.items():
+        g = got[path]
+        wv, wi = torch.nn.functional.max_pool2d(w, 2, 2, return_indices=True)
+        gv, gi = torch.nn.functional.max_pool2d(g, 2, 2, return_indices=True)
+        scale = float(w.abs().max())
+        w_flat, g_flat = w.flatten(2), g.flatten(2)
+        for at in map(tuple, ((wi != gi) & (gv > 0)).nonzero().tolist()):
+            if (path, at) in skip:
+                continue
+            n, c = at[:2]
+            gap = max(float(wv[at] - w_flat[n, c, int(gi[at])]),
+                      float(gv[at] - g_flat[n, c, int(wi[at])]))
+            ties.append((path, at, int(wi[at]), gap / scale))
+    return ties
+
+
+@contextlib.contextmanager
+def pinned_pool_ties(model, ties):
+    """Within the block, each tied window's wanted element (find_pool_ties)
+    is the largest of its window in the model's pool input: the gap to the
+    window's largest value and 2^-20 of that value are added to it (a
+    constant: the gradient still flows), so the pool picks the wanted
+    element."""
+    import torch
+
+    hooks = []
+    for path, mod in pool_sites(model).items():
+        mine = [(at, idx) for p, at, idx, _gap in ties if p == path]
+        if not mine:
+            continue
+
+        def pin(_m, args, mine=mine):
+            x = args[0]
+            delta = torch.zeros_like(x)
+            w = x.shape[-1]
+            for (n, c, oy, ox), idx in mine:
+                top = x[n, c, 2 * oy:2 * oy + 2, 2 * ox:2 * ox + 2].max().detach()
+                v = x[n, c, idx // w, idx % w].detach()
+                delta[n, c, idx // w, idx % w] = top - v + top.abs() * 2.0 ** -20
+            return (x + delta,)
+
+        hooks.append(mod.register_forward_pre_hook(pin))
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def card_ties(gpu, c_relu, g_args, pin, c_pool=None, rounds=4) -> tuple:
+    """The ReLU units of the card's forward_train(*g_args, proposals=pin)
+    whose input has another sign than in the CPU's (`c_relu`, relu_inputs
+    of its forward), and with `c_pool` (pool_inputs of the CPU's forward)
+    the max-pool windows that pick another element (find_pool_ties),
+    collected on copies of the card's model with those found so far pinned
+    (pinned_ties, pinned_pool_ties), until none is new.  Returns (ReLU
+    ties, pool ties)."""
+    import copy
+
+    import torch
+
+    ties, pools = [], []
+    for _ in range(rounds):
+        probe = copy.deepcopy(gpu)
+        with pinned_ties(probe, ties), pinned_pool_ties(probe, pools), \
+                relu_inputs(probe) as g_relu, pool_inputs(probe) as g_pool, torch.no_grad():
+            probe.forward_train(*g_args, proposals=pin)
+        new = find_ties(c_relu, g_relu, skip={tie[:3] for tie in ties})
+        new_pools = (find_pool_ties(c_pool, g_pool, skip={t[:2] for t in pools})
+                     if c_pool else [])
+        if not new and not new_pools:
+            break
+        ties += new
+        pools += new_pools
+    return ties, pools
+
+
+def ties_few(ties, c_relu, pools=(), c_pool=None) -> tuple:
+    """(whether the ties are few: at most 1e-5 of the ReLU units, each
+    within 1e-4 of its ReLU's max|input| of 0, and at most 1e-5 of the
+    pool windows, each's gap (find_pool_ties) within 1e-4 of its pool's
+    max|input|, the bound of the ReLU ties on the same convs' outputs; the
+    units; the largest ReLU tie)."""
+    units = sum(v.numel() for v in c_relu.values())
+    windows = sum(v.numel() // 4 for v in (c_pool or {}).values())
+    size = max((max(abs(w), abs(g)) / m for *_, w, g, m in ties), default=0.0)
+    gap = max((t[3] for t in pools), default=0.0)
+    return (len(ties) <= 1e-5 * units and size <= 1e-4 and len(pools) <= 1e-5 * max(windows, 1)
+            and gap <= 1e-4, units, size)
+
+
 LIVE_OVERRIDES = ("RESNET.FIXED_BLOCKS", "-1")
 RES18_LIVE = ("NET_VARIANT", "res18") + LIVE_OVERRIDES
 
@@ -1842,15 +2107,7 @@ def check_live_slice(cfg_base):
     pin = (c_aux.proposal_src.cuda(), c_aux.proposal_valid.cuda())
     g_draws = TrainDraws(*(None if t is None else t.cuda() for t in draws))
     g_args = (x.cuda(), gt.cuda(), mask.cuda(), win.cuda(), g_draws)
-    ties = []
-    for _ in range(4):
-        probe = copy.deepcopy(gpu)
-        with pinned_ties(probe, ties), relu_inputs(probe) as g_relu, torch.no_grad():
-            probe.forward_train(*g_args, proposals=pin)
-        new = find_ties(c_relu, g_relu, skip={t[:3] for t in ties})
-        if not new:
-            break
-        ties += new
+    ties, _ = card_ties(gpu, c_relu, g_args, pin)
     with pinned_ties(gpu, ties):
         g_losses, g_aux = gpu.forward_train(*g_args, proposals=pin)
     g_losses["total_loss"].backward()
@@ -1975,7 +2232,7 @@ def check_uc_slice(cfg_base):
 
     cfg = cfg_from_list(cfg_base, UC_SLICE_OVERRIDES)
     lidar = cfg.net_type == "lidar"
-    kind = "BEV " if lidar else ""
+    kind = ("BEV " if lidar else "") + ("FPN " if cfg.use_fpn else "")
     cpu, _ = create_train_state(cfg, 2, "cpu", seed=1)
     scale_rpn_heads(scale_terminators(cpu))
     gpu = copy.deepcopy(cpu).cuda()
@@ -2040,15 +2297,7 @@ def check_uc_slice(cfg_base):
     g_draws = TrainDraws(*(None if v is None else v.cuda() for v in draws[:5]),
                          UCDraws(masks=on_card(draws.uc.masks), normals=on_card(draws.uc.normals)))
     g_args = (x.cuda(), gt.cuda(), mask.cuda(), win.cuda(), g_draws)
-    ties = []
-    for _ in range(4):
-        probe = copy.deepcopy(gpu)
-        with pinned_ties(probe, ties), relu_inputs(probe) as g_relu, torch.no_grad():
-            probe.forward_train(*g_args, proposals=pin)
-        new = find_ties(c_relu, g_relu, skip={tie[:3] for tie in ties})
-        if not new:
-            break
-        ties += new
+    ties, _ = card_ties(gpu, c_relu, g_args, pin)
     with pinned_ties(gpu, ties):
         g_losses, g_aux = gpu.forward_train(*g_args, proposals=pin)
     g_losses["total_loss"].backward()
@@ -2060,9 +2309,7 @@ def check_uc_slice(cfg_base):
     # share of them, each at 0 within the rounding of its ReLU's input (in
     # the tail that of the pooled RoIs, whose boxes each device rebuilds
     # from its own RPN deltas)
-    units = sum(v.numel() for v in c_relu.values())
-    tie_size = max((max(abs(w), abs(g)) / m for *_, w, g, m in ties), default=0.0)
-    checks["ties few"] = len(ties) <= 1e-5 * units and tie_size <= 1e-4
+    checks["ties few"], units, tie_size = ties_few(ties, c_relu)
     loss_err = {}
     for k in LOSSES + ("a_mutual_info",):
         c, g = float(c_losses[k].detach()), float(g_losses[k].detach())
@@ -2074,6 +2321,9 @@ def check_uc_slice(cfg_base):
         if not cp.requires_grad:
             continue
         cg, gg = cp.grad, g_params[name].grad
+        if cg is None:  # a layer the forward never applies (the FPN's aalayer4)
+            checks[f"grad {name}"] = gg is None
+            continue
         scale = float(cg.abs().max())
         grad_err[name] = float((gg.cpu() - cg).abs().max()) / max(scale, 1e-30)
         checks[f"grad {name}"] = scale > 0 and grad_err[name] <= 1e-3
@@ -2118,12 +2368,9 @@ def run_training(cfg, smi, need=("nms", "roi_align", "roi_align_bwd"), scale=Tru
     peak = torch.cuda.max_memory_allocated()
     ms = np.asarray(res["ms"])
     finite = all(np.isfinite(v) for losses in warm["losses"] + res["losses"] for v in losses.values())
-    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import uses_uncertainty
-
     lidar = cfg.net_type == "lidar"
-    live = cfg.resnet.fixed_blocks == -1
-    name = ("live-BN " if live else "") + ("UC " if uses_uncertainty(cfg) else "") + (
-        "BEV training" if lidar else "FPN training" if cfg.use_fpn else "training")
+    live = cfg.resnet.fixed_blocks == -1 and cfg.net_variant.startswith("res")
+    name = path_name(cfg, "training")
     frames = (f"raster {tuple(loader.peek()['data'].shape)}" if lidar
               else f"{FRAME_HW[0]}x{FRAME_HW[1]}")
     print(f"{name} {cfg.net_variant} {cfg.compute_dtype} {frames} batch {B} ({smi}): "
@@ -2358,8 +2605,9 @@ def bev_aabb(boxes7):
 
 
 def check_bev_slice(cfg_base):
-    """res101 float32 on one synthetic 400 x 350 LiDAR frame: card (the
-    voxelizer, NMS and RoI-align kernels) against CPU (their twins)."""
+    """cfg_base's net (res101 C4 or FPN, VGG16, MobileNet) in float32 on one
+    synthetic 400 x 350 LiDAR frame: card (the voxelizer, NMS and RoI-align
+    kernels, single-level or multiscale) against CPU (their twins)."""
     import torch
 
     from faster_rcnn_pytorch_multimodal_tpu_torch.config import cfg_from_list
@@ -2391,21 +2639,22 @@ def check_bev_slice(cfg_base):
     s = cfg.lidar.num_slices
     raster_equal = torch.equal(g_x[..., :s + 1].cpu(), c_x[..., :s + 1])
     meta_err = float((g_x[..., s + 1:].cpu() - c_x[..., s + 1:]).abs().max())
-    feat_err = float((g_feat.cpu() - c_feat).abs().max())
-    feat_max = float(c_feat.abs().max())
+    feat_err, feat_max = feature_err(g_feat, c_feat)
     fg_err = float((g_rpn["fg_prob"].cpu() - c_rpn["fg_prob"]).abs().max())
     cls_err = float((g_cls.cpu() - c_out["cls_prob"]).abs().max())
     box_err = float((g_boxes.cpu() - c_out["bbox_pred"]).abs().max())
     cr = c_out["rois"][0][c_out["roi_valid"][0]]
     gr = g_out["rois"][0][g_out["roi_valid"][0]]
     matched = int((iou_plus1(cr, gr).max(dim=1).values >= 0.99).sum())
-    print(f"BEV slice res101 fp32 {tuple(c_x.shape)}: raster height/density equal {raster_equal}, "
-          f"meta err {meta_err}; C4 max err {feat_err} (max|C4| {feat_max}); fg_prob {fg_err}; "
+    fm = "p2..p5" if cfg.use_fpn else "C4"
+    print(f"BEV slice {'FPN ' if cfg.use_fpn else ''}{cfg.net_variant} fp32 {tuple(c_x.shape)}: "
+          f"raster height/density equal {raster_equal}, meta err {meta_err}; {fm} max err "
+          f"{feat_err} (max|{fm}| {feat_max}); fg_prob {fg_err}; "
           f"proposals matched {matched}/{len(cr)} at IoU >= 0.99; pinned cls_prob {cls_err}; "
           f"pinned 7-DoF boxes {box_err} voxels")
     checks = {
         "raster": raster_equal and meta_err <= 1e-5,
-        "C4 features": feat_err <= 1e-4 * feat_max,
+        f"{fm} features": feat_err <= 1e-4 * feat_max,
         "fg_prob": fg_err <= 2e-3,
         "proposals": len(cr) > 0 and matched >= 0.95 * len(cr),
         "cls_prob": cls_err <= 3e-3 * float(c_out["cls_prob"].abs().max()),
@@ -2450,9 +2699,9 @@ def filter_nms_inputs():
         filter_mod.nms = nms
 
 
-def run_bev_serving(cfg, smi, need=("voxelize_bev", "nms", "roi_align")):
+def run_bev_serving(cfg, smi, need=("voxelize_bev", "nms", "roi_align"), never=()):
     """The BEV serving path: warm-up batch, then 3 batches, counted; the
-    kernels in `need` must have launched.  Returns the launches and the
+    kernels in `need` must have launched and those in `never` not.  Returns the launches and the
     batch's ms, frames/s, peak memory and the final filter's NMS input of
     the warm-up batch (the first evaluated batch: filter_nms_inputs)."""
     import torch
@@ -2486,7 +2735,7 @@ def run_bev_serving(cfg, smi, need=("voxelize_bev", "nms", "roi_align")):
     raster = np.asarray(res["raster_ms"][1:])
     ms = np.asarray(res["detect_ms"][1:]) + np.asarray(res["filter_ms"][1:]) + raster
     shape = tuple(warm["data"].shape)
-    name = "rotated BEV serving" if cfg.test.rotated_nms else "BEV serving"
+    name = ("rotated " if cfg.test.rotated_nms else "") + path_name(cfg, "serving")
     print(f"{name} {cfg.net_variant} {cfg.compute_dtype} raster {shape} batch {B} "
           f"({smi}): voxelize ms/batch {res['raster_ms']}, detect ms/batch {res['detect_ms']}, "
           f"filter ms/batch {res['filter_ms']}; batches 2-3 mean {float(ms.mean())} ms/batch, "
@@ -2499,8 +2748,8 @@ def run_bev_serving(cfg, smi, need=("voxelize_bev", "nms", "roi_align")):
         raise AssertionError(f"{name}: non-finite outputs")
     if not res["min_proposals"] or res["min_proposals"] <= 0:
         raise AssertionError(f"{name}: a frame has no valid proposal")
-    if not all(launches[k] > 0 for k in need):
-        raise AssertionError(f"{name}: a kernel never launched: {launches}")
+    if not all(launches[k] > 0 for k in need) or any(launches[k] for k in never):
+        raise AssertionError(f"{name}: launches {launches}, needed {need}, never {never}")
     return launches, {"ms": float(ms.mean()), "fps": B * len(ms) / (float(ms.sum()) / 1e3),
                       "peak_gib": peak / 2**30, "filter_input": seen[0]}
 
@@ -2556,7 +2805,7 @@ DATASET_ROOT = REPO / "build" / "chip_smoke_datasets"
 # defaults' augmentation (flips, gauss jitter, dropout, the x/y swap:
 # config.py:250-254) plus the rotation, so that every native op runs
 WAYMO_OVERRIDES = ("STATIC.MAX_POINTS", "180000", "LIDAR.EN_AUG_ROTATE", "True")
-DATASET_STEPS = 30  # the loaders run ahead up to 16 batches: the last 10 steps are the steady ones
+DATASET_STEPS = 10
 STEADY_STEPS = 10
 PIPE_TRIPS = 5
 KITTI_STEPS = 5
@@ -3177,6 +3426,15 @@ def main() -> int:
     roi_bev_256_serve = check_roi_align(rng_256, BEV_FEAT_HW, R, C_RES18)
     # K4's IoU on pairs with collinear sides (F5), from a sixth stream
     collinear = check_collinear(np.random.RandomState(6))
+    # VGG16's and MobileNet's 512-channel C4 maps: image serving, BEV
+    # training (VGG16's floored 25 x 21 map, MobileNet's 25 x 22) and the
+    # backward onto both, from a seventh stream
+    rng_512 = np.random.RandomState(8)
+    roi_512 = check_roi_align(rng_512, (H_FEAT, W_FEAT), R, C_VGG)
+    roi_bev_512 = check_roi_align(rng_512, VGG_BEV_FEAT_HW, R_TRAIN, C_VGG)
+    roi_bev_512_mobile = check_roi_align(rng_512, BEV_FEAT_HW, R_TRAIN, C_VGG)
+    roi_bwd_512 = check_roi_align_backward(rng_512, (H_FEAT, W_FEAT), C_VGG)
+    roi_bwd_bev_512 = check_roi_align_backward(rng_512, VGG_BEV_FEAT_HW, C_VGG)
 
     serving_cfg = make_config(IMAGE_OVERRIDES, SERVING_OVERRIDES)
 
@@ -3296,6 +3554,69 @@ def main() -> int:
     phase("Dataset path (KITTI lidar)")
     kitti_paths = run_kitti_path(smi)
 
+    phase("VGG16 and MobileNet slices: card vs CPU")
+    for net in (VGG_OVERRIDES, MOBILE_OVERRIDES):
+        check_slice(make_config(IMAGE_OVERRIDES, net, SERVING_OVERRIDES))
+        check_train_slice(make_config(IMAGE_OVERRIDES, net))
+        check_bev_slice(make_config(BEV_OVERRIDES, net, BEV_SERVING_OVERRIDES))
+        check_train_slice(make_config(BEV_OVERRIDES, net))
+
+    phase("VGG16 image path")
+    vgg_serving = run_serving(make_config(IMAGE_OVERRIDES, VGG_OVERRIDES, SERVING_OVERRIDES), smi)
+    vgg_training, _ = run_training(make_config(IMAGE_OVERRIDES, VGG_OVERRIDES), smi)
+
+    phase("MobileNet image path")
+    mobile_serving = run_serving(make_config(IMAGE_OVERRIDES, MOBILE_OVERRIDES, SERVING_OVERRIDES),
+                                 smi)
+    mobile_training, _ = run_training(make_config(IMAGE_OVERRIDES, MOBILE_OVERRIDES), smi)
+
+    phase("FPN x UC slice: card vs CPU")
+    # every flag, the RPN's epistemic over the whole pyramid too, here only;
+    # the GT boxes among the RoIs: with the pyramid's dropout live the
+    # step's proposals move off those the GT was jittered from (drawn in
+    # eval mode), no RoI is foreground and the box branch gets no gradient
+    check_uc_slice(make_config(IMAGE_OVERRIDES, FPN_OVERRIDES, ("TRAIN.USE_GT", "True")))
+
+    phase("FPN x UC path")
+    # the RoIs pooled once a batch by the multiscale kernel; FCTail and the
+    # predictors run for each of the T = 10 samples
+    fpn_uc_serving = run_serving(
+        make_config(IMAGE_OVERRIDES, FPN_OVERRIDES, SERVING_OVERRIDES, UC_OVERRIDES), smi,
+        need=("nms", "roi_align_multiscale"), never=("roi_align",),
+        per_batch={"nms": 2, "roi_align_multiscale": 1})
+    # from scratch (live BN), as the C4 UC training path
+    fpn_uc_training, _ = run_training(
+        make_config(IMAGE_OVERRIDES, FPN_OVERRIDES, UC_OVERRIDES, LIVE_OVERRIDES), smi,
+        need=("nms", "roi_align_multiscale", "roi_align_multiscale_bwd"), scale=False)
+
+    phase("FPN BEV slices: card vs CPU")
+    fpn_bev_cfg = make_config(BEV_OVERRIDES, FPN_OVERRIDES)
+    check_bev_slice(make_config(BEV_OVERRIDES, FPN_OVERRIDES, BEV_SERVING_OVERRIDES))
+    check_train_slice(fpn_bev_cfg)
+
+    phase("FPN BEV path")
+    serve_rois, train_rois = [], []
+    with recording_multiscale_rois(serve_rois):
+        fpn_bev_serving, fpn_bev_stats = run_bev_serving(
+            make_config(BEV_OVERRIDES, FPN_OVERRIDES, BEV_SERVING_OVERRIDES), smi,
+            need=("voxelize_bev", "nms", "roi_align_multiscale"), never=("roi_align",))
+    fpn_bev_rotated, fpn_rot_stats = run_bev_serving(
+        make_config(BEV_OVERRIDES, FPN_OVERRIDES, BEV_SERVING_OVERRIDES, ROTATED_OVERRIDES), smi,
+        need=("voxelize_bev", "nms", "nms_rotated", "roi_align_multiscale"), never=("roi_align",))
+    print(f"rotated vs axis-aligned FPN BEV serving, one call ({smi}): {fpn_rot_stats['ms']} vs "
+          f"{fpn_bev_stats['ms']} ms/batch, {fpn_rot_stats['fps']} vs {fpn_bev_stats['fps']} "
+          f"frames/s, peak memory {fpn_rot_stats['peak_gib']} vs {fpn_bev_stats['peak_gib']} GiB")
+    with recording_multiscale_rois(train_rois):
+        fpn_bev_training, _ = run_training(fpn_bev_cfg, smi, need=(
+            "voxelize_bev", "nms", "roi_align_multiscale", "roi_align_multiscale_bwd"))
+    # K2-FPN and K2-FPN-bwd on the BEV pyramid (p2 100 x 88 .. p5 13 x 11),
+    # on the RoIs the path's warm-up batch and warm-up step pooled
+    rng_pyr = np.random.RandomState(9)
+    ms_bev_fwd = check_multiscale_roi_align(rng_pyr, serve_rois[0], "the FPN BEV path's RoIs",
+                                            BEV_PYRAMID_HW, one_level=False)
+    ms_bev_bwd = check_multiscale_backward(rng_pyr, train_rois[0],
+                                           "the FPN BEV training path's RoIs", BEV_PYRAMID_HW)
+
     paths = {"serving": serving, "training": training, "bev_serving": bev_serving,
              "fpn_serving": fpn_serving, "fpn_training": fpn_training,
              "bev_training": bev_training, "bev_rotated_serving": bev_rotated,
@@ -3303,7 +3624,12 @@ def main() -> int:
              "bev_live_serving": bev_live_serving, "uc_serving": uc_serving,
              "uc_training": uc_training, "bev_uc_training": bev_uc_training,
              "bev_uc_serving": bev_uc_serving, "solver_image": solver_image,
-             "solver_bev": solver_bev, **waymo_paths, **kitti_paths}
+             "solver_bev": solver_bev, **waymo_paths, **kitti_paths,
+             "vgg_serving": vgg_serving, "vgg_training": vgg_training,
+             "mobile_serving": mobile_serving, "mobile_training": mobile_training,
+             "fpn_uc_serving": fpn_uc_serving, "fpn_uc_training": fpn_uc_training,
+             "fpn_bev_serving": fpn_bev_serving, "fpn_bev_rotated_serving": fpn_bev_rotated,
+             "fpn_bev_training": fpn_bev_training}
 
     def entry(name, source, replaces, path, measured):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
@@ -3320,13 +3646,19 @@ def main() -> int:
         entry("nms", "nms.cu", "ops/nms.py:53", "solver_bev",
               {**nms_bev_train, "max_abs_err": nms_err}),
         entry("roi_align", "roi_align.cu", "ops/roi_align.py:122", "solver_bev",
-              roi_bev_train[torch.bfloat16]),
+              {**roi_bev_train[torch.bfloat16], "at_512_channels": {
+                  "image (8, 32, 60, 512) x 300": roi_512[torch.bfloat16],
+                  "VGG16 BEV (8, 25, 21, 512) x 256": roi_bev_512[torch.bfloat16],
+                  "MobileNet BEV (8, 25, 22, 512) x 256": roi_bev_512_mobile[torch.bfloat16]}}),
         entry("roi_align_bwd", "roi_align.cu", "ops/roi_align.py:122 (VJP)", "solver_bev",
-              roi_bwd_bev[torch.bfloat16]),
+              {**roi_bwd_bev[torch.bfloat16], "at_512_channels": {
+                  "onto (8, 32, 60, 512)": roi_bwd_512[torch.bfloat16],
+                  "onto (8, 25, 21, 512)": roi_bwd_bev_512[torch.bfloat16]}}),
         entry("roi_align_multiscale", "roi_align.cu", "ops/roi_align.py:208", "fpn_serving",
-              ms_fwd[torch.bfloat16]),
+              {**ms_fwd[torch.bfloat16], "bev_pyramid": ms_bev_fwd[torch.bfloat16]}),
         entry("roi_align_multiscale_bwd", "roi_align.cu", "ops/roi_align.py:208 (VJP)",
-              "fpn_training", ms_bwd[torch.bfloat16]),
+              "fpn_training",
+              {**ms_bwd[torch.bfloat16], "bev_pyramid": ms_bev_bwd[torch.bfloat16]}),
         entry("nms_rotated", "nms.cu", "ops/rotated_iou.py:93 (via ops/nms.py:164)",
               "bev_rotated_serving",
               {k: nms_rot[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}),
@@ -3386,6 +3718,17 @@ def main() -> int:
           f"{roi_bwd_256[torch.bfloat16]}; onto (8, 25, 22, 256): fp32 "
           f"{roi_bwd_bev_256[torch.float32]}, bf16 {roi_bwd_bev_256[torch.bfloat16]}; "
           f"rotated_iou on collinear pairs {collinear}")
+    print(f"VGG16 and MobileNet C4 maps (512 channels): roi_align (8, 32, 60, 512) x 300: fp32 "
+          f"{roi_512[torch.float32]}, bf16 {roi_512[torch.bfloat16]}; (8, 25, 21, 512) x 256: fp32 "
+          f"{roi_bev_512[torch.float32]}, bf16 {roi_bev_512[torch.bfloat16]}; (8, 25, 22, 512) x "
+          f"256: fp32 {roi_bev_512_mobile[torch.float32]}, bf16 "
+          f"{roi_bev_512_mobile[torch.bfloat16]}; backward onto (8, 32, 60, 512): fp32 "
+          f"{roi_bwd_512[torch.float32]}, bf16 {roi_bwd_512[torch.bfloat16]}; onto (8, 25, 21, "
+          f"512): fp32 {roi_bwd_bev_512[torch.float32]}, bf16 {roi_bwd_bev_512[torch.bfloat16]}; "
+          f"the BEV pyramid (p2 100 x 88 .. p5 13 x 11) on the FPN BEV path's RoIs: "
+          f"roi_align_multiscale fp32 {ms_bev_fwd[torch.float32]}, bf16 "
+          f"{ms_bev_fwd[torch.bfloat16]}; its backward fp32 {ms_bev_bwd[torch.float32]}, bf16 "
+          f"{ms_bev_bwd[torch.bfloat16]}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

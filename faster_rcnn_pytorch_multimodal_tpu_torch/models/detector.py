@@ -1,6 +1,6 @@
-"""Faster R-CNN detector: C4 image serving and training, LiDAR BEV serving
-and training, FPN image serving and training, with aleatoric and epistemic
-uncertainty on the C4 image and the LiDAR paths.
+"""Faster R-CNN detector: C4 (ResNet, VGG16 or MobileNetV1) and FPN
+(ResNet), on images or LiDAR BEV rasters, serving and training, with
+aleatoric and epistemic uncertainty on every path.
 
 Port of faster_rcnn_pytorch_multimodal_tpu/models/detector.py:
 `build_anchor_grid` (image and lidar branches), `feat_stride`,
@@ -27,7 +27,16 @@ caller's UCDraws (a generator, or given masks and normals).
 With USE_FPN (and POOLING_MODE multiscale) the backbone is ResNetPyramid and
 an FPN, `features` returns the pyramid (p2, p3, p4, p5) as a tuple, the RPN
 runs on p2 at stride 4, RoIs are pooled by multiscale RoI align and the tail
-is the three-layer FCTail; everything else is the C4 code.
+is the three-layer FCTail; everything else is the C4 code, uncertainty and
+BEV rasters included (USE_LIDAR_FPN is accepted and read by nothing, as in
+the JAX package).
+
+NET_VARIANT vgg16 and mobile (JAX detector.py:331-369) put VGG16Head /
+VGG16Tail (fc6, fc7 over each RoI flattened in (y, x, c) order) or
+MobileNetV1Head / MobileNetV1Tail (then the spatial mean) in place of the
+ResNet C4 backbone and tail; the fc7 width the epistemic stacks narrow from
+is 4096 and 1024 (2048 for ResNet), whatever the depth multiplier.  Neither
+takes FPN.
 
 For LiDAR (NET_TYPE lidar) the input is the (B, Y, X, slices + 3) BEV raster,
 the stem takes that many channels, the RPN regresses the BEV AABB footprints
@@ -74,7 +83,12 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.models.heads import (
     FCTail,
     RPNHead,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch.models.mobilenet import (
+    MobileNetV1Head,
+    MobileNetV1Tail,
+)
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import (
+    STAGE_BLOCKS,
     BasicBlock,
     Bottleneck,
     CheapDropout,
@@ -86,6 +100,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import (
     UCDraws,
     live_dropout,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch.models.vgg16 import VGG16Head, VGG16Tail
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.anchors import (
     anchors_3d_to_bev_aabb,
     generate_3d_anchors,
@@ -126,6 +141,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FPN_STRIDES = (4, 8, 16, 32)  # p2..p5
 FPN_PLANES = 256
 FC7_CHANNELS = 2048
+# the nets beside ResNet, and the fc7 width their epistemic stacks narrow
+# from (det_channels = fc7 / 4; 2048 for ResNet): the JAX package's
+# fc7_channels, 1024 for MobileNet at any depth multiplier
+FC7_WIDTH = {"vgg16": 4096, "mobile": 1024}
 RESNET_DROP_RATE = 0.5  # the Bottlenecks' dropout under epistemic uncertainty
 # Monte-Carlo samples stacked along the batch axis in one pass of the tail
 # (or of the backbone, RPN epistemic).  A fixed chunk, not UC.E_MC_CHUNK(_TEST),
@@ -267,30 +286,32 @@ class TrainAux(NamedTuple):
 def check_supported(cfg: Config, training: bool = False) -> None:
     """Raise on configurations outside the ported paths."""
     problems = []
-    lidar = cfg.net_type == "lidar"
     if cfg.net_type not in ("image", "lidar"):
         problems.append(f"NET_TYPE {cfg.net_type!r}")
-    if lidar and cfg.use_lidar_fpn:
-        problems.append("USE_LIDAR_FPN")
-    if cfg.use_fpn and lidar:
-        problems.append("USE_FPN with NET_TYPE 'lidar'")
     if cfg.use_fpn and cfg.pooling_mode != "multiscale":
         # the JAX package lays stride-16 anchors over the stride-4 p2 and
         # pools p2 at 1/16 (models/detector.py:197-201,508-510,573-580)
         problems.append(
             f"USE_FPN with POOLING_MODE {cfg.pooling_mode!r} (fault F2: anchors and "
             "pooling at stride 16 over the stride-4 p2; use POOLING_MODE multiscale)")
-    if not cfg.net_variant.startswith("res"):
-        problems.append(f"NET_VARIANT {cfg.net_variant!r} (ResNet only)")
-    if uses_uncertainty(cfg) and cfg.use_fpn:
-        problems.append("UC.* flags with USE_FPN (uncertainty is ported on the C4 image and "
-                        "LiDAR paths only; no serving-parity test holds FPN x UC)")
+    variant = cfg.net_variant
+    if variant in FC7_WIDTH:
+        if cfg.use_fpn:
+            problems.append(f"USE_FPN with NET_VARIANT {variant!r} (FPN is ResNet-only, "
+                            "as the JAX package asserts)")
+    elif not (variant.startswith("res") and _resnet_depth(variant) in STAGE_BLOCKS):
+        problems.append(f"NET_VARIANT {variant!r}")
     if cfg.uc.bayes_variant not in BAYES_VARIANTS:
         problems.append(f"UC.BAYES_VARIANT {cfg.uc.bayes_variant!r}")
     if cfg.compute_dtype not in _DTYPES:
         problems.append(f"COMPUTE_DTYPE {cfg.compute_dtype!r}")
     if problems:
         raise NotImplementedError("not ported: " + ", ".join(problems))
+
+
+def _resnet_depth(variant: str) -> int:
+    digits = variant.replace("res", "")
+    return int(digits) if digits.isdigit() else (101 if not digits else -1)
 
 
 def uses_uncertainty(cfg: Config) -> bool:
@@ -303,16 +324,16 @@ def uses_uncertainty(cfg: Config) -> bool:
 
 
 class FasterRCNN(nn.Module):
-    """Faster R-CNN with a ResNet backbone: C4 (stride-1 layer4 tail) on
-    images or LiDAR BEV rasters, or FPN (pyramid backbone, FCTail) on
-    images."""
+    """Faster R-CNN on images or LiDAR BEV rasters: C4 with a ResNet
+    (stride-1 layer4 tail), VGG16 or MobileNetV1 backbone, or FPN (ResNet
+    pyramid backbone, FCTail)."""
 
     def __init__(self, cfg: Config, num_classes: int):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.num_classes = num_classes
-        num_layers = int(cfg.net_variant.replace("res", "") or 101)
+        variant = cfg.net_variant
         in_channels = cfg.lidar.num_channel if cfg.net_type == "lidar" else 3
         # from scratch (FIXED_BLOCKS -1): live BN and zero-init residual
         # terminators, as the JAX package switches them (detector.py:372-406)
@@ -322,15 +343,26 @@ class FasterRCNN(nn.Module):
         dropout_en = uc.any_epistemic or uc.rpn_epistemic
         bn = dict(live_bn=live, zero_init_residual=live,
                   drop_rate=RESNET_DROP_RATE if dropout_en else 0.0)
-        if cfg.use_fpn:
-            self.backbone = ResNetPyramid(num_layers, in_channels=in_channels, **bn)
+        if variant == "vgg16":
+            self.backbone = VGG16Head(in_channels)
+            self.tail = VGG16Tail(self.backbone.out_channels * cfg.pooling_size ** 2)
+        elif variant == "mobile":
+            self.backbone = MobileNetV1Head(cfg.mobilenet.depth_multiplier, in_channels)
+            self.tail = MobileNetV1Tail(cfg.mobilenet.depth_multiplier)
+        elif cfg.use_fpn:
+            self.backbone = ResNetPyramid(_resnet_depth(variant), in_channels=in_channels, **bn)
             self.fpn = FPN(self.backbone.out_channels, FPN_PLANES)
             self.tail = FCTail(FPN_PLANES * cfg.pooling_size ** 2, FC7_CHANNELS)
+        else:
+            self.backbone = ResNetC4(_resnet_depth(variant), in_channels=in_channels, **bn)
+            self.tail = ResNetLayer4(_resnet_depth(variant), **bn)
+        if cfg.use_fpn:
             rpn_in, fc7 = FPN_PLANES, FC7_CHANNELS
         else:
-            self.backbone = ResNetC4(num_layers, in_channels=in_channels, **bn)
-            self.tail = ResNetLayer4(num_layers, **bn)
             rpn_in, fc7 = self.backbone.out_channels, self.tail.out_channels
+        # a tail over flat (y, x, c) RoIs (FCTail, fc6) or a conv tail
+        self.flat_tail = cfg.use_fpn or variant == "vgg16"
+        det_width = FC7_WIDTH.get(variant, FC7_CHANNELS)
         self.rpn = RPNHead(rpn_in, cfg.rpn_channels, cfg.num_anchors)
         a = cfg.num_anchors
         # per-anchor log-variances of the deltas and of the two logits, on the RPN map
@@ -338,7 +370,7 @@ class FasterRCNN(nn.Module):
         self.rpn_cls_al_var_net = nn.Conv2d(rpn_in, a * 2, 1) if uc.en_rpn_cls_aleatoric else None
         self.predictors = DetectionPredictors(
             fc7, num_classes, cfg.num_bbox_elem,
-            det_channels=FC7_CHANNELS // 4 if dropout_en else FC7_CHANNELS,
+            det_channels=det_width // 4 if dropout_en else det_width,
             en_cls_aleatoric=uc.en_cls_aleatoric, en_bbox_aleatoric=uc.en_bbox_aleatoric,
             en_cls_epistemic=uc.en_cls_epistemic, en_bbox_epistemic=uc.en_bbox_epistemic,
             lidar_bn=cfg.net_type == "lidar" and uc.any_epistemic,
@@ -356,7 +388,8 @@ class FasterRCNN(nn.Module):
 
     def features(self, images: torch.Tensor) -> Features:
         """(B, H, W, 3) images -> NHWC features: the (B, H/16, W/16, C) C4
-        map (C = backbone.out_channels: 1024, or 256 for res18/34), or with
+        map (C = backbone.out_channels: 1024, 256 for res18/34, 512 for
+        VGG16 and MobileNet at depth multiplier 1), or with
         FPN the tuple (p2, p3, p4, p5) of (B, H/s, W/s, 256) maps at strides
         4, 8, 16, 32.
 
@@ -466,10 +499,11 @@ class FasterRCNN(nn.Module):
 
     def pooled_head(self, pooled: torch.Tensor, b: int, s: int) -> Dict[str, torch.Tensor]:
         """Tail and predictors over pooled RoIs -> float32 dict of (B, S, .):
-        C4 layer4 and the spatial mean, or the FPN's FCTail over each RoI
-        flattened in (y, x, c) order."""
+        a conv tail (C4 layer4, MobileNet's layers 12-13) and the spatial
+        mean, or a flat tail (the FPN's FCTail, VGG16's fc6/fc7) over each
+        RoI flattened in (y, x, c) order."""
         p, c = pooled.shape[-2], pooled.shape[-1]
-        if self.cfg.use_fpn:
+        if self.flat_tail:
             fc7 = self.tail(pooled.reshape(b * s, p * p * c))
         else:
             x = pooled.reshape(b * s, p, p, c).permute(0, 3, 1, 2)  # channels_last view
@@ -649,15 +683,24 @@ class FasterRCNN(nn.Module):
 
     # -- training -------------------------------------------------------------
 
+    def feature_hw(self, image_hw: Tuple[int, int]) -> Tuple[int, int]:
+        """The RPN map's size for frames (or BEV rasters) of `image_hw`:
+        ceil(H / s) x ceil(W / s) at the feature stride s (16 for C4, 4 for
+        p2 of FPN), or floor(H / 16) x floor(W / 16) for VGG16, whose four
+        2x2 max pools floor."""
+        stride = feat_stride(self.cfg)
+        if self.cfg.net_variant == "vgg16":
+            return image_hw[0] // stride, image_hw[1] // stride
+        return -(-image_hw[0] // stride), -(-image_hw[1] // stride)
+
     def train_lane_counts(self, image_hw: Tuple[int, int], max_gt: int) -> Tuple[int, int]:
         """(N anchors, R proposals) a frame for training frames of
-        `image_hw`: the sizes of TrainDraws' keys.  The RPN's map is
-        ceil(H / s) x ceil(W / s) at the feature stride s (16 for C4, 4 for
-        p2 of FPN); R counts the appended GT boxes when
-        TRAIN.USE_GT.  Lidar rasters give ceil(Y / 16) x ceil(X / 16) cells of
-        num_anchors_3d lanes (ANCHOR_SUBSTRIDE's sub-cells included)."""
-        stride = feat_stride(self.cfg)
-        n = -(-image_hw[0] // stride) * -(-image_hw[1] // stride) * self.cfg.num_anchors
+        `image_hw`: the sizes of TrainDraws' keys.  N is num_anchors lanes
+        (for lidar num_anchors_3d, ANCHOR_SUBSTRIDE's sub-cells included) at
+        each cell of the RPN map (feature_hw); R counts the appended GT
+        boxes when TRAIN.USE_GT."""
+        fh, fw = self.feature_hw(image_hw)
+        n = fh * fw * self.cfg.num_anchors
         c = self.cfg.train
         r = min(self.cfg.static.nms_pre_train, c.rpn_pre_nms_top_n, n, c.rpn_post_nms_top_n)
         return n, r + (max_gt if c.use_gt else 0)
@@ -910,7 +953,9 @@ def _trunc_normal(w: torch.Tensor, std: float, g: torch.Generator) -> None:
 def init_params(model: FasterRCNN, generator: torch.Generator) -> FasterRCNN:
     """Random init with the JAX package's initializers, from `generator`:
     ResNet convs variance-scaling(2, fan_out, truncated normal), the stem
-    conv and the FPN convs lecun-normal (flax's default), RPN, class heads,
+    conv, the FPN convs and every conv and dense layer of VGG16 and
+    MobileNet (backbone and tail) lecun-normal (flax's default: fan-in
+    over the groups), RPN, class heads,
     the epistemic stacks and the FPN tail's t_fc layers normal(0.01), the
     box head, its variance head and the RPN's variance convs normal(0.001),
     zero biases, identity BN (frozen or live), and the residual terminators'
@@ -920,15 +965,20 @@ def init_params(model: FasterRCNN, generator: torch.Generator) -> FasterRCNN:
                 "predictors.cls_score_net": 0.01, "predictors.bbox_pred_net": 0.001,
                 "predictors.cls_al_var_net": 0.01, "predictors.bbox_al_var_net": 0.001,
                 "predictors.cls_stack": 0.01, "predictors.bbox_stack": 0.01, "tail.t_fc": 0.01}
+    lecun_net = model.cfg.net_variant in FC7_WIDTH
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, FrozenBatchNorm):  # LiveBatchNorm too
+            if isinstance(m, FrozenBatchNorm):  # LiveBatchNorm, AffineBatchNorm too
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
             elif isinstance(m, (nn.Conv2d, nn.Linear)):
-                if isinstance(m, nn.Conv2d) and name.startswith(("backbone", "tail", "fpn")):
+                if lecun_net and name.startswith(("backbone", "tail")):
+                    fan_in = (m.in_features if isinstance(m, nn.Linear)
+                              else m.in_channels // m.groups * math.prod(m.kernel_size))
+                    _trunc_normal(m.weight, math.sqrt(1.0 / fan_in), generator)
+                elif isinstance(m, nn.Conv2d) and name.startswith(("backbone", "tail", "fpn")):
                     kh, kw = m.kernel_size
                     if name == "backbone.conv1" or name.startswith("fpn"):
                         std = math.sqrt(1.0 / (m.in_channels * kh * kw))
@@ -944,6 +994,14 @@ def init_params(model: FasterRCNN, generator: torch.Generator) -> FasterRCNN:
             if isinstance(m, (Bottleneck, BasicBlock)) and m.zero_init_residual:
                 m.terminator.weight.zero_()
     return model
+
+
+def stem_key(model: FasterRCNN) -> str:
+    """The state-dict key of the backbone's first conv weight, the stem
+    that takes the frames or BEV rasters (backbone.conv1, early_conv0 or
+    conv0)."""
+    name = next(n for n, m in model.backbone.named_modules() if isinstance(m, nn.Conv2d))
+    return f"backbone.{name}.weight"
 
 
 def init_detector(cfg: Config, num_classes: int, seed: int = 0) -> FasterRCNN:

@@ -11,7 +11,9 @@ Port of faster_rcnn_pytorch_multimodal_tpu/models/heads.py: RPNHead
   fc7 [-> bbox_stack] -> bbox_pred_net (E*K) [, bbox_al_var_net (E*K)]
 
 A stack (epistemic uncertainty) is fc1, BN under lidar, ReLU, dropout, fc2,
-BN, ReLU, dropout, at the JAX package's rates (0.3 before the class head,
+BN, ReLU, dropout (the BN an AffineBatchNorm: the JAX package trains its
+scale and bias, since its frozen mask does not match the `cls_bn1` /
+`bbox_bn2` names), at the JAX package's rates (0.3 before the class head,
 0.1 before the box head); the aleatoric heads predict log-variances.  The
 RPN's variance convs sit on the detector (models.detector).
 
@@ -25,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import CheapDropout, FrozenBatchNorm
+from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import AffineBatchNorm, CheapDropout
 
 CLS_DROP_RATE = 0.3
 BBOX_DROP_RATE = 0.1
@@ -62,18 +64,6 @@ class FCTail(nn.Module):
         return torch.relu(self.t_fc3(x))
 
 
-class StackBatchNorm(FrozenBatchNorm):
-    """The epistemic stacks' BN (lidar): FrozenBatchNorm's fixed statistics
-    with a trainable scale and bias, as the JAX package trains them (its
-    frozen mask does not match the `cls_bn1` / `bbox_bn2` names)."""
-
-    def __init__(self, features: int, eps: float = 1e-5):
-        super().__init__(features, eps)
-        del self.weight, self.bias
-        self.weight = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-
 class EpistemicStack(nn.Module):
     """{prefix}_fc1 [-> {prefix}_bn1] -> ReLU -> {prefix}_drop1 ->
     {prefix}_fc2 [-> {prefix}_bn2] -> ReLU -> {prefix}_drop2, `features`
@@ -87,7 +77,7 @@ class EpistemicStack(nn.Module):
         for i, cin in ((1, in_features), (2, features)):
             self.add_module(f"{prefix}_fc{i}", nn.Linear(cin, features))
             if batchnorm_en:
-                self.add_module(f"{prefix}_bn{i}", StackBatchNorm(features))
+                self.add_module(f"{prefix}_bn{i}", AffineBatchNorm(features))
             self.add_module(f"{prefix}_drop{i}", CheapDropout(drop_rate))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -94,6 +94,20 @@ class FrozenBatchNorm(nn.Module):
         return _bn_affine(x, self.running_mean, self.running_var, self.weight, self.bias, self.eps)
 
 
+class AffineBatchNorm(FrozenBatchNorm):
+    """FrozenBatchNorm's fixed statistics with a trainable scale and bias:
+    the JAX package's FrozenBatchNorm where its optimizer's frozen mask
+    lets the affine train (the epistemic stacks' BN; MobileNet's BN at
+    FIXED_BLOCKS -1).  Where the mask freezes it, training.optim sets
+    requires_grad False."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features, eps)
+        del self.weight, self.bias
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+
 class LiveBatchNorm(FrozenBatchNorm):
     """Train-mode BN with the JAX package's arithmetic (FrozenBatchNorm with
     live=True, resnet.py:57-117) and FrozenBatchNorm's keys; weight and bias

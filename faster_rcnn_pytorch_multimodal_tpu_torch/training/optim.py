@@ -6,7 +6,9 @@ tree; the masks here are the same predicates over the port's torchvision-
 style state-dict keys:
 
   * frozen: the stem (backbone.conv1 / bn1), backbone.layer1..FIXED_BLOCKS
-    and every FrozenBatchNorm leaf; the model's frozen parameters get
+    (MobileNet's first separable layers; VGG16 has no such names, so
+    nothing of it is frozen, as in the JAX package) and every
+    FrozenBatchNorm leaf; the model's frozen parameters get
     requires_grad=False, so they have no gradient at all;
   * bias: optional 2x learning rate (TRAIN.DOUBLE_BIAS), no weight decay
     unless TRAIN.BIAS_DECAY;
@@ -45,7 +47,9 @@ def is_frozen(key: str, cfg: Config) -> bool:
     in_backbone = parts[0] == "backbone"
     if in_backbone and parts[1] in _STEM:
         return True
-    if any(p.startswith("bn") for p in parts) or ".downsample.1." in key:
+    # every FrozenBatchNorm: a ResNet block's bn1..3 and downsample BN, and
+    # MobileNet's bn0, dw_bn and pw_bn (JAX matches names ending in `_bn`)
+    if any(p.startswith("bn") or p.endswith("_bn") for p in parts) or ".downsample.1." in key:
         return True
     return in_backbone and parts[1] in {f"layer{i}" for i in range(1, fixed + 1)}
 

@@ -56,12 +56,16 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import (
     check_supported,
     init_detector,
     live_bn_stats,
+    stem_key,
     uses_uncertainty,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import LiveBatchNorm
 from faster_rcnn_pytorch_multimodal_tpu_torch.training.metrics import MetricsWriter
 from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
-from faster_rcnn_pytorch_multimodal_tpu_torch.utils.convert import torch_key_to_flax_path
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.convert import (
+    replicate_conv1_for_lidar,
+    torch_key_to_flax_path,
+)
 from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
 
 
@@ -402,11 +406,20 @@ class Solver:
         the weights at `path` (read_weights), mode 2 every scope but
         `predictors`; a key's scope is the root of its JAX path
         (utils.convert.torch_key_to_flax_path).  Frozen and live BN share
-        their keys, so either loads into the other.  A kept key that is
-        missing or of another shape raises, with the keys named.  Returns
-        the keys replaced."""
+        their keys, so either loads into the other.  Image weights preload
+        a LiDAR net: an RGB stem conv (3 input channels where the BEV stem
+        takes LIDAR.NUM_CHANNEL) is spread over the height slices and meta
+        channels by replicate_conv1_for_lidar.  A kept key that is missing
+        or of another shape raises, with the keys named.  Returns the keys
+        replaced."""
         loaded = read_weights(path)
         own = self.model.state_dict()
+        stem = stem_key(self.model)
+        lidar = self.cfg.lidar
+        if (self.cfg.net_type == "lidar" and stem in loaded and loaded[stem].shape[1] == 3
+                and own[stem].shape[1] == lidar.num_channel):
+            loaded = replicate_conv1_for_lidar(loaded, lidar.num_slices, lidar.num_channel, stem)
+            loaded[stem] = torch.from_numpy(loaded[stem])
         scope = {k: torch_key_to_flax_path(k)[0] for k in own}
         roots = list(dict.fromkeys(scope.values()))
         keep = ("backbone", "tail") if mode == 1 else tuple(r for r in roots if r != "predictors")

@@ -1,4 +1,5 @@
-"""Weight bridge between the JAX package's flax parameters and the port.
+"""Weight bridge between the JAX package's flax parameters and the port, and
+the converters from torchvision, reference and tf-slim checkpoints.
 
 `from_flax_variables` turns the JAX FasterRCNN's variables (numpy leaves)
 into the port's state dict; `to_flax_variables` goes back.  Conversions:
@@ -29,6 +30,27 @@ even with live BN.  Every leaf
 must map, in both directions: an unknown path or key raises.  Shapes carry
 over as they are, so a LiDAR net's 15-channel stem and 7K-wide box head
 convert like the image net's.
+
+VGG16 and MobileNet keep the JAX package's module names in the port
+(backbone.early_conv0..3 / late_conv4..12, tail.fc6 / fc7; backbone.conv0,
+bn0, layer1..11 and tail.layer12..13, each layer's depthwise, dw_bn,
+pointwise and pw_bn), so their paths map name for name.  fc6's kernel rows
+are in (y, x, c) order on both sides (the port flattens each pooled RoI in
+NHWC order), so its weight is the kernel transposed; a depthwise kernel is
+flax (3, 3, 1, C) against torch (C, 1, 3, 3), the same HWIO <-> OIHW
+transpose.  MobileNet's BN statistics stay under `params` at every
+FIXED_BLOCKS, as its BN is never live.
+
+Converters into a port model, copies of the JAX package's
+utils/convert.py:88-178, :217-249, :313-446 (pure numpy): the torchvision
+VGG16 keys (`vgg16_key_to_flax`, with fc6's CHW -> HWC row permutation,
+`convert_vgg16_tensor`), the reference MobileNet keys
+(`mobilenet_key_to_flax`), each loaded by `load_*_state_dict` as the JAX
+package's `_copy_state_dict` loads a flax tree (unmapped keys, absent paths
+and other shapes skipped); a torchvision ResNet state dict loads strictly,
+key for key (`load_torchvision_resnet`); `replicate_conv1_for_lidar`, the RGB stem
+bootstrap of a BEV stem; and the tf-slim renames `tf_slim_{resnet,vgg,
+mobilenet}_to_torch`.
 """
 
 from __future__ import annotations
@@ -49,6 +71,26 @@ _HEADS = {
 }
 _ROOT_CONVS = ("rpn_bbox_al_var_net", "rpn_cls_al_var_net")
 _STACK_LAYER = re.compile(r"(cls|bbox)_(fc|bn)[12]")
+_VGG_CONV = re.compile(r"(early|late)_conv\d+")
+_MOBILE_LAYER = re.compile(r"layer\d+")
+_MOBILE_SEP = ("depthwise", "pointwise", "dw_bn", "pw_bn")
+_PLAIN_BN = ("bn0", "dw_bn", "pw_bn")
+_DENSE_TO_TORCH = {"kernel": "weight", "bias": "bias"}
+
+
+def _is_plain_module(root: str, mods) -> bool:
+    """A VGG16 or MobileNet module: named alike in both packages."""
+    mods = tuple(mods)
+    if root == "backbone" and len(mods) == 1:
+        return bool(_VGG_CONV.fullmatch(mods[0])) or mods[0] in ("conv0", "bn0")
+    if root == "tail" and len(mods) == 1:
+        return mods[0] in ("fc6", "fc7")
+    return (root in ("backbone", "tail") and len(mods) == 2
+            and bool(_MOBILE_LAYER.fullmatch(mods[0])) and mods[1] in _MOBILE_SEP)
+
+
+def _plain_leaf_map(mods) -> Dict[str, str]:
+    return _BN_TO_TORCH if mods[-1] in _PLAIN_BN else _DENSE_TO_TORCH
 
 
 def _is_stack_path(path: Tuple[str, ...]) -> bool:
@@ -124,6 +166,8 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
             bn_map = _BN_TO_TORCH if m.group(2) == "bn" else {"kernel": "weight", "bias": "bias"}
             if rest[2] in bn_map:
                 return f"predictors.{m.group(1)}_stack.{rest[1]}.{bn_map[rest[2]]}"
+    if _is_plain_module(root, rest[:-1]) and rest[-1] in _plain_leaf_map(rest[:-1]):
+        return ".".join((root,) + rest[:-1] + (_plain_leaf_map(rest[:-1])[rest[-1]],))
     if root in ("backbone", "tail"):
         if rest[0] == "stem" and len(rest) == 3:
             mod, leaf = rest[1], rest[2]
@@ -160,6 +204,10 @@ def torch_key_to_flax_path(key: str, cls_stack: bool = True) -> Tuple[str, ...]:
             if parts[2] in bn_map:
                 i = 1 if kind == "bbox" and cls_stack else 0
                 return ("predictors", f"EpistemicStack_{i}", parts[1], bn_map[parts[2]])
+    if _is_plain_module(root, parts[:-1]):
+        leaves = {v: k for k, v in _plain_leaf_map(parts[:-1]).items()}
+        if parts[-1] in leaves:
+            return (root,) + tuple(parts[:-1]) + (leaves[parts[-1]],)
     if root in ("backbone", "tail"):
         path = resnet_key_to_flax(rest, use_fpn=root == "backbone")
         if path is None or path[0] != root:
@@ -249,3 +297,274 @@ def load_torchvision_resnet(model: torch.nn.Module, state_dict: Mapping[str, tor
     if not fpn:
         model.tail.load_state_dict(tail, strict=True)
     return len(backbone) + len(tail)
+
+
+# -- torchvision and reference checkpoints into a port model ---------------------------
+
+
+def _t(x) -> np.ndarray:
+    try:
+        return x.detach().cpu().numpy()
+    except AttributeError:
+        return np.asarray(x)
+
+
+def convert_tensor(key: str, value) -> np.ndarray:
+    """A torch tensor in the JAX package's layout (JAX utils/convert.py:32-38)."""
+    return _to_flax_layout(_t(value))
+
+
+# torchvision vgg16 `features` indices of the 13 convs, in order
+_VGG_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def vgg16_key_to_flax(key: str) -> Tuple[str, ...] | None:
+    """torchvision vgg16 state-dict key -> the JAX package's param path:
+    features.<i> convs are early_conv0..3 / late_conv4..12, classifier.0
+    and .3 are fc6 and fc7; the 1000-way classifier.6 is dropped."""
+    m = re.match(r"^features\.(\d+)\.(weight|bias)$", key)
+    if m:
+        idx, leaf = int(m.group(1)), m.group(2)
+        if idx not in _VGG_CONV_IDX:
+            return None
+        conv_i = _VGG_CONV_IDX.index(idx)
+        scope = "early" if conv_i < 4 else "late"
+        return ("backbone", f"{scope}_conv{conv_i}", "kernel" if leaf == "weight" else "bias")
+    m = re.match(r"^classifier\.(0|3)\.(weight|bias)$", key)
+    if m:
+        fc = "fc6" if m.group(1) == "0" else "fc7"
+        return ("tail", fc, "kernel" if m.group(2) == "weight" else "bias")
+    return None
+
+
+def convert_vgg16_tensor(key: str, value) -> np.ndarray:
+    """convert_tensor, but classifier.0 (fc6) flattens torch's (512, 7, 7)
+    CHW RoI where the tail flattens HWC: its rows are permuted, not only
+    transposed."""
+    v = _t(value)
+    if key == "classifier.0.weight":
+        return np.transpose(v.reshape(4096, 512, 7, 7), (2, 3, 1, 0)).reshape(7 * 7 * 512, 4096)
+    return convert_tensor(key, v)
+
+
+def mobilenet_key_to_flax(key: str) -> Tuple[str, ...] | None:
+    """Reference MobileNet state-dict key (Sequential end points
+    Conv2d_0 / Conv2d_<i>.{depthwise,pointwise}.{0: conv, 1: bn}, under
+    'mobilenet.' or 'features.') -> the JAX package's param path: layers
+    0-11 in the backbone, 12-13 in the tail."""
+    if "num_batches_tracked" in key:
+        return None
+    key = key.replace("mobilenet.", "").replace("features.", "")
+    m = re.match(r"^Conv2d_0\.(0|1)\.(\w+)$", key)
+    if m:
+        sub, leaf = m.groups()
+        if sub == "0":
+            return ("backbone", "conv0", "kernel")
+        return ("backbone", "bn0", _BN_TO_FLAX[leaf])
+    m = re.match(r"^Conv2d_(\d+)\.(depthwise|pointwise)\.(0|1)\.(\w+)$", key)
+    if not m:
+        return None
+    i, which, sub, leaf = int(m.group(1)), m.group(2), m.group(3), m.group(4)
+    scope = ("backbone" if i <= 11 else "tail", f"layer{i}")
+    if sub == "0":
+        return scope + (which, "kernel")
+    return scope + ("dw_bn" if which == "depthwise" else "pw_bn", _BN_TO_FLAX[leaf])
+
+
+def replicate_conv1_for_lidar(
+    state_dict: Mapping, num_slices: int, num_channel: int, key: str = "conv1.weight"
+) -> Dict:
+    """An RGB stem conv -> a BEV stem of num_channel inputs (the reference's
+    lidarnet.py load_imagenet_pretrained_cnn): the R kernel replicated over
+    the num_slices height slices, G and B in the first two meta channels,
+    any further channel zero.  `key` names the stem's weight (a torchvision
+    ResNet's by default; the port's own checkpoints name theirs
+    backbone.conv1 / early_conv0 / conv0).  The new weight is a float32
+    numpy array."""
+    out = dict(state_dict)
+    w = _t(state_dict[key])  # (O, 3, kh, kw)
+    new = np.zeros((w.shape[0], num_channel, w.shape[2], w.shape[3]), np.float32)
+    new[:, :num_slices] = np.repeat(w[:, :1], num_slices, axis=1)
+    if num_channel > num_slices:
+        new[:, num_slices] = w[:, 1]
+    if num_channel > num_slices + 1:
+        new[:, num_slices + 1] = w[:, 2]
+    out[key] = new
+    return out
+
+
+def _copy_state_dict(model: torch.nn.Module, state_dict: Mapping, key_fn, tensor_fn,
+                     verbose: bool = False) -> int:
+    """Copy the tensors of `state_dict` into the port model, each through
+    key_fn (its JAX path) and tensor_fn (its JAX layout), as the JAX
+    package's _copy_state_dict copies them into a flax tree: keys with no
+    path, paths the model lacks and tensors of another shape are skipped
+    (printed when verbose).  Returns the number copied."""
+    own = model.state_dict()
+    new = {}
+    for key, value in state_dict.items():
+        path = key_fn(key)
+        if path is None:
+            continue
+        try:
+            tkey = flax_path_to_torch_key(path)
+        except KeyError:
+            tkey = None
+        if tkey not in own:
+            if verbose:
+                print(f"skip {key} -> {'/'.join(path)} (absent)")
+            continue
+        v = _to_torch_layout(tensor_fn(key, value))
+        if tuple(own[tkey].shape) != v.shape:
+            if verbose:
+                print(f"skip {key}: shape {v.shape} vs {tuple(own[tkey].shape)}")
+            continue
+        new[tkey] = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    model.load_state_dict(new, strict=False)
+    return len(new)
+
+
+def load_vgg16_state_dict(model: torch.nn.Module, state_dict: Mapping,
+                          verbose: bool = False) -> int:
+    """A torchvision vgg16 state dict into a port VGG16 FasterRCNN (the 13
+    convs, fc6 with its rows permuted to (y, x, c), fc7)."""
+    return _copy_state_dict(model, state_dict, vgg16_key_to_flax, convert_vgg16_tensor, verbose)
+
+
+def load_mobilenet_state_dict(model: torch.nn.Module, state_dict: Mapping,
+                              verbose: bool = False) -> int:
+    """A reference-layout MobileNet state dict into a port MobileNet
+    FasterRCNN; a torch depthwise kernel (C, 1, 3, 3) is the port's layout
+    as it is."""
+    return _copy_state_dict(model, state_dict, mobilenet_key_to_flax, convert_tensor, verbose)
+
+
+# -- tf-faster-rcnn (tf-slim) checkpoints ------------------------------------------------
+
+
+def _ordered_replace(var_dict: Dict, replacements) -> Dict:
+    """The reference's ordered in-place key rewrites."""
+    for a, b in replacements:
+        for k in list(var_dict.keys()):
+            if a in k:
+                var_dict[k.replace(a, b)] = var_dict.pop(k)
+    return var_dict
+
+
+def _strip_prefix(var_dict: Dict, stem: str) -> Dict:
+    out = {}
+    for k, v in var_dict.items():
+        if k == "Variable" or "Momentum" in k:
+            continue  # the global step and the optimizer's slots
+        out[stem + k[k.find("/"):] if "/" in k else k] = np.asarray(v)
+    return out
+
+
+def _tf_to_torch_layout(var_dict: Dict, depthwise_hint: bool = False) -> Dict:
+    """tf HWIO conv / IO fc -> torch OIHW / OI; a tf depthwise kernel HWC1
+    becomes the grouped conv's (C, 1, H, W)."""
+    for k in list(var_dict.keys()):
+        v = var_dict[k]
+        if v.ndim == 4:
+            perm = (2, 3, 0, 1) if depthwise_hint and "depthwise" in k else (3, 2, 0, 1)
+            var_dict[k] = np.ascontiguousarray(v.transpose(perm))
+        elif v.ndim == 2:
+            var_dict[k] = np.ascontiguousarray(v.T)
+    return var_dict
+
+
+def tf_slim_resnet_to_torch(var_dict: Mapping) -> Dict:
+    """tf-faster-rcnn ResNet variables -> the reference's torch key space
+    ('resnet.layerN...' and the head names), numpy values in torch layout;
+    the 'resnet.' keys, prefix dropped, are a torchvision ResNet's
+    (load_torchvision_resnet)."""
+    var_dict = _strip_prefix(dict(var_dict), "resnet")
+    _ordered_replace(var_dict, [
+        ("moving_mean", "running_mean"),
+        ("moving_variance", "running_var"),
+        ("weights", "weight"),
+        ("biases", "bias"),
+        ("conv1/BatchNorm", "bn1"),
+        ("conv2/BatchNorm", "bn2"),
+        ("conv3/BatchNorm", "bn3"),
+        ("bottleneck_v1/", ""),
+        ("block", "layer"),
+        ("resnet/rpn_conv/3x3", "rpn_net"),
+        ("resnet/rpn_cls_score", "rpn_cls_score_net"),
+        ("resnet/cls_score", "cls_score_net"),
+        ("resnet/rpn_bbox_pred", "rpn_bbox_pred_net"),
+        ("resnet/bbox_pred", "bbox_pred_net"),
+        ("shortcut/weight", "downsample.0.weight"),
+        ("shortcut/BatchNorm", "downsample.1"),
+        ("gamma", "weight"),
+        ("beta", "bias"),
+        ("/", "."),
+    ])
+    for k in list(var_dict.keys()):  # unit_N -> block N - 1
+        m = re.search(r"unit_(\d+)", k)
+        if m:
+            var_dict[k.replace(m.group(0), str(int(m.group(1)) - 1))] = var_dict.pop(k)
+    return _tf_to_torch_layout(var_dict)
+
+
+def tf_slim_vgg_to_torch(var_dict: Mapping) -> Dict:
+    """tf-faster-rcnn VGG16 variables -> torchvision vgg16 keys; fc6's
+    (25088, 4096) HWC-flat kernel becomes torch's CHW-flat rows."""
+    var_dict = _strip_prefix(dict(var_dict), "vgg")
+    _ordered_replace(var_dict, [
+        ("weights", "weight"),
+        ("biases", "bias"),
+        ("vgg/rpn_conv/3x3", "rpn_net"),
+        ("vgg/rpn_cls_score", "rpn_cls_score_net"),
+        ("vgg/cls_score", "cls_score_net"),
+        ("vgg/rpn_bbox_pred", "rpn_bbox_pred_net"),
+        ("vgg/bbox_pred", "bbox_pred_net"),
+        ("/", "."),
+    ])
+    _ordered_replace(var_dict, [
+        ("conv1.conv1_1", "features.0"), ("conv1.conv1_2", "features.2"),
+        ("conv2.conv2_1", "features.5"), ("conv2.conv2_2", "features.7"),
+        ("conv3.conv3_1", "features.10"), ("conv3.conv3_2", "features.12"),
+        ("conv3.conv3_3", "features.14"), ("conv4.conv4_1", "features.17"),
+        ("conv4.conv4_2", "features.19"), ("conv4.conv4_3", "features.21"),
+        ("conv5.conv5_1", "features.24"), ("conv5.conv5_2", "features.26"),
+        ("conv5.conv5_3", "features.28"),
+        ("fc6", "classifier.0"), ("fc7", "classifier.3"),
+    ])
+    for k in list(var_dict.keys()):
+        v = var_dict[k]
+        if "classifier.0" in k and v.ndim == 2:
+            var_dict[k] = np.ascontiguousarray(
+                v.reshape(7, 7, 512, 4096).transpose(3, 2, 0, 1).reshape(4096, -1))
+        elif v.ndim == 4:
+            var_dict[k] = np.ascontiguousarray(v.transpose(3, 2, 0, 1))
+        elif v.ndim == 2:
+            var_dict[k] = np.ascontiguousarray(v.T)
+    return var_dict
+
+
+def tf_slim_mobilenet_to_torch(var_dict: Mapping) -> Dict:
+    """tf-faster-rcnn MobileNetV1 variables -> the reference MobileNet's
+    keys (mobilenet_key_to_flax reads them)."""
+    var_dict = _strip_prefix(dict(var_dict), "mobilenet")
+    _ordered_replace(var_dict, [
+        ("moving_mean", "running_mean"),
+        ("moving_variance", "running_var"),
+        ("weights", "weight"),
+        ("biases", "bias"),
+        ("/BatchNorm", ".1"),
+        ("_pointwise/", ".pointwise.0."),
+        ("_depthwise/depthwise_", ".depthwise.0."),
+        ("_pointwise.1", ".pointwise.1"),
+        ("_depthwise.1", ".depthwise.1"),
+        ("Conv2d_0/", "Conv2d_0.0."),
+        ("mobilenet/rpn_conv/3x3", "rpn_net"),
+        ("mobilenet/rpn_cls_score", "rpn_cls_score_net"),
+        ("mobilenet/cls_score", "cls_score_net"),
+        ("mobilenet/rpn_bbox_pred", "rpn_bbox_pred_net"),
+        ("mobilenet/bbox_pred", "bbox_pred_net"),
+        ("gamma", "weight"),
+        ("beta", "bias"),
+        ("/", "."),
+    ])
+    return _tf_to_torch_layout(var_dict, depthwise_hint=True)

@@ -301,16 +301,18 @@ def test_check_supported_fpn_configurations():
     t_det.check_supported(tcfg, training=True)
     with pytest.raises(NotImplementedError, match="F2"):
         t_det.check_supported(tcfg.replace(pooling_mode="align"))
-    with pytest.raises(NotImplementedError, match="UC"):
-        t_det.check_supported(t_config.cfg_from_list(tcfg, ("UC.EN_CLS_ALEATORIC", "True")),
-                              training=True)
+    # uncertainty, live BN and BEV rasters are ported on FPN; USE_LIDAR_FPN
+    # is accepted and read by nothing, as in the JAX package
+    t_det.check_supported(t_config.cfg_from_list(tcfg, ("UC.EN_CLS_ALEATORIC", "True")),
+                          training=True)
     t_det.check_supported(t_config.cfg_from_list(tcfg, ("RESNET.FIXED_BLOCKS", "-1")),
-                          training=True)  # live BN is ported
+                          training=True)
     lidar = t_config.cfg_from_list(t_config.default_config(), ("NET_TYPE", "lidar"))
-    with pytest.raises(NotImplementedError, match="USE_LIDAR_FPN"):
-        t_det.check_supported(lidar.replace(use_lidar_fpn=True))
-    with pytest.raises(NotImplementedError, match="USE_FPN"):
-        t_det.check_supported(lidar.replace(use_fpn=True, pooling_mode="multiscale"))
+    t_det.check_supported(lidar.replace(use_lidar_fpn=True))
+    t_det.check_supported(lidar.replace(use_fpn=True, pooling_mode="multiscale"))
+    for variant in ("vgg16", "mobile"):  # FPN is ResNet-only, as JAX asserts
+        with pytest.raises(NotImplementedError, match="ResNet-only"):
+            t_det.check_supported(tcfg.replace(net_variant=variant))
 
 
 def test_fault_f2_jax_fpn_align_anchors_cover_four_frames():

@@ -1,7 +1,7 @@
 """The port's import boundary and kernel dispatch.
 
 * Importing every module of the port (and its CLIs, demo and reval, its
-  quality harness and chip_smoke.py) in a
+  quality harness, the tf-slim converter and chip_smoke.py) in a
   fresh interpreter leaves JAX, the JAX package and bench.py out of
   sys.modules: the port keeps its own copies of what it needs.
 * On CPU tensors the kernel wrappers run their plain twins and launch
@@ -64,7 +64,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     names.append(m.name)
 for path in ({tools!r} + "/test_net_torch.py", {tools!r} + "/trainval_net_torch.py",
              {tools!r} + "/demo_torch.py", {tools!r} + "/reval_torch.py",
-             {tools!r} + "/quality_run_torch.py", {repo!r} + "/chip_smoke.py"):
+             {tools!r} + "/quality_run_torch.py", {tools!r} + "/convert_from_tensorflow_torch.py",
+             {repo!r} + "/chip_smoke.py"):
     spec = importlib.util.spec_from_file_location("mod_" + str(len(names)), path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     names.append(path)
@@ -84,7 +85,8 @@ def test_port_imports_no_jax():
     assert int(proc.stdout.split()[-1]) >= 40  # every module of the port was imported
     imported = set(proc.stdout.split())
     for name in ("data.augment", "data.datasets", "data.db_base", "data.kitti", "data.waymo",
-                 "data.cadc", "native.pc_ops", "utils.kitti_utils", "utils.cadc_utils"):
+                 "data.cadc", "native.pc_ops", "utils.kitti_utils", "utils.cadc_utils",
+                 "models.vgg16", "models.mobilenet"):
         assert f"faster_rcnn_pytorch_multimodal_tpu_torch.{name}" in imported, name
 
 

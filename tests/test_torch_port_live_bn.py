@@ -328,19 +328,24 @@ def test_detector_builds_every_depth(depth, net, fixed_blocks):
 
 
 def test_check_supported_still_raises():
+    """With live BN, fault F2, an unknown Bayes variant, an unknown net and
+    VGG16 with FPN still raise; UC with FPN, VGG16 and MobileNet, FPN on
+    lidar and USE_LIDAR_FPN are accepted."""
     _, tcfg = _cfgs(IMAGE)
     for extra, match in (
-        (("UC.EN_CLS_ALEATORIC", "True", "USE_FPN", "True", "POOLING_MODE", "multiscale"), "UC"),
-        (("NET_VARIANT", "vgg16"), "NET_VARIANT"),
+        (("UC.BAYES_VARIANT", "probit"), "BAYES_VARIANT"),
+        (("NET_VARIANT", "res200"), "NET_VARIANT"),
         (("USE_FPN", "True", "POOLING_MODE", "align"), "F2"),
+        (("NET_VARIANT", "vgg16", "USE_FPN", "True", "POOLING_MODE", "multiscale"), "ResNet-only"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             t_det.check_supported(t_config.cfg_from_list(tcfg, extra), training=True)
+    for extra in (("UC.EN_CLS_ALEATORIC", "True", "USE_FPN", "True", "POOLING_MODE", "multiscale"),
+                  ("NET_VARIANT", "vgg16"), ("NET_VARIANT", "mobile")):
+        t_det.check_supported(t_config.cfg_from_list(tcfg, extra), training=True)
     _, lidar = _cfgs(BEV)
-    with pytest.raises(NotImplementedError, match="USE_LIDAR_FPN"):
-        t_det.check_supported(lidar.replace(use_lidar_fpn=True), training=True)
-    with pytest.raises(NotImplementedError, match="USE_FPN"):
-        t_det.check_supported(lidar.replace(use_fpn=True, pooling_mode="multiscale"))
+    t_det.check_supported(lidar.replace(use_lidar_fpn=True), training=True)
+    t_det.check_supported(lidar.replace(use_fpn=True, pooling_mode="multiscale"))
 
 
 def test_bridge_round_trip_with_batch_stats(c4_init):

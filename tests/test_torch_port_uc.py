@@ -154,18 +154,19 @@ def _jax_draws_alike(masks):
 
 
 def test_check_supported_takes_the_eight_flags():
-    """All eight flags on the C4 image and the lidar paths, in serving and
-    training; FPN x UC, an unknown Bayes variant and the other unported
-    cases still raise, each with its reason."""
-    for overrides in (IMAGE, BEV, IMAGE + LIVE18, BEV + LIVE18):
+    """All eight flags on the C4 image and the lidar paths, on FPN and on
+    VGG16, in serving and training; an unknown Bayes variant and an unknown
+    net still raise, each with its reason."""
+    fpn = ("USE_FPN", "True", "POOLING_MODE", "multiscale")
+    for overrides in (IMAGE, BEV, IMAGE + LIVE18, BEV + LIVE18, IMAGE + fpn, BEV + fpn,
+                      IMAGE + ("NET_VARIANT", "vgg16")):
         _, tcfg = _cfgs(overrides)
         t_det.check_supported(tcfg)
         t_det.check_supported(tcfg, training=True)
     _, tcfg = _cfgs(IMAGE)
     for extra, match in (
-        (("USE_FPN", "True", "POOLING_MODE", "multiscale"), "UC.* flags with USE_FPN"),
         (("UC.BAYES_VARIANT", "probit"), "BAYES_VARIANT"),
-        (("NET_VARIANT", "vgg16"), "NET_VARIANT"),
+        (("NET_VARIANT", "alexnet"), "NET_VARIANT"),
     ):
         with pytest.raises(NotImplementedError, match=re.escape(match)):
             t_det.check_supported(t_config.cfg_from_list(tcfg, extra), training=True)
