@@ -210,6 +210,21 @@ non-zero and never prints its last line):
      never K2), then K2-FPN and K2-FPN-bwd against their twins over the
      BEV pyramid (p2 100 x 88 .. p5 13 x 11) on the RoIs the path's first
      serving batch and first training step pooled.
+ 32. data parallel on one card (run_data_parallel): two ranks spawned once
+     (parallel.multihost.spawn_ranks, after the build) share cuda:0 over
+     gloo (NCCL refuses two ranks on one device).  (a) the 2-rank step
+     against the one-process step on the card, fp32, TF32 off: res101 image
+     C4 at 256x320 and a global batch of 2 (2 x 1), then res18 live BN at 4
+     (2 x 2), the one-process step pinned to the ranks' proposal lanes and
+     ReLU gates (dp_check): equal labels, losses within rtol 1e-4, each
+     leaf's update within 1e-3 of its max, the running statistics within
+     1e-5.  (b) Solver.train for 10 steps of the image config (res101 C4
+     bf16 512x960) and of bev_config, a global batch of 8 as 2 ranks x 4:
+     each rank's K1, K2, K2-bwd (and K3 on BEV) launched and counted, its
+     device ms a step, its gradient all-reduce's ms a step, wall ms a step
+     and peak memory, printed beside the one-process Solver paths of 23-24
+     (two ranks sharing one card measure the collective's cost, not a
+     speed-up).  A failed rank fails the phase.
 Phase 3 also holds the multiscale RoI-align kernels against their twins at
 the FPN shapes: maps (8, 128, 240, 256) .. (8, 16, 30, 256), (8, 300) RoIs
 of 16-900 px (every level gets RoIs, every RoI on the twin's level) within
@@ -236,16 +251,18 @@ align and its backward at VGG16's and MobileNet's 512-channel C4 maps:
 (8, 32, 60, 512) x 300, (8, 25, 21, 512) x 256 (VGG16's floored BEV map),
 (8, 25, 22, 512) x 256, the backward onto (8, 32, 60, 512) and (8, 25, 21,
 512).
-Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20-26, 28-31) runs with the launch
-counts set to 0 just before it and read just after.  Then one JSON line describing
+Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20-26, 28-31, and 32's in each
+rank) runs with the launch counts set to 0 just before it and read just
+after.  Then one JSON line describing
 the kernels (each kernel's `launches` is the count on the newest path that runs
 it: the Waymo dataset path's 4-worker Solver run for the voxelizer (timed on
 that path's own batch), the BEV Solver path for NMS, RoI align and its
 backward (the BEV training config's shapes), rotated BEV serving for the
 rotated NMS, FPN serving and FPN training for the multiscale kernels; its
 times, error and bound are from phase 3 at that path's shapes;
-`launches_by_path` has every counted path; `at_512_channels` and
-`bev_pyramid` the checks at the new nets' shapes), the nvidia-smi name/power line,
+`launches_by_path` has every counted path, phase 32's ranks' too
+(dp_image_rank0, ...); `at_512_channels` and `bev_pyramid` the checks at
+the new nets' shapes), the nvidia-smi name/power line,
 and the result line {"ok": true, "device": ...}.  Worker processes are
 spawned: this file keeps its `if __name__ == "__main__":` guard, since a
 spawned child imports the main module again.
@@ -2406,7 +2423,8 @@ def run_solver_path(cfg, smi, steps, snap, need):
     (the later snapshot removed) and runs to `steps`: its losses must equal
     the first run's within SOLVER_RTOL.  Then, timed alone in this process,
     the loader's host ms a batch (next() without prefetch) and the bare
-    train loop's ms a step.  Returns the first run's launches."""
+    train loop's ms a step.  Returns the first run's launches and its
+    device ms a step (median), wall ms a step and peak memory."""
     import shutil
 
     import torch
@@ -2440,10 +2458,12 @@ def run_solver_path(cfg, smi, steps, snap, need):
         first = solver()
         n_stats = len(live_bn_stats(first.model))
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         res = first.train(steps)
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCH_COUNTS)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         raster_thread = first.train_loader.last_raster_thread
         with open(out / "tb_val" / "scalars.jsonl") as f:
             val = [json.loads(line) for line in f]
@@ -2521,7 +2541,8 @@ def run_solver_path(cfg, smi, steps, snap, need):
         raise AssertionError(f"{name}: a kernel never launched: {launches}")
     if lidar and raster_thread != "BatchLoader-prefetch":
         raise AssertionError(f"{name}: the raster was made on {raster_thread!r}")
-    return launches
+    return launches, {"ms_median": float(np.median(res["ms"])),
+                      "wall_ms": res["wall_s"] * 1e3 / steps, "peak_gib": peak_gib}
 
 
 def check_live_stats(model, name):
@@ -3347,6 +3368,272 @@ def run_kitti_path(smi):
     return {"dataset_kitti": launches, "dataset_kitti_eval": launches_eval}
 
 
+# -- phase 32: data parallel on one card ----------------------------------------------
+
+DP_WORLD = 2
+DP_OVERRIDES = ("MESH.DATA", str(DP_WORLD))
+# the card checks' step: float32, the training slice's lane counts, the GT
+# boxes among the RoIs (random weights propose few foreground RoIs)
+DP_CHECK_OVERRIDES = ("COMPUTE_DTYPE", "float32", "TRAIN.ROI_BATCH_SIZE", "64",
+                      "STATIC.NMS_PRE_TRAIN", "1024", "TRAIN.RPN_POST_NMS_TOP_N", "256",
+                      "TRAIN.USE_GT", "True")
+DP_STEPS = 10
+DP_ROOT = REPO / "build" / "chip_smoke_dp"
+DP_LOSS_RTOL = 1e-4
+DP_UPDATE_TOL = 1e-3  # of a leaf's max |update|, plus 1e-6 of its max |parameter|
+DP_STAT_TOL = 1e-5  # of a statistic's max
+
+
+def dp_check(dp, name, cfg, init_model, batch, hw):
+    """One data-parallel step on the card against the one-process step on
+    the same global batch of `batch` frames (rank 0 computes it after).
+    Each rank records the ReLU inputs of its forward (a probe forward in
+    data_parallel, the running statistics untouched) and its step's
+    proposal lanes and sampled labels; rank 0 runs the one-process step
+    pinned to the ranks' lanes and, where a ReLU unit's input takes another
+    sign than in the ranks' forward (find_ties, collected until none is
+    new), to the ranks' gate.  Equal labels; the losses within rtol
+    DP_LOSS_RTOL, each leaf's update within DP_UPDATE_TOL of its max (plus
+    1e-6 of the leaf's max: its float32 rounding), the running statistics
+    within DP_STAT_TOL of max.  Returns rank 0's
+    measured errors (and raises on a miss)."""
+    import copy
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
+    from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import live_bn_stats
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training import solver as S
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
+
+    device = dp.device
+    db = SyntheticDataset(cfg, num_frames=2 * batch, num_classes=2, image_hw=hw, seed=0)
+    local = S.batch_to_device(BatchLoader(db, cfg, batch, device=device, seed=0,
+                                          rows=dp.rows(batch)).next(), device)
+    model = copy.deepcopy(init_model).to(device)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = DetectorSGD(model, cfg, dp=dp)
+
+    def args(m, b, shard):
+        return (b["data"], b["gt_boxes"], b["gt_mask"], b["window"],
+                S.draw_train_keys(m, b, S.step_generator(0, 0, device), shard))
+
+    with relu_inputs(model) as relu, torch.no_grad(), S.frozen_running_stats(model), \
+            mesh.data_parallel(dp):
+        model.forward_train(*args(model, local, dp))
+    losses, aux = S.make_train_step(model, opt, dp)(local, args(model, local, dp)[-1])
+    torch.save({"relu": relu, "src": aux.proposal_src.cpu(), "valid": aux.proposal_valid.cpu(),
+                "anchor_labels": aux.anchor_targets.labels.cpu(),
+                "roi_labels": aux.proposal_targets.labels.cpu()},
+               DP_ROOT / f"{name}_{dp.rank}.pt")
+    mesh.barrier(dp)
+    out = {"losses": {k: float(v) for k, v in losses.items()}}
+    if dp.rank == 0:
+        parts = [torch.load(DP_ROOT / f"{name}_{r}.pt", weights_only=False)
+                 for r in range(dp.world)]
+        want = {k: torch.cat([p["relu"][k] for p in parts]) for k in parts[0]["relu"]}
+        pin = tuple(torch.cat([p[k] for p in parts]).to(device) for k in ("src", "valid"))
+        full = S.batch_to_device(BatchLoader(db, cfg, batch, device=device, seed=0).next(), device)
+        ref = copy.deepcopy(init_model).to(device)
+        ref_opt = DetectorSGD(ref, cfg)
+        ties = []
+        for _ in range(4):
+            probe = copy.deepcopy(ref)
+            with pinned_ties(probe, ties), relu_inputs(probe) as got, torch.no_grad():
+                probe.forward_train(*args(probe, full, None), proposals=pin)
+            new = find_ties(want, got, skip={t[:3] for t in ties})
+            if not new:
+                break
+            ties += new
+        with pinned_ties(ref, ties):
+            ref_losses, ref_aux = S.make_train_step(ref, ref_opt)(full, args(ref, full, None)[-1],
+                                                                  pin)
+        for key, t in (("anchor_labels", ref_aux.anchor_targets.labels),
+                       ("roi_labels", ref_aux.proposal_targets.labels)):
+            if not torch.equal(torch.cat([p[key] for p in parts]), t.cpu()):
+                raise AssertionError(f"data parallel {name}: {key} differ from one process's")
+        loss_err = max(abs(out["losses"][k] - float(v)) / max(abs(float(v)), 1e-30)
+                       for k, v in ref_losses.items())
+        upd_share, worst = 0.0, None  # the largest share of a leaf's limit
+        got_params = dict(model.named_parameters())
+        for k, p in ref.named_parameters():
+            want_u = (p.detach() - start[k]).double()
+            got_u = (got_params[k].detach() - start[k]).double()
+            limit = (DP_UPDATE_TOL * float(want_u.abs().max())
+                     + 1e-6 * float(start[k].abs().max()) + 1e-30)
+            share = float((got_u - want_u).abs().max()) / limit
+            if share > upd_share:
+                upd_share, worst = share, k
+        ref_stats, got_stats = live_bn_stats(ref), live_bn_stats(model)
+        stat_err = max((float((got_stats[k] - v).abs().max() / v.abs().max())
+                        for k, v in ref_stats.items()), default=0.0)
+        out.update(loss_err=loss_err, update_share=upd_share, worst_leaf=worst,
+                   stat_err=stat_err, n_stats=len(ref_stats), ties=len(ties),
+                   fg_rois=int((ref_aux.proposal_targets.labels > 0).sum()))
+        if loss_err > DP_LOSS_RTOL or upd_share > 1.0 or stat_err > DP_STAT_TOL:
+            raise AssertionError(f"data parallel {name}: 2 ranks vs one process {out}")
+    mesh.barrier(dp)
+    return out
+
+
+def dp_solver_path(dp, name, cfg, init_model, need):
+    """`cfg`'s Solver.train for DP_STEPS steps at a global batch of B, this
+    rank's B / world rows (the loader's prefetch on), counted: each rank's
+    device ms a step (CUDA events: two ranks share the card), its gradient
+    all-reduce's ms a step, wall ms a step, peak memory, launches (the
+    kernels in `need` must have launched in this rank)."""
+    import copy
+    import shutil
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import Solver
+
+    out = DP_ROOT / name
+    if dp.rank == 0:
+        shutil.rmtree(out, ignore_errors=True)
+    mesh.barrier(dp)
+    db = SyntheticDataset(cfg, num_frames=4 * B, num_classes=2, image_hw=FRAME_HW, seed=0)
+    loader = BatchLoader(db, cfg, B, device=dp.device, seed=cfg.rng_seed, rows=dp.rows(B))
+    model = copy.deepcopy(init_model).to(dp.device)
+    solver = Solver(cfg, model, loader, output_dir=str(out), dp=dp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = solver.train(DP_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCH_COUNTS)
+    finite = all(np.isfinite(v) for losses in res["history"] for v in losses.values())
+    if not finite or len(res["ms"]) != DP_STEPS:
+        raise AssertionError(f"data parallel {name} rank {dp.rank}: {res['history']}")
+    if not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"data parallel {name} rank {dp.rank}: a kernel never launched: "
+                             f"{launches}")
+    return {"launches": launches, "ms": res["ms"], "reduce_ms": res["reduce_ms"],
+            "wall_ms": res["wall_s"] * 1e3 / DP_STEPS,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "last_loss": res["history"][-1]["total_loss"]}
+
+
+def dp_rank(rank, world, init_method, smi):
+    """One rank of phase 32 (spawned by run_data_parallel): the checks of
+    (a), then the Solver paths of (b), in one process group."""
+    import copy
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from faster_rcnn_pytorch_multimodal_tpu_torch.config import cfg_from_list
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import create_train_state
+
+    _build.library()  # built by the parent before it spawned the ranks
+    image_cfg = make_config(IMAGE_OVERRIDES, DP_OVERRIDES)
+    dp = mesh.init_data_parallel(image_cfg, B, rank=rank, world=world, init_method=init_method,
+                                 device="cuda")
+    try:
+        res = {"backend": dp.backend, "device": str(dp.device)}
+        # (a) res101 image C4 fp32 at 256x320, 2 ranks x 1 frame; the same
+        # initial net serves (b)'s bf16 path
+        image_model, _ = create_train_state(image_cfg, 2, "cpu", seed=0)
+        scale_terminators(image_model)
+        check_model = copy.deepcopy(image_model)
+        check_model.cfg = cfg_from_list(image_cfg, DP_CHECK_OVERRIDES)
+        res["res101"] = dp_check(dp, "res101", check_model.cfg, check_model, 2, SLICE_HW)
+        # res18 live BN, 2 ranks x 2 frames: the statistics are the global batch's
+        live_cfg = make_config(IMAGE_OVERRIDES, RES18_LIVE, DP_CHECK_OVERRIDES, DP_OVERRIDES)
+        live_model, _ = create_train_state(live_cfg, 2, "cpu", seed=1)
+        scale_terminators(live_model)  # zero at init: the branches would get no gradient
+        res["res18_live"] = dp_check(dp, "res18_live", live_cfg, live_model, 4, SLICE_HW)
+        # (b) the paths at full width
+        res["image"] = dp_solver_path(dp, "image", image_cfg, image_model,
+                                      ("nms", "roi_align", "roi_align_bwd"))
+        bev_cfg = make_config(BEV_OVERRIDES, DP_OVERRIDES)
+        bev_model, _ = create_train_state(bev_cfg, 2, "cpu", seed=0)
+        res["bev"] = dp_solver_path(dp, "bev", bev_cfg, scale_terminators(bev_model),
+                                    ("voxelize_bev", "nms", "roi_align", "roi_align_bwd"))
+        return res
+    finally:
+        mesh.shutdown(dp)
+
+
+def run_data_parallel(smi, one_process):
+    """Phase 32: data parallel on one card.  Two ranks share cuda:0 over gloo
+    (NCCL refuses two ranks on one device; the NCCL branch is the same code
+    with another backend string and is not run here), spawned once after
+    the kernels were built.  (a) the 2-rank step against the one-process
+    step on the card (dp_check): res101 image C4 fp32 256x320 at a global
+    batch of 2, then res18 live BN at 4.  (b) Solver.train for DP_STEPS
+    steps of the image config (res101 C4 bf16 512x960) and bev_config, a
+    global batch of B as 2 ranks x B / 2, each rank's K1, K2, K2-bwd (and
+    K3) counted; each rank's ms a step, its all-reduce's ms a step and its
+    peak memory printed beside the one-process Solver paths of phases 23-24
+    (`one_process`).  Returns each rank's launches by path."""
+    import shutil
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.multihost import spawn_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    DP_ROOT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(dp_rank, DP_WORLD, smi, timeout=600)
+    finally:
+        shutil.rmtree(DP_ROOT, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"data parallel on one card ({smi}): {DP_WORLD} ranks on {r0['device']}, backend "
+          f"{r0['backend']}, one process group for every check and path, {seconds} s with the "
+          f"ranks' start")
+    for name, what in (("res101", "res101 image C4 fp32 256x320, global batch 2 (2 x 1)"),
+                       ("res18_live", "res18 live BN fp32 256x320, global batch 4 (2 x 2)")):
+        c = r0[name]
+        print(f"data parallel check {what}: 2 ranks vs one process on the card: losses "
+              f"largest relative difference {c['loss_err']} (rtol {DP_LOSS_RTOL}), updates: "
+              f"largest share of a leaf's limit {c['update_share']} (limit {DP_UPDATE_TOL} "
+              f"of its max update + 1e-6 of its max; worst {c['worst_leaf']}), "
+              f"running statistics {c['stat_err']} of max over {c['n_stats']} (limit "
+              f"{DP_STAT_TOL}), labels equal, {c['fg_rois']} foreground RoIs, ReLU ties pinned "
+              f"{c['ties']}; losses {c['losses']}")
+    paths = {}
+    for name, label in (("image", "res101 image C4 bf16 512x960"),
+                        ("bev", "bev_config res101 bf16 400 x 350 x 15")):
+        one = one_process[name]
+        for r, rank in enumerate(ranks):
+            p = rank[name]
+            ms = np.asarray(p["ms"][1:])
+            paths[f"dp_{name}_rank{r}"] = p["launches"]
+            print(f"data parallel {label}, global batch {B} = 2 ranks x {B // 2}, rank {r} "
+                  f"({smi}): {DP_STEPS} Solver steps; device ms/step after the first: median "
+                  f"{float(np.median(ms))} (min {float(ms.min())}, max {float(ms.max())}; first "
+                  f"{p['ms'][0]}); gradient all-reduce ms/step median "
+                  f"{float(np.median(p['reduce_ms']))} ({p['reduce_ms']}); wall "
+                  f"{p['wall_ms']} ms/step; peak memory {p['peak_gib']} GiB; launches "
+                  f"{p['launches']}; last loss {p['last_loss']}")
+        print(f"  beside: the one-process Solver path at batch {B} (phase "
+              f"{'23' if name == 'image' else '24'}): device ms/step median "
+              f"{one['ms_median']}, wall {one['wall_ms']} ms/step, peak memory "
+              f"{one['peak_gib']} GiB.  Two ranks sharing one card over gloo, which carries "
+              f"every gradient through the host, measure the cost of the collective, not a "
+              f"speed-up")
+        if ranks[0][name]["last_loss"] != ranks[1][name]["last_loss"]:
+            raise AssertionError(f"data parallel {name}: the ranks report different losses")
+    return paths
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc").is_dir():
         print(f"chip_smoke: {PKG}/ not found beside this script", file=sys.stderr)
@@ -3541,12 +3828,13 @@ def main() -> int:
         BEV_OVERRIDES, BEV_SERVING_OVERRIDES, UC_OVERRIDES, LIVE_OVERRIDES), smi)
 
     phase("Solver path (image)")
-    solver_image = run_solver_path(image_cfg, smi, steps=20, snap=10,
-                                   need=("nms", "roi_align", "roi_align_bwd"))
+    solver_image, one_image = run_solver_path(image_cfg, smi, steps=20, snap=10,
+                                              need=("nms", "roi_align", "roi_align_bwd"))
 
     phase("Solver path (BEV)")
-    solver_bev = run_solver_path(bev_train_cfg, smi, steps=10, snap=5,
-                                 need=("voxelize_bev", "nms", "roi_align", "roi_align_bwd"))
+    solver_bev, one_bev = run_solver_path(
+        bev_train_cfg, smi, steps=10, snap=5,
+        need=("voxelize_bev", "nms", "roi_align", "roi_align_bwd"))
 
     phase("Dataset path (Waymo lidar)")
     waymo_paths, vox_waymo_path = run_waymo_path(smi)
@@ -3617,6 +3905,9 @@ def main() -> int:
     ms_bev_bwd = check_multiscale_backward(rng_pyr, train_rois[0],
                                            "the FPN BEV training path's RoIs", BEV_PYRAMID_HW)
 
+    phase("data parallel on one card")
+    dp_paths = run_data_parallel(smi, {"image": one_image, "bev": one_bev})
+
     paths = {"serving": serving, "training": training, "bev_serving": bev_serving,
              "fpn_serving": fpn_serving, "fpn_training": fpn_training,
              "bev_training": bev_training, "bev_rotated_serving": bev_rotated,
@@ -3629,7 +3920,7 @@ def main() -> int:
              "mobile_serving": mobile_serving, "mobile_training": mobile_training,
              "fpn_uc_serving": fpn_uc_serving, "fpn_uc_training": fpn_uc_training,
              "fpn_bev_serving": fpn_bev_serving, "fpn_bev_rotated_serving": fpn_bev_rotated,
-             "fpn_bev_training": fpn_bev_training}
+             "fpn_bev_training": fpn_bev_training, **dp_paths}
 
     def entry(name, source, replaces, path, measured):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",

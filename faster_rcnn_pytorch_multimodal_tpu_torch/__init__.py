@@ -16,7 +16,8 @@ uncertainty on the C4 paths; the Solver (snapshots, exact resume, the val
 cycle, preload) and the loader (prefetch thread, worker processes, resume
 state); the KITTI, Waymo and CADC databases with their augmentation (the
 native point-cloud ops of csrc/pc_ops.cpp, built with g++ at first use,
-native/pc_ops.py) and their difficulty-aware evaluation; the CLIs
+native/pc_ops.py) and their difficulty-aware evaluation; data-parallel
+training, one rank a device over torch.distributed (parallel/); the CLIs
 tools/*_torch.py.  The device ops are hand-written CUDA kernels under csrc/
 (NMS axis-aligned and rotated, RoI align single-level and multiscale with
 their feature gradients, the BEV voxelizer), built with nvcc at first use

@@ -2,7 +2,7 @@
 
 A copy of what the port's paths use of the JAX package's
 faster_rcnn_pytorch_multimodal_tpu/data/loader.py: `_assemble_batch`
-(:28-140, without the multi-host row split) and the sampler `_new_perm`,
+(:28-140) and the sampler `_new_perm`,
 `_next_indices`, `_sample_task`, `peek` and `next` (:251-306), on the same
 np.random.RandomState stream, so equal seeds give equal batches.
 
@@ -38,6 +38,14 @@ loader's stream, its event), so the stream is the serial loader's whatever
 the number of workers.  The workers start once per `start` and stop in
 `kill`.
 
+With `rows` (a slice of the global batch: parallel.local_batch_rows) the
+loader is one data-parallel rank's, as JAX's multi-host loader is
+(`_assemble_batch(..., rows)`, :45-52): the sampler draws the global task
+(batch_size is the global batch) on every rank alike, and only the rank's
+rows are assembled, in the prefetch thread and in the worker processes
+too.  So `state_dict` is global and the same on every rank, and a resume
+is exact whatever the number of ranks.
+
 Not ported: the minibatch drawing; DEBUG.DRAW_MINIBATCH raises
 NotImplementedError (ROADMAP A7).
 """
@@ -58,10 +66,15 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.voxelize import raster_kwargs,
 from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
 
 
-def _assemble_batch(dataset, cfg: Config, augment: bool, task) -> Dict[str, np.ndarray]:
+def _assemble_batch(dataset, cfg: Config, augment: bool, task,
+                    rows: Optional[slice] = None) -> Dict[str, np.ndarray]:
     """Numpy batch assembly from a sampled task (indices, seeds, scale_idx):
-    each frame gets its own RandomState seeded from the task."""
+    each frame gets its own RandomState seeded from the task.  With `rows`
+    only those rows of the global task are assembled (a data-parallel
+    rank's)."""
     indices, seeds, scale_idx = task
+    if rows is not None:
+        indices, seeds = indices[rows], seeds[rows]
     scale = (
         float(cfg.train.scales[scale_idx])
         if augment and cfg.net_type != "lidar"
@@ -142,7 +155,7 @@ def _assemble_batch(dataset, cfg: Config, augment: bool, task) -> Dict[str, np.n
     return batch
 
 
-def _worker_loop(dataset, cfg: Config, augment: bool, task_q, result_q) -> None:
+def _worker_loop(dataset, cfg: Config, augment: bool, rows, task_q, result_q) -> None:
     """A worker process: tasks in, assembled numpy batches out (JAX
     :143-152).  An exception goes back in the batch's place."""
     while True:
@@ -151,7 +164,7 @@ def _worker_loop(dataset, cfg: Config, augment: bool, task_q, result_q) -> None:
         except (EOFError, OSError):
             return
         try:
-            out = _assemble_batch(dataset, cfg, augment, task)
+            out = _assemble_batch(dataset, cfg, augment, task, rows)
         except BaseException as e:  # handed to the consumer by next()
             out = _Failure(e)
         result_q.put((seq, out))
@@ -183,7 +196,9 @@ class BatchLoader:
     call (CUDA events on the stream that ran it), `last_raster_thread` the
     name of the thread that launched it.  prefetch: the depth of the
     background queue (`start`).  workers: the number of worker processes
-    `start` assembles batches in (0: the prefetch thread assembles them)."""
+    `start` assembles batches in (0: the prefetch thread assembles them).
+    rows: a data-parallel rank's rows of each global batch of batch_size
+    frames (None: every row)."""
 
     def __init__(
         self,
@@ -198,12 +213,14 @@ class BatchLoader:
         prefetch: int = 4,
         rasterize: bool = True,
         workers: int = 0,
+        rows: Optional[slice] = None,
     ):
         if cfg.debug.draw_minibatch:
             raise NotImplementedError("BatchLoader: DEBUG.DRAW_MINIBATCH is not ported")
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
+        self.rows = rows
         self.device = torch.device(device)
         self.augment = augment
         self.shuffle = shuffle
@@ -395,8 +412,8 @@ class BatchLoader:
         self._result_q = ctx.Queue(maxsize=self._prefetch + self._workers)
         self._procs = [
             ctx.Process(target=_worker_loop, name=f"BatchLoader-worker-{i}",
-                        args=(self.dataset, self.cfg, self.augment, self._task_q,
-                              self._result_q), daemon=True)
+                        args=(self.dataset, self.cfg, self.augment, self.rows,
+                              self._task_q, self._result_q), daemon=True)
             for i in range(self._workers)
         ]
         for p in self._procs:
@@ -482,8 +499,8 @@ class BatchLoader:
     # -- batch assembly ----------------------------------------------------
 
     def _build_batch(self, task, stream=None) -> Dict[str, object]:
-        return self._device_batch(_assemble_batch(self.dataset, self.cfg, self.augment, task),
-                                  stream)
+        return self._device_batch(
+            _assemble_batch(self.dataset, self.cfg, self.augment, task, self.rows), stream)
 
     def _device_batch(self, batch: Dict[str, np.ndarray], stream=None) -> Dict[str, object]:
         """`_finalize` on `stream` (None: the current stream), with the event

@@ -116,6 +116,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.box_transform import (
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.iou import bbox_3d_to_bev_aabb
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.losses import (
     BAYES_VARIANTS,
+    batch_mean,
     bayesian_cross_entropy,
     categorical_entropy,
     categorical_mutual_information,
@@ -264,7 +265,9 @@ class TrainDraws(NamedTuple):
     uc: with uncertainty, the step's dropout masks (the live layers under
     det-stage epistemic) and the normals of the Bayesian cross-entropies
     ('rpn_ce' (A, B * RPN_BATCHSIZE, 2), 'ce' (A, B * ROI_BATCH_SIZE, K),
-    A = UC.A_NUM_CE_SAMPLE), given or drawn from its generator."""
+    A = UC.A_NUM_CE_SAMPLE), given or drawn from its generator.  In a
+    data-parallel step every key is a row block of the global batch's
+    (training.solver.draw_train_keys; UCDraws' shard)."""
 
     anchor_fg: torch.Tensor
     anchor_bg: torch.Tensor
@@ -305,6 +308,9 @@ def check_supported(cfg: Config, training: bool = False) -> None:
         problems.append(f"UC.BAYES_VARIANT {cfg.uc.bayes_variant!r}")
     if cfg.compute_dtype not in _DTYPES:
         problems.append(f"COMPUTE_DTYPE {cfg.compute_dtype!r}")
+    if cfg.mesh.model > 1 or cfg.mesh.spatial:
+        problems.append(f"MESH.MODEL {cfg.mesh.model} / MESH.SPATIAL {cfg.mesh.spatial} "
+                        "(tensor and spatial parallelism: ROADMAP A5b)")
     if problems:
         raise NotImplementedError("not ported: " + ", ".join(problems))
 
@@ -832,7 +838,7 @@ class FasterRCNN(nn.Module):
             normals = self._uc_draws(draws).normal(
                 "ce", (uc.a_num_ce_sample,) + tuple(cls_score.shape), cls_score.device)
             ce, a_mi = BAYES_VARIANTS[uc.bayes_variant](cls_score, var, labels, normals)
-            losses["cross_entropy"], losses["a_mutual_info"] = ce, a_mi.mean()
+            losses["cross_entropy"], losses["a_mutual_info"] = ce, batch_mean(a_mi)
         else:
             losses["cross_entropy"] = cross_entropy(cls_score, labels)
         losses["loss_box"] = smooth_l1_loss(

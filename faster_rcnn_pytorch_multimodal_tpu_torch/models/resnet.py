@@ -34,10 +34,12 @@ layer1.0.downsample.0/1, ...), so a torchvision state dict maps key for key.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
+
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
 
 # layers-per-stage per depth (ref resnet.py:242-295)
 STAGE_BLOCKS = {
@@ -129,7 +131,15 @@ class LiveBatchNorm(FrozenBatchNorm):
     given the model's own buffers (training.solver.cast_for_compute).
     With `update_stats` False (training.solver.make_eval_step) train mode
     still takes the batch's statistics but leaves the running ones as they
-    are, as the JAX package's step does when `batch_stats` is not mutable."""
+    are, as the JAX package's step does when `batch_stats` is not mutable.
+
+    Inside parallel.data_parallel (a data-parallel step) the statistics are
+    the global batch's, as under JAX's SPMD step (resnet.py:14-23, "jnp.mean
+    reduces over the GLOBAL batch"): the mean from the all-reduced sum, then
+    the variance from the all-reduced sum of squared deviations from it
+    (the same two passes), both differentiable, over n = the rank's rows
+    times the ranks (the shards are of one shape); the running update's
+    n / (n - 1) takes that n."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(features, eps)
@@ -154,10 +164,17 @@ class LiveBatchNorm(FrozenBatchNorm):
             return super().forward(x)
         xf = x.float()
         dims = [d for d in range(x.dim()) if d != 1]
-        mean = xf.mean(dims)
-        # jnp.var: the mean of the squared deviations
-        var = (xf - mean.reshape((1, -1) + (1,) * (x.dim() - 2))).square().mean(dims)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
         n = xf.numel() // xf.shape[1]
+        world = mesh.world_size()
+        if world == 1:
+            mean = xf.mean(dims)
+            # jnp.var: the mean of the squared deviations
+            var = (xf - mean.reshape(shape)).square().mean(dims)
+        else:
+            n *= world
+            mean = mesh.global_sum(xf.sum(dims)) / n
+            var = mesh.global_sum((xf - mean.reshape(shape)).square().sum(dims)) / n
         if not self.update_stats:
             return _bn_affine(x, mean, var, self.weight, self.bias, self.eps)
         with torch.no_grad():
@@ -178,7 +195,14 @@ class UCDraws:
     in `masks` and `normals`, so that another forward (on another device)
     can take the same numbers.  `samples` is the range of Monte-Carlo
     samples a forward holds stacked along its batch axis, sample-major (the
-    detector sets it; one sample, 0, otherwise)."""
+    detector sets it; one sample, 0, otherwise).
+
+    `shard` = (rank, world) makes the draws a data-parallel rank's: each
+    draw is the global batch's (world times the rank's frames, from the
+    same generator on every rank) and the rank takes its row block, so the
+    ranks together draw what one process draws for the global batch.  The
+    frame axis is a mask's leading axis within a sample (frames, or a
+    frame's RoIs frame-major) and a normal's axis 1."""
 
     def __init__(
         self,
@@ -186,18 +210,26 @@ class UCDraws:
         masks: Optional[Dict[str, torch.Tensor]] = None,
         normals: Optional[Dict[str, torch.Tensor]] = None,
         record: bool = False,
+        shard: Tuple[int, int] = (0, 1),
     ):
         self.generator = generator
         self.masks = dict(masks or {})
         self.normals = dict(normals or {})
         self.record = record
         self.samples = range(1)
+        self.shard = shard
 
     def normal(self, key: str, shape: tuple, device: torch.device) -> torch.Tensor:
         """The standard normals named `key`, given or drawn."""
         if key in self.normals:
             return self.normals[key]
-        x = torch.randn(shape, generator=self.generator, device=device)
+        rank, world = self.shard
+        if world == 1:
+            x = torch.randn(shape, generator=self.generator, device=device)
+        else:
+            n = shape[1]
+            x = torch.randn((shape[0], n * world) + tuple(shape[2:]), generator=self.generator,
+                            device=device)[:, rank * n:(rank + 1) * n].contiguous()
         if self.record:
             self.normals[key] = x
         return x
@@ -216,8 +248,15 @@ class UCDraws:
             return given[t0:t1].reshape(shape)
         if self.generator is None:
             raise KeyError(f"UCDraws: no mask for {path} samples {t0}..{t1 - 1} and no generator")
-        bits = torch.empty(shape, dtype=torch.uint8, device=device, memory_format=memory_format)
+        rank, world = self.shard
+        rows = shape[0] // (t1 - t0)  # frames (or RoIs) a sample
+        full = ((t1 - t0) * rows * world,) + tuple(shape[1:])
+        bits = torch.empty(full, dtype=torch.uint8, device=device, memory_format=memory_format)
         keep = bits.random_(0, 256, generator=self.generator) < keep_q
+        if world > 1:
+            keep = keep.reshape((t1 - t0, rows * world) + tuple(shape[1:]))[
+                :, rank * rows:(rank + 1) * rows].reshape(shape).contiguous(
+                    memory_format=memory_format)
         if self.record:
             per = keep.reshape((t1 - t0, shape[0] // (t1 - t0)) + tuple(shape[1:]))
             self.masks[path] = per if given is None else torch.cat([given, per])

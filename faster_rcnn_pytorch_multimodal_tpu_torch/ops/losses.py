@@ -9,6 +9,14 @@ cross-entropies (:81-187) and `cross_entropy`.
 
 Nothing here draws: the logit draws take their (T, N, C) standard normals
 from the caller, where the JAX package takes a key.
+
+Every mean over the batch goes through `batch_mean` or
+`weighted_batch_mean`.  Outside a data-parallel step they are the plain
+means.  Inside one (parallel.data_parallel) a rank returns its share of the
+global batch's loss, so that the global loss is the sum over the ranks, as
+JAX's SPMD step computes it over the global batch: a plain mean over equal
+shards is the rank's mean over the ranks, and a weighted mean divides the
+rank's weighted sum by max(the global sum of the weights, 1).
 """
 
 from __future__ import annotations
@@ -16,6 +24,23 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """x.mean(); in a data-parallel step this rank's share of the global
+    batch's mean (the shards are of one shape)."""
+    world = mesh.world_size()
+    return x.mean() if world == 1 else x.mean() / world
+
+
+def weighted_batch_mean(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """sum(values * weights) / max(sum(weights), 1), the sum of the weights
+    taken over the global batch in a data-parallel step (without gradient:
+    the weights are masks)."""
+    w = weights.to(values.dtype)
+    return (values * w).sum() / torch.clamp(mesh.reduce_sum(w.sum()), min=1.0)
 
 
 def huber_loss(
@@ -68,7 +93,7 @@ def smooth_l1_loss(
         in_loss = 0.5 * in_loss * torch.exp(-bbox_var) + 0.5 * bbox_var
         in_loss = in_loss * bbox_inside_weights
     out_loss = bbox_outside_weights * in_loss
-    return out_loss.sum(dim=tuple(sum_axes)).mean()
+    return batch_mean(out_loss.sum(dim=tuple(sum_axes)))
 
 
 def cross_entropy(
@@ -79,9 +104,8 @@ def cross_entropy(
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels[:, None].long())[:, 0]
     if weights is None:
-        return nll.mean()
-    w = weights.to(nll.dtype)
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return batch_mean(nll)
+    return weighted_batch_mean(nll, weights)
 
 
 def compute_bbox_var(samples: torch.Tensor) -> torch.Tensor:
@@ -140,11 +164,7 @@ def bayesian_cross_entropy(
     samples = logit_distort(cls_score, cls_var, normals)
     avg_softmax = torch.softmax(samples, dim=2).mean(dim=0)
     nll = -_pick(torch.log(torch.clamp(avg_softmax, min=1e-12)), targets)
-    if weights is None:
-        loss = nll.mean()
-    else:
-        w = weights.to(nll.dtype)
-        loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    loss = batch_mean(nll) if weights is None else weighted_batch_mean(nll, weights)
     return loss, categorical_mutual_information(samples)
 
 
@@ -155,7 +175,7 @@ def bayesian_cross_entropy_simple(
     mutual information."""
     samples = logit_distort(cls_score, cls_var, normals)
     nll = -_pick(torch.log_softmax(samples, dim=2), targets)
-    return nll.mean(), categorical_mutual_information(samples)
+    return batch_mean(nll), categorical_mutual_information(samples)
 
 
 def bayesian_elu_cross_entropy(
@@ -171,7 +191,7 @@ def bayesian_elu_cross_entropy(
     diff_elu = -torch.nn.functional.elu(-(undist - dist))
     regularizer = cls_var.mean(dim=1)
     loss = diff_elu * undist + undist + torch.exp(regularizer) - 1.0
-    return loss.mean(), categorical_mutual_information(samples)
+    return batch_mean(loss), categorical_mutual_information(samples)
 
 
 BAYES_VARIANTS = {

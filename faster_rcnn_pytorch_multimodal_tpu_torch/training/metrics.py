@@ -54,3 +54,20 @@ class MetricsWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullWriter:
+    """MetricsWriter's calls, writing nothing: a data-parallel rank other
+    than 0 (rank 0 logs the global scalars)."""
+
+    def __init__(self, *_args, **_kwargs):
+        pass
+
+    def scalars(self, step: int, values: Dict[str, float]) -> None:
+        pass
+
+    def image(self, step: int, tag: str, image, save_png: bool = True) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

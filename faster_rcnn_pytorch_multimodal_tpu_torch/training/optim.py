@@ -21,16 +21,24 @@ before its momentum buffer, as the decay precedes optax's trace, and a
 group's 2x learning rate equals scaling its gradient by 2 before the
 buffer, since both are linear.  tests/test_torch_port_targets.py holds it
 against the optax chain.
+
+In a data-parallel run (`dp`) each rank's gradients are those of its share
+of the global loss; `step` sums them over the ranks
+(parallel.all_reduce_grads_, one flat bucket) before the clip, so the clip
+sees the global gradient's norm and every rank applies the same update, as
+JAX's SPMD step does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.mesh import DataParallel, all_reduce_grads_
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
 
 _BN_STATS = ("running_mean", "running_var")
 _STEM = ("conv1", "bn1")
@@ -116,10 +124,14 @@ def safe_clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> tor
 class DetectorSGD:
     """The JAX package's `build_optimizer` chain for one detector (see the
     module docstring).  Constructing it sets requires_grad on the model's
-    parameters from the frozen mask."""
+    parameters from the frozen mask.  With `dp` (a rank of a data-parallel
+    run) each step sums the gradients over the ranks first; `last_reduce_ms` holds
+    that all-reduce's time (CUDA events on a card), else None."""
 
-    def __init__(self, model: torch.nn.Module, cfg: Config):
+    def __init__(self, model: torch.nn.Module, cfg: Config, dp: Optional[DataParallel] = None):
         self.cfg = cfg
+        self.dp = dp
+        self.last_reduce_ms: Optional[float] = None
         self.schedule = lr_schedule(cfg)
         self.step_count = 0
         groups: Dict[tuple, List[torch.nn.Parameter]] = {}
@@ -150,6 +162,11 @@ class DetectorSGD:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.dp is not None:
+            timer = DeviceTimer(self.dp.device)
+            timer.start()
+            all_reduce_grads_([p.grad for p in self.params], self.dp)
+            self.last_reduce_ms = timer.stop()
         norm = safe_clip_by_global_norm_([p.grad for p in self.params], self.cfg.grad_max_clip)
         lr = self.schedule(self.step_count)
         for group in self.sgd.param_groups:

@@ -31,6 +31,22 @@ SIGTERM that snapshots after the step in flight; the val cycle every
 TRAIN.DISPLAY steps (`make_eval_step`'s losses, `act_summary`'s activation
 statistics, val detections drawn or RPN recall logged); staged pretrained
 preload (modes 1 and 2); and the MetricsWriter logs.
+
+Data parallelism (`dp`, a parallel.DataParallel: one rank a device, JAX's
+mesh over every device, solver.py:234-242, :499-511, :557): every rank runs
+this code on its rows of the global batch (the loaders' `rows`).  The step
+runs its forward inside parallel.data_parallel, so live BN's statistics,
+the losses' denominators and the draws (`draw_train_keys`' row blocks of
+the global batch's) are the global batch's; each rank's loss is its share
+of the global loss, the optimizer sums the ranks' gradients before its
+clip (DetectorSGD), and the reported losses are the summed shares.  The
+Solver snapshots and logs on rank 0 alone (a barrier follows each
+snapshot), every rank resumes from the snapshot rank 0 finds, one rank's
+SIGINT or SIGTERM stops every rank after the same step (the stop flag is
+all-reduced each step), and the val cycle's losses and activation
+statistics are global; val detections are drawn on rank 0, from its rows,
+and the RPN recall is summed over the ranks.  With one rank (dp None)
+nothing of this runs.
 """
 
 from __future__ import annotations
@@ -60,7 +76,9 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import (
     uses_uncertainty,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import LiveBatchNorm
-from faster_rcnn_pytorch_multimodal_tpu_torch.training.metrics import MetricsWriter
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.mesh import DataParallel
+from faster_rcnn_pytorch_multimodal_tpu_torch.training.metrics import MetricsWriter, NullWriter
 from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
 from faster_rcnn_pytorch_multimodal_tpu_torch.utils.convert import (
     replicate_conv1_for_lidar,
@@ -132,27 +150,45 @@ def batch_to_device(batch: Mapping[str, object], device: torch.device) -> Dict[s
 
 
 def draw_train_keys(
-    model: FasterRCNN, batch: Mapping[str, object], generator: torch.Generator
+    model: FasterRCNN, batch: Mapping[str, object], generator: torch.Generator,
+    dp: Optional[DataParallel] = None,
 ) -> TrainDraws:
     """The step's random draws for a device batch, from `generator` (which
     lives on the batch's device); with uncertainty a UCDraws on the same
-    generator for the step's dropout masks and normals."""
+    generator for the step's dropout masks and normals.  With `dp` the
+    batch is a rank's rows: the global batch's keys are drawn (the same
+    generator on every rank) and the rank's row block is kept, as JAX's
+    one key draws for the global batch."""
     data, gt = batch["data"], batch["gt_boxes"]
     b, g = gt.shape[:2]
+    rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
     n, r = model.train_lane_counts(tuple(data.shape[1:3]), g)
     kw = dict(generator=generator, device=data.device)
-    noise = torch.randn((b, g, 4), **kw) if model.cfg.train.use_gt_noise else None
-    uc = UCDraws(generator) if uses_uncertainty(model.cfg) else None
+
+    def draw(fn, *size):
+        return fn((b * world,) + size, **kw)[rank * b:(rank + 1) * b]
+
+    noise = draw(torch.randn, g, 4) if model.cfg.train.use_gt_noise else None
+    uc = UCDraws(generator, shard=(rank, world)) if uses_uncertainty(model.cfg) else None
     return TrainDraws(
-        torch.rand((b, n), **kw), torch.rand((b, n), **kw),
-        torch.rand((b, r), **kw), torch.rand((b, r), **kw), noise, uc,
+        draw(torch.rand, n), draw(torch.rand, n), draw(torch.rand, r), draw(torch.rand, r),
+        noise, uc,
     )
 
 
-def make_train_step(model: FasterRCNN, optimizer: DetectorSGD) -> Callable:
+def make_train_step(
+    model: FasterRCNN, optimizer: DetectorSGD, dp: Optional[DataParallel] = None
+) -> Callable:
     """step(batch, draws, proposals=None) -> (detached losses, TrainAux):
     one forward, backward and optimizer update.  `batch` is a device batch
-    (batch_to_device); `proposals` pins the second stage to given lanes."""
+    (batch_to_device); `proposals` pins the second stage to given lanes.
+    With `dp` the batch is a rank's rows: the forward's statistics and
+    means are the global batch's (a rank's losses are its shares), the
+    optimizer (given the same dp) sums the gradients, and the losses
+    returned are the global ones (the shares summed)."""
+    if dp is not None and optimizer.dp is not dp:
+        raise ValueError("make_train_step: a data-parallel step needs DetectorSGD(..., dp=dp), "
+                         "which sums the ranks' gradients")
 
     def step(batch, draws: TrainDraws, proposals=None):
         optimizer.zero_grad()
@@ -161,10 +197,11 @@ def make_train_step(model: FasterRCNN, optimizer: DetectorSGD) -> Callable:
             gt_boxes_dc=batch.get("gt_boxes_dc"), dc_mask=batch.get("dc_mask"),
             scale_idx=batch.get("scale_idx"), proposals=proposals,
         )
-        losses, aux = compute_call(model, "forward_train", *args, **kwargs)
+        with mesh.data_parallel(dp):
+            losses, aux = compute_call(model, "forward_train", *args, **kwargs)
         losses["total_loss"].backward()
         optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}, aux
+        return mesh.reduce_losses({k: v.detach() for k, v in losses.items()}, dp), aux
 
     return step
 
@@ -186,32 +223,39 @@ def train(
     generator: Union[torch.Generator, Callable[[int], torch.Generator]],
     on_step: Optional[Callable[[int, Dict[str, float], float], Optional[bool]]] = None,
     first_step: int = 0,
+    dp: Optional[DataParallel] = None,
 ) -> Dict[str, List]:
     """Run `iters` steps, numbered from first_step: loader batch -> H2D ->
     draws -> step.  `generator` gives the draws: one generator for every
     step, or a callable step -> generator (`step_generator`).  Each step is
     timed from the H2D copy to the end of the update (CUDA events on a
     card, the host clock on the CPU).  Returns per-step float losses and
-    milliseconds; on_step(i, losses, ms) is called after step i, and when it
-    returns True the loop ends there.  The model is put in train mode."""
+    milliseconds, and with `dp` (a rank of a data-parallel run: the loader
+    gives its rows, the optimizer sums over its ranks) each step's
+    gradient all-reduce ms (`reduce_ms`); on_step(i, losses, ms) is called
+    after step i, and when it returns True the loop ends there.  The model
+    is put in train mode."""
     device = model_device(model)
     model.train()
-    step = make_train_step(model, optimizer)
+    step = make_train_step(model, optimizer, dp)
     timer = DeviceTimer(device)
-    all_losses, all_ms = [], []
+    all_losses, all_ms, reduce_ms = [], [], []
     for i in range(first_step, first_step + iters):
         host = loader.next()
         timer.start()
         batch = batch_to_device(host, device)
+        mesh.check_same_shape(batch["data"].shape, dp, "the batch's data shape")
         gen = generator(i) if callable(generator) else generator
-        losses, _ = step(batch, draw_train_keys(model, batch, gen))
+        losses, _ = step(batch, draw_train_keys(model, batch, gen, dp))
         ms = timer.stop()
         losses = {k: float(v) for k, v in losses.items()}
         all_losses.append(losses)
         all_ms.append(ms)
+        if optimizer.last_reduce_ms is not None:
+            reduce_ms.append(optimizer.last_reduce_ms)
         if on_step is not None and on_step(i, losses, ms):
             break
-    return {"losses": all_losses, "ms": all_ms}
+    return {"losses": all_losses, "ms": all_ms, "reduce_ms": reduce_ms}
 
 
 # -- the val cycle (JAX solver.py:95-173) --------------------------------------
@@ -231,38 +275,50 @@ def frozen_running_stats(model: torch.nn.Module):
             m.update_stats = True
 
 
-def make_eval_step(model: FasterRCNN) -> Callable:
+def make_eval_step(model: FasterRCNN, dp: Optional[DataParallel] = None) -> Callable:
     """eval_step(batch, draws) -> detached losses: forward_train on a val
     batch without an update, in train mode (live BN on the batch's
     statistics), the running statistics untouched, as the JAX package's
-    eval step applies forward_train with `batch_stats` not mutable."""
+    eval step applies forward_train with `batch_stats` not mutable.  With
+    `dp` the batch is a rank's rows and the losses are the global batch's,
+    as JAX's eval step on a sharded batch (solver.py:557)."""
 
     def eval_step(batch, draws: TrainDraws) -> Dict[str, torch.Tensor]:
         was_training = model.training
         model.train()
         try:
-            with frozen_running_stats(model), torch.no_grad():
+            with frozen_running_stats(model), torch.no_grad(), mesh.data_parallel(dp):
                 losses, _ = compute_call(
                     model, "forward_train", batch["data"], batch["gt_boxes"], batch["gt_mask"],
                     batch["window"], draws, gt_boxes_dc=batch.get("gt_boxes_dc"),
                     dc_mask=batch.get("dc_mask"), scale_idx=batch.get("scale_idx"))
         finally:
             model.train(was_training)
-        return {k: v.detach() for k, v in losses.items()}
+        return mesh.reduce_losses({k: v.detach() for k, v in losses.items()}, dp)
 
     return eval_step
 
 
-def act_summary(model: FasterRCNN, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+def act_summary(
+    model: FasterRCNN, images: torch.Tensor, dp: Optional[DataParallel] = None
+) -> Dict[str, torch.Tensor]:
     """Mean, std and absmax of the map the JAX package sows as `act_conv`
     (the C4 backbone output, or p2 under FPN), from `features` in eval mode
     (running statistics), keyed act_conv0/mean|std|absmax as JAX's
-    make_act_summary_step keys its one sown leaf."""
+    make_act_summary_step keys its one sown leaf.  With `dp` the images are
+    a rank's rows and the statistics the global batch's (the std about the
+    global mean)."""
     with eval_mode(model), torch.no_grad():
         feats = compute_call(model, "features", images)
     a = (feats[0] if isinstance(feats, tuple) else feats).float()
-    return {"act_conv0/mean": a.mean(), "act_conv0/std": a.std(unbiased=False),
-            "act_conv0/absmax": a.abs().max()}
+    if dp is None:
+        return {"act_conv0/mean": a.mean(), "act_conv0/std": a.std(unbiased=False),
+                "act_conv0/absmax": a.abs().max()}
+    n = a.numel() * dp.world
+    mean = mesh.reduce_sum(a.sum(), dp) / n
+    var = mesh.reduce_sum((a - mean).square().sum(), dp) / n
+    return {"act_conv0/mean": mean, "act_conv0/std": var.sqrt(),
+            "act_conv0/absmax": mesh.reduce_max(a.abs().max(), dp)}
 
 
 # -- snapshots and weights -------------------------------------------------------
@@ -328,7 +384,9 @@ class Solver:
     and the logs (output_dir/tb, and output_dir/tb_val with a val loader).
 
     `model` is the detector on its device (create_train_state); the
-    optimizer is built in train()."""
+    optimizer is built in train().  `dp`: this process's rank of a
+    data-parallel run (the loaders give its rows; see the module
+    docstring), None for one process."""
 
     def __init__(
         self,
@@ -339,6 +397,7 @@ class Solver:
         output_dir: str = "output",
         seed: Optional[int] = None,
         pretrained_path: Optional[str] = None,
+        dp: Optional[DataParallel] = None,
     ):
         self.cfg = cfg
         self.model = model
@@ -348,12 +407,15 @@ class Solver:
         self.output_dir = output_dir
         self.seed = cfg.rng_seed if seed is None else seed
         self.pretrained_path = pretrained_path
+        self.dp = dp
+        self.is_main = dp is None or dp.is_main
         self.device = model_device(model)
         out = os.path.abspath(output_dir)
         self._ckpt_dir = os.path.join(out, "checkpoints")
-        self.metrics = MetricsWriter(os.path.join(out, "tb"))
-        self.metrics_val = (MetricsWriter(os.path.join(out, "tb"), "val")
-                            if val_loader is not None else None)
+        writer = MetricsWriter if self.is_main else NullWriter
+        self.metrics = writer(os.path.join(out, "tb"))
+        self.metrics_val = (writer(os.path.join(out, "tb"), "val") if val_loader is not None
+                            else None)
 
     # -- checkpointing ------------------------------------------------------
 
@@ -368,7 +430,12 @@ class Solver:
         masters, live-BN running statistics), the optimizer's state, the
         train loader's sampler state and the step.  It is written under a
         temporary name and renamed, so a stop mid-write leaves nothing that
-        find_previous would pick; then keep-last-N."""
+        find_previous would pick; then keep-last-N.  Data-parallel: rank 0
+        writes, every rank waits for it (the replicas are equal)."""
+        path = os.path.join(self._ckpt_dir, f"iter_{step}")
+        if not self.is_main:
+            mesh.barrier(self.dp)
+            return path
         os.makedirs(self._ckpt_dir, exist_ok=True)
         state = {
             "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
@@ -376,11 +443,11 @@ class Solver:
             "loader": _loader_state_to_tensors(self.train_loader.state_dict()),
             "step": int(step),
         }
-        path = os.path.join(self._ckpt_dir, f"iter_{step}")
         tmp = os.path.join(self._ckpt_dir, f".iter_{step}.tmp")
         torch.save(state, tmp)
         os.replace(tmp, path)
         self._gc_snapshots()
+        mesh.barrier(self.dp)
         return path
 
     def _gc_snapshots(self) -> None:
@@ -445,11 +512,13 @@ class Solver:
         """The val losses' draws: one generator seeded `seed` every cycle,
         as the JAX package passes its base key to the eval step."""
         return draw_train_keys(self.model, batch, torch.Generator(
-            device=self.device).manual_seed(self.seed))
+            device=self.device).manual_seed(self.seed), self.dp)
 
     def _val_detections(self, val_batch, step: int, max_draw: int = 4) -> Dict[str, float]:
         """Full inference on the val batch: draw detections (full net) or
-        log proposal recall (RPN only).  Returns scalars for the val log."""
+        log proposal recall (RPN only).  Returns scalars for the val log.
+        Data-parallel: the recall is the global batch's; rank 0 draws its
+        rows' detections."""
         from faster_rcnn_pytorch_multimodal_tpu_torch.evaluation.drawing import (
             draw_frame_detections,
             proposal_recall,
@@ -457,6 +526,8 @@ class Solver:
         from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import to_per_class_lists
 
         cfg = self.cfg
+        if cfg.enable_full_net and not self.is_main:
+            return {}
         draws = (UCDraws(torch.Generator(device=self.device).manual_seed(self.seed))
                  if uses_uncertainty(cfg) else None)
         out = detect(self.model, val_batch["data"], val_batch["window"], draws)
@@ -469,8 +540,10 @@ class Solver:
             covered, total = proposal_recall(out["rois"].cpu().numpy(),
                                              out["roi_valid"].cpu().numpy(),
                                              gt.cpu().numpy(), gt_mask)
+            covered, total = (int(v) for v in mesh.host_sum((covered, total), self.dp))
             recall = covered / max(total, 1)
-            print(f"val rpn recall@0.5: {recall:.4f} ({covered}/{total})")
+            if self.is_main:
+                print(f"val rpn recall@0.5: {recall:.4f} ({covered}/{total})")
             return {"rpn_recall": recall}
 
         classes = (getattr(self.val_loader.dataset, "classes", None)
@@ -496,7 +569,8 @@ class Solver:
         batch = batch_to_device(self.val_loader.next(), self.device)
         scalars = {k: float(v) for k, v in self._eval_step(batch, self._val_draws(batch)).items()}
         if cfg.train.en_act_summaries:
-            scalars.update({k: float(v) for k, v in act_summary(self.model, batch["data"]).items()})
+            scalars.update({k: float(v) for k, v in
+                            act_summary(self.model, batch["data"], self.dp).items()})
         if cfg.train.draw_val_detections or not cfg.enable_full_net:
             scalars.update(self._val_detections(batch, step))
         self.metrics_val.scalars(step, scalars)
@@ -506,16 +580,20 @@ class Solver:
 
     def train(self, max_iters: int, log_every: Optional[int] = None) -> Dict:
         """Train to step max_iters.  Returns the last logged losses,
-        frames/s over the run (wall clock), the step it ended at, every
-        step's losses and device ms (from `train`) and the wall seconds."""
+        frames/s over the run (wall clock, the global batch's frames), the
+        step it ended at, every step's losses and device ms (from `train`),
+        the gradient all-reduce's ms a step (data-parallel) and the wall
+        seconds."""
         cfg = self.cfg
+        dp = self.dp
         log_every = log_every or cfg.train.display
         killer = _GracefulKiller()
-        self.optimizer = DetectorSGD(self.model, cfg)
+        self.optimizer = DetectorSGD(self.model, cfg, dp=dp)
         start = 0
-        prev = self.find_previous()
+        prev = mesh.broadcast_object(self.find_previous() if self.is_main else None, dp)
         if prev is not None:
-            print(f"restoring from {prev}")
+            if self.is_main:
+                print(f"restoring from {prev}")
             start = self.restore(prev)
         elif self.pretrained_path:
             self.load_pretrained(self.pretrained_path, 2 if cfg.preload_full else 1)
@@ -527,7 +605,11 @@ class Solver:
                   "Set FIXED_BLOCKS=-1 or preload weights.")
         if cfg.debug.draw_anchors or cfg.debug.draw_anchor_t or cfg.debug.draw_proposal_t:
             self._debug_draws()
-        self._eval_step = make_eval_step(self.model) if self.val_loader is not None else None
+        # one replica: rank 0's weights (a random init, a restore or a
+        # preload are the same on every rank; this makes sure of it)
+        mesh.broadcast_parameters_(self.model, dp)
+        self._eval_step = (make_eval_step(self.model, dp) if self.val_loader is not None
+                           else None)
 
         last: Dict[str, float] = {}
         end = {"step": start}
@@ -541,17 +623,18 @@ class Solver:
                 last.update(losses)
                 self.metrics.scalars(n, losses)
                 dt = time.time() - t_start
-                print(f"iter: {n} / {max_iters}, total loss: {losses['total_loss']:.6f}\n"
-                      + "".join(f" >>> {k}: {v:.6f}\n" for k, v in losses.items()
-                                if k != "total_loss")
-                      + f"speed: {dt / max(n - start, 1):.3f}s / iter, "
-                      f"{(n - start) * self.train_loader.batch_size / dt:.2f} frames/s")
+                if self.is_main:
+                    print(f"iter: {n} / {max_iters}, total loss: {losses['total_loss']:.6f}\n"
+                          + "".join(f" >>> {k}: {v:.6f}\n" for k, v in losses.items()
+                                    if k != "total_loss")
+                          + f"speed: {dt / max(n - start, 1):.3f}s / iter, "
+                          f"{(n - start) * self.train_loader.batch_size / dt:.2f} frames/s")
             if self._eval_step is not None and n % log_every == 0:
                 self._val_cycle(n)
             snapped = n % cfg.train.snapshot_iters == 0 or n == max_iters
             if snapped:
                 self.snapshot(n)
-            if killer.kill_now:
+            if mesh.any_rank(killer.kill_now, dp):
                 if not snapped:
                     self.snapshot(n)
                 print(f"stopped by a signal after iteration {n}")
@@ -561,11 +644,11 @@ class Solver:
         self.train_loader.start(transfer=lambda b: batch_to_device(b, self.device))
         try:
             res = train(self.model, self.optimizer, self.train_loader, max(max_iters - start, 0),
-                        lambda i: step_generator(self.seed, i, self.device), on_step, start)
+                        lambda i: step_generator(self.seed, i, self.device), on_step, start, dp)
         finally:
             self.train_loader.kill()
             killer.restore()
         wall = time.time() - t_start
         return {"losses": last, "frames_per_sec": len(res["ms"]) * self.train_loader.batch_size
                 / max(wall, 1e-9), "step": end["step"], "history": res["losses"],
-                "ms": res["ms"], "wall_s": wall}
+                "ms": res["ms"], "reduce_ms": res["reduce_ms"], "wall_s": wall}

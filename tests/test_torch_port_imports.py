@@ -4,6 +4,10 @@
   quality harness, the tf-slim converter and chip_smoke.py) in a
   fresh interpreter leaves JAX, the JAX package and bench.py out of
   sys.modules: the port keeps its own copies of what it needs.
+* The multi-process dry run (`python -m
+  faster_rcnn_pytorch_multimodal_tpu_torch.parallel.multihost`, 2 CPU ranks
+  over gloo) holds the 2-rank step to the one-process step, as JAX's
+  `__graft_entry__.dryrun_multichip` drives its worker.
 * On CPU tensors the kernel wrappers run their plain twins and launch
   nothing; on a CUDA tensor they launch the hand-written kernel, which is
   held against the twin (tests marked `cuda`, skipped without a card).
@@ -86,8 +90,37 @@ def test_port_imports_no_jax():
     imported = set(proc.stdout.split())
     for name in ("data.augment", "data.datasets", "data.db_base", "data.kitti", "data.waymo",
                  "data.cadc", "native.pc_ops", "utils.kitti_utils", "utils.cadc_utils",
-                 "models.vgg16", "models.mobilenet"):
+                 "models.vgg16", "models.mobilenet", "parallel", "parallel.mesh",
+                 "parallel.multihost"):
         assert f"faster_rcnn_pytorch_multimodal_tpu_torch.{name}" in imported, name
+
+
+def test_multihost_dry_run_two_cpu_processes(tmp_path):
+    """Two processes of `python -m ...parallel.multihost --device cpu`
+    (RANK, WORLD_SIZE and a file:// DP_INIT_METHOD, torchrun's contract):
+    each computes the one-process step itself and holds the 2-rank step's
+    loss and parameters to it (JAX worker_main's bars); both exit 0 and
+    rank 0 reports."""
+    import os
+
+    env = dict(os.environ, WORLD_SIZE="2", DP_INIT_METHOD=f"file://{tmp_path}/rendezvous",
+               OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "faster_rcnn_pytorch_multimodal_tpu_torch.parallel.multihost",
+                               "--device", "cpu"],
+                              env=dict(env, RANK=str(r)), cwd=str(REPO), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=240)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert "multihost dryrun ok: 2 ranks (gloo)" in outs[0], outs[0]
 
 
 def _boxes(rng, shape):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Train the PyTorch port of the detector (C4 on images or LiDAR BEV
-rasters, or with --en_fpn 1 the FPN image detector) on one device.
+rasters, or with --en_fpn 1 the FPN image detector) on one device or, data
+parallel, one rank a device.
 
 The flags are tools/trainval_net.py's, plus --device (the port's cli module);
 --iters defaults to 20 and --net_type to image.  As tools/trainval_net.py:121-167
@@ -21,6 +22,19 @@ layout (.pt, .npz) or a Solver snapshot.
     python tools/trainval_net_torch.py --db synthetic --dbval synthetic --net res18 --fixed_blocks -1 --iters 40 --set TRAIN.SNAPSHOT_ITERS 20 TRAIN.DISPLAY 10
     python tools/trainval_net_torch.py --db synthetic --net res101 --net_type image --en_fpn 1 --iters 20 --batch_size 8
     python tools/trainval_net_torch.py --db synthetic --net res101 --net_type lidar --scale 0.5 --iters 20 --batch_size 8
+
+Data parallelism (the JAX CLI's mesh over every device): MESH.DATA -1, the
+default, trains over every visible GPU, the largest divisor of the batch
+of them, one spawned rank each (nccl); on one card that is one process.
+`--set MESH.DATA 2` on one visible GPU runs two ranks on it (gloo, printed
+as such), and `--device cpu --set MESH.DATA 2` two CPU ranks.  Under
+torchrun every process is one rank:
+
+    torchrun --nproc_per_node 2 tools/trainval_net_torch.py --db synthetic --net res101 --batch_size 8
+
+Rank 0 alone logs and snapshots; every rank resumes from rank 0's newest
+snapshot; a SIGINT or SIGTERM to the launcher (or to any rank) stops
+every rank after the same step.
 """
 
 from __future__ import annotations
@@ -42,45 +56,96 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """Train one process, or every rank of a data-parallel run: under
+    torchrun (RANK and WORLD_SIZE set) this process is one rank; else the
+    ranks data_world_size plans for MESH.DATA (every visible GPU by
+    default) are spawned here after the kernels are built, or with one rank
+    this process trains alone."""
     args = parse_args(argv)
     import torch
 
-    from faster_rcnn_pytorch_multimodal_tpu_torch.cli import build_config, build_dataset
-    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.cli import build_config
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
-    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import Solver, create_train_state
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.multihost import spawn_ranks
 
     cfg = build_config(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("trainval_net_torch: --device cuda but no CUDA device is visible")
-    db = build_dataset(cfg, args.db_name, "train")
-    loader = BatchLoader(db, cfg, batch_size=cfg.train.batch_size, device=device,
-                         augment=cfg.train.augment_en, seed=cfg.rng_seed)
-    val_loader = None
-    if args.dbval_name:
-        val_db = build_dataset(cfg, args.dbval_name, "val")
-        val_loader = BatchLoader(val_db, cfg, batch_size=cfg.train.batch_size, device=device,
-                                 augment=cfg.train.val_augment_en, seed=cfg.rng_seed + 1)
-    model, _ = create_train_state(cfg, len(db.classes), device, seed=cfg.rng_seed)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return train_rank(None, None, None, args)
+    gpus = torch.cuda.device_count() if device.type == "cuda" else 1
+    world = mesh.data_world_size(cfg, cfg.train.batch_size, gpus)
+    if world == 1:
+        return train_rank(0, 1, None, args)
     if device.type == "cuda":
         _, seconds, _ = _build.build()
         print(f"kernels: {_build.library_path()} (built in {seconds:.1f} s)")
-    out_dir = os.path.join(args.out_dir, cfg.net_type, db.name)
-    solver = Solver(cfg, model, loader, val_loader=val_loader, output_dir=out_dir,
-                    pretrained_path=args.weights_file if cfg.preload else None)
-    print(f"training {cfg.net_variant} {cfg.net_type} {cfg.compute_dtype} on {db.name} "
-          f"({len(db)} frames, {len(db.classes)} classes, batch {cfg.train.batch_size}) for "
-          f"{args.max_iters} steps on {device} -> {out_dir}")
-    res = solver.train(max_iters=args.max_iters)
+    print(f"spawning {world} ranks for a global batch of {cfg.train.batch_size} on {gpus} "
+          f"{device.type} device(s)")
+    return spawn_ranks(train_rank, world, args)[0]
+
+
+def train_rank(rank, world, init_method, args):
+    """One rank's run (rank None: torchrun's environment): its rows of each
+    batch, the Solver's steps, rank 0's logs and snapshots.  Returns the
+    Solver's result."""
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.cli import build_config, build_dataset
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import Solver, create_train_state
+
+    cfg = build_config(args)
+    batch = cfg.train.batch_size
+    dp = mesh.init_data_parallel(cfg, batch, rank=rank, world=world, init_method=init_method,
+                                 device=args.device)
+    device = torch.device(args.device) if dp is None else dp.device
+    rows = None if dp is None else dp.rows(batch)
+    is_main = dp is None or dp.is_main
+    try:
+        db = build_dataset(cfg, args.db_name, "train")
+        loader = BatchLoader(db, cfg, batch_size=batch, device=device,
+                             augment=cfg.train.augment_en, seed=cfg.rng_seed, rows=rows)
+        val_loader = None
+        if args.dbval_name:
+            val_db = build_dataset(cfg, args.dbval_name, "val")
+            val_loader = BatchLoader(val_db, cfg, batch_size=batch, device=device,
+                                     augment=cfg.train.val_augment_en, seed=cfg.rng_seed + 1,
+                                     rows=rows)
+        model, _ = create_train_state(cfg, len(db.classes), device, seed=cfg.rng_seed)
+        if device.type == "cuda":
+            # rank 0 builds (a spawning launcher built already), the others wait
+            # for it: one nvcc run, not one a rank
+            if is_main:
+                _, seconds, _ = _build.build()
+                print(f"kernels: {_build.library_path()} (built in {seconds:.1f} s)")
+            mesh.barrier(dp)
+        out_dir = os.path.join(args.out_dir, cfg.net_type, db.name)
+        solver = Solver(cfg, model, loader, val_loader=val_loader, output_dir=out_dir,
+                        pretrained_path=args.weights_file if cfg.preload else None, dp=dp)
+        on = device if dp is None else f"{dp.world} ranks ({dp.backend}), rank 0 on {device}"
+        if is_main:
+            print(f"training {cfg.net_variant} {cfg.net_type} {cfg.compute_dtype} on {db.name} "
+                  f"({len(db)} frames, {len(db.classes)} classes, batch {batch}) for "
+                  f"{args.max_iters} steps on {on} -> {out_dir}")
+        res = solver.train(max_iters=args.max_iters)
+    finally:
+        mesh.shutdown(dp)
     ms = np.asarray(res["ms"])
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    if len(ms):
+    if is_main and len(ms):
         steady = ms[1:] if len(ms) > 1 else ms
+        reduce = (f"; gradient all-reduce {np.mean(res['reduce_ms']):.2f} ms/step"
+                  if res["reduce_ms"] else "")
         print(f"device: {name}; {steady.mean():.2f} ms/step on the device after the first "
-              f"({ms[0]:.2f} ms); {res['frames_per_sec']:.2f} frames/s wall")
-    print(f"done at iteration {res['step']}: {res['frames_per_sec']:.2f} frames/s, "
-          f"final loss {res['losses'].get('total_loss')}")
+              f"({ms[0]:.2f} ms){reduce}; {res['frames_per_sec']:.2f} frames/s wall")
+    if is_main:
+        print(f"done at iteration {res['step']}: {res['frames_per_sec']:.2f} frames/s, "
+              f"final loss {res['losses'].get('total_loss')}")
     return res
 
 
