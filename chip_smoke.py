@@ -214,8 +214,10 @@ non-zero and never prints its last line):
      (parallel.multihost.spawn_ranks, after the build) share cuda:0 over
      gloo (NCCL refuses two ranks on one device).  (a) the 2-rank step
      against the one-process step on the card, fp32, TF32 off: res101 image
-     C4 at 256x320 and a global batch of 2 (2 x 1), then res18 live BN at 4
-     (2 x 2), the one-process step pinned to the ranks' proposal lanes and
+     C4 at 256x320 and a global batch of 2 (2 x 1), once more with the two
+     ranks' frames of two sizes (256x320 and 320x448: each rank's loader
+     pads its row to the global batch's bucket, MixedSizes), then res18
+     live BN at 4 (2 x 2), the one-process step pinned to the ranks' proposal lanes and
      ReLU gates (dp_check): equal labels, losses within rtol 1e-4, each
      leaf's update within 1e-3 of its max, the running statistics within
      1e-5.  (b) Solver.train for 10 steps of the image config (res101 C4
@@ -251,8 +253,8 @@ align and its backward at VGG16's and MobileNet's 512-channel C4 maps:
 (8, 32, 60, 512) x 300, (8, 25, 21, 512) x 256 (VGG16's floored BEV map),
 (8, 25, 22, 512) x 256, the backward onto (8, 32, 60, 512) and (8, 25, 21,
 512).
-Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20-26, 28-31, and 32's in each
-rank) runs with the launch counts set to 0 just before it and read just
+Each path (5, 7, 9, 11, 12, 14, 15, 17, 18, 20-26, 28-31, 32's in each
+rank, 33's sections and 34's proposals) runs with the launch counts set to 0 just before it and read just
 after.  Then one JSON line describing
 the kernels (each kernel's `launches` is the count on the newest path that runs
 it: the Waymo dataset path's 4-worker Solver run for the voxelizer (timed on
@@ -266,6 +268,23 @@ the new nets' shapes), the nvidia-smi name/power line,
 and the result line {"ok": true, "device": ...}.  Worker processes are
 spawned: this file keeps its `if __name__ == "__main__":` guard, since a
 spawned child imports the main module again.
+ 33. the train step's stage split (tools/profile_step_torch.py, run_profile):
+     nested prefixes of the training forward plus backward, each timed
+     after warm-up between CUDA events, for the image, bev and fpn configs
+     at full width (res101 bf16, batch 8, terminators at 0.25): backbone
+     (BEV: the K3 raster first), + the RPN head and its losses, + the
+     proposals (K1), + the targets, the full make_train_step (K2, K2-bwd;
+     K2-FPN and its backward on FPN).  Each section's losses finite; its
+     launches join launches_by_path (profile_<config>_<section>), and
+     the kernels each section runs must have launched there.
+ 34. the debug draws card vs CPU (check_debug_draws): anchor_target_boxes
+     and proposal_target_boxes at res101 bf16, batch 8, 512x960, the image
+     config: the sampling keys drawn on the CPU and given to both, the card's
+     proposal targets pinned to the CPU's proposals (as check_train_slice
+     pins the second stage); the box lists and classes equal.  Then the
+     card's own proposals (K1 launched) against the CPU's: the share of
+     equal lanes, printed.  No PNG is written on the card (no PIL there);
+     tests/test_torch_port_debug_draw.py holds the drawing to JAX's.
 
 Imports nothing of JAX; needs the repository checkout around it.
 """
@@ -3384,6 +3403,29 @@ DP_UPDATE_TOL = 1e-3  # of a leaf's max |update|, plus 1e-6 of its max |paramete
 DP_STAT_TOL = 1e-5  # of a statistic's max
 
 
+DP_MIXED_HW = (SLICE_HW, (320, 448))  # the mixed check's two frame sizes
+
+
+class MixedSizes:
+    """Synthetic frames of two sizes: even indices from a SyntheticDataset
+    of hws[0] frames, odd ones from one of hws[1] (a 4-frame set's first
+    batch of 2, sampler seed 0, is frames 2 and 3: one of each)."""
+
+    def __init__(self, cfg, num_frames: int, hws, seed: int = 0, mode: str = "train",
+                 num_classes: int = 2):
+        from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
+
+        self.parts = [SyntheticDataset(cfg, num_frames=num_frames, num_classes=num_classes,
+                                       image_hw=hw, mode=mode, seed=seed + i)
+                      for i, hw in enumerate(hws)]
+
+    def __len__(self) -> int:
+        return len(self.parts[0])
+
+    def frame(self, index: int, **kwargs):
+        return self.parts[index % 2].frame(index, **kwargs)
+
+
 def dp_check(dp, name, cfg, init_model, batch, hw):
     """One data-parallel step on the card against the one-process step on
     the same global batch of `batch` frames (rank 0 computes it after).
@@ -3395,8 +3437,10 @@ def dp_check(dp, name, cfg, init_model, batch, hw):
     new), to the ranks' gate.  Equal labels; the losses within rtol
     DP_LOSS_RTOL, each leaf's update within DP_UPDATE_TOL of its max (plus
     1e-6 of the leaf's max: its float32 rounding), the running statistics
-    within DP_STAT_TOL of max.  Returns rank 0's
-    measured errors (and raises on a miss)."""
+    within DP_STAT_TOL of max.  `hw` a pair of sizes: the frames are
+    MixedSizes', and each rank's own rows must pad to another size than
+    the other rank's (the loader pads them to the global bucket).  Returns
+    rank 0's measured errors (and raises on a miss)."""
     import copy
 
     import torch
@@ -3409,9 +3453,17 @@ def dp_check(dp, name, cfg, init_model, batch, hw):
     from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
 
     device = dp.device
-    db = SyntheticDataset(cfg, num_frames=2 * batch, num_classes=2, image_hw=hw, seed=0)
+    mixed = isinstance(hw[0], tuple)
+    db = (MixedSizes(cfg, 2 * batch, hw) if mixed
+          else SyntheticDataset(cfg, num_frames=2 * batch, num_classes=2, image_hw=hw, seed=0))
     local = S.batch_to_device(BatchLoader(db, cfg, batch, device=device, seed=0,
-                                          rows=dp.rows(batch)).next(), device)
+                                          dp=dp).next(), device)
+    own = tuple(BatchLoader(db, cfg, batch, device=device, seed=0, rows=dp.rows(batch)).next()[
+        "data"].shape)
+    owns = [None] * dp.world
+    torch.distributed.all_gather_object(owns, own, group=dp.host_group)
+    if mixed and len(set(owns)) != dp.world:
+        raise AssertionError(f"data parallel {name}: the ranks' own rows are of one size {owns}")
     model = copy.deepcopy(init_model).to(device)
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     opt = DetectorSGD(model, cfg, dp=dp)
@@ -3471,7 +3523,8 @@ def dp_check(dp, name, cfg, init_model, batch, hw):
                         for k, v in ref_stats.items()), default=0.0)
         out.update(loss_err=loss_err, update_share=upd_share, worst_leaf=worst,
                    stat_err=stat_err, n_stats=len(ref_stats), ties=len(ties),
-                   fg_rois=int((ref_aux.proposal_targets.labels > 0).sum()))
+                   fg_rois=int((ref_aux.proposal_targets.labels > 0).sum()),
+                   own_shapes=owns, shape=tuple(full["data"].shape))
         if loss_err > DP_LOSS_RTOL or upd_share > 1.0 or stat_err > DP_STAT_TOL:
             raise AssertionError(f"data parallel {name}: 2 ranks vs one process {out}")
     mesh.barrier(dp)
@@ -3500,7 +3553,7 @@ def dp_solver_path(dp, name, cfg, init_model, need):
         shutil.rmtree(out, ignore_errors=True)
     mesh.barrier(dp)
     db = SyntheticDataset(cfg, num_frames=4 * B, num_classes=2, image_hw=FRAME_HW, seed=0)
-    loader = BatchLoader(db, cfg, B, device=dp.device, seed=cfg.rng_seed, rows=dp.rows(B))
+    loader = BatchLoader(db, cfg, B, device=dp.device, seed=cfg.rng_seed, dp=dp)
     model = copy.deepcopy(init_model).to(dp.device)
     solver = Solver(cfg, model, loader, output_dir=str(out), dp=dp)
     torch.cuda.synchronize()
@@ -3549,6 +3602,8 @@ def dp_rank(rank, world, init_method, smi):
         check_model = copy.deepcopy(image_model)
         check_model.cfg = cfg_from_list(image_cfg, DP_CHECK_OVERRIDES)
         res["res101"] = dp_check(dp, "res101", check_model.cfg, check_model, 2, SLICE_HW)
+        res["res101_mixed"] = dp_check(dp, "res101_mixed", check_model.cfg, check_model, 2,
+                                       DP_MIXED_HW)
         # res18 live BN, 2 ranks x 2 frames: the statistics are the global batch's
         live_cfg = make_config(IMAGE_OVERRIDES, RES18_LIVE, DP_CHECK_OVERRIDES, DP_OVERRIDES)
         live_model, _ = create_train_state(live_cfg, 2, "cpu", seed=1)
@@ -3599,6 +3654,8 @@ def run_data_parallel(smi, one_process):
           f"{r0['backend']}, one process group for every check and path, {seconds} s with the "
           f"ranks' start")
     for name, what in (("res101", "res101 image C4 fp32 256x320, global batch 2 (2 x 1)"),
+                       ("res101_mixed", "res101 image C4 fp32, global batch 2 (2 x 1) of a "
+                        "256x320 and a 320x448 frame"),
                        ("res18_live", "res18 live BN fp32 256x320, global batch 4 (2 x 2)")):
         c = r0[name]
         print(f"data parallel check {what}: 2 ranks vs one process on the card: losses "
@@ -3607,7 +3664,8 @@ def run_data_parallel(smi, one_process):
               f"of its max update + 1e-6 of its max; worst {c['worst_leaf']}), "
               f"running statistics {c['stat_err']} of max over {c['n_stats']} (limit "
               f"{DP_STAT_TOL}), labels equal, {c['fg_rois']} foreground RoIs, ReLU ties pinned "
-              f"{c['ties']}; losses {c['losses']}")
+              f"{c['ties']}; the ranks' own rows {c['own_shapes']}, padded to {c['shape']}; "
+              f"losses {c['losses']}")
     paths = {}
     for name, label in (("image", "res101 image C4 bf16 512x960"),
                         ("bev", "bev_config res101 bf16 400 x 350 x 15")):
@@ -3632,6 +3690,119 @@ def run_data_parallel(smi, one_process):
         if ranks[0][name]["last_loss"] != ranks[1][name]["last_loss"]:
             raise AssertionError(f"data parallel {name}: the ranks report different losses")
     return paths
+
+
+PROFILE_NEED = {  # the kernels each section of the stage split must launch
+    "image": ((), (), ("nms",), ("nms",), ("nms", "roi_align", "roi_align_bwd")),
+    "bev": (("voxelize_bev",),) * 2 + (("voxelize_bev", "nms"),) * 2
+    + (("voxelize_bev", "nms", "roi_align", "roi_align_bwd"),),
+    "fpn": ((), (), ("nms",), ("nms",),
+            ("nms", "roi_align_multiscale", "roi_align_multiscale_bwd")),
+}
+
+
+def _profile_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("profile_step_torch",
+                                                  REPO / "tools" / "profile_step_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_profile(smi):
+    """Phase 33: tools/profile_step_torch.py's sections for the image, bev
+    and fpn configs at full width (res101 bf16, batch 8): each section's
+    ms a step and frames/s, its launches a step; every section's losses
+    finite and the kernels of PROFILE_NEED launched in its timed calls.
+    Returns the launches by path (profile_<config>_<section>)."""
+    import torch
+
+    tool = _profile_tool()
+    paths = {}
+    for which in ("image", "bev", "fpn"):
+        cfg = make_config(*tool.CONFIGS[which])
+        res = tool.profile(cfg, "cuda")
+        torch.cuda.synchronize()
+        print(tool.report(which, cfg, res, smi, B))
+        for (name, r), need, key in zip(res.items(), PROFILE_NEED[which],
+                                        ("backbone", "rpn", "proposals", "targets", "full")):
+            losses = r["losses"].values() if isinstance(r["losses"], dict) else [r["losses"]]
+            if not all(np.isfinite(v) for v in losses):
+                raise AssertionError(f"profile {which} {name}: a non-finite loss {r['losses']}")
+            if not all(r["launches"][k] > 0 for k in need):
+                raise AssertionError(f"profile {which} {name}: a kernel never launched: "
+                                     f"{r['launches']}")
+            paths[f"profile_{which}_{key}"] = r["launches"]
+        del res
+        torch.cuda.empty_cache()
+    return paths
+
+
+def check_debug_draws(cfg, smi, hw=FRAME_HW, batch=B, device="cuda"):
+    """Phase 34: utils/debug_draw's anchor_target_boxes and
+    proposal_target_boxes for one batch of the image config (res101 bf16,
+    batch 8, 512x960, terminators at 0.25) card against CPU: the sampling
+    keys drawn on the CPU and given to both; the proposal targets over the
+    CPU's proposals on both devices (the card pinned to them): every box
+    list and its classes equal.  Then the card's own proposals
+    (train_proposals: its features, RPN and K1): their lanes against the
+    CPU's, the share printed.  Returns the card proposals' launches.
+    (`device` "cpu" runs both sides on the CPU: a check of this code.)"""
+    import copy
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import (
+        batch_to_device,
+        create_train_state,
+    )
+    from faster_rcnn_pytorch_multimodal_tpu_torch.utils import debug_draw as dd
+
+    db = SyntheticDataset(cfg, num_frames=2 * batch, num_classes=2, image_hw=hw, seed=0)
+    host = BatchLoader(db, cfg, batch, device="cpu", seed=0).next()
+    cpu_batch = batch_to_device(host, torch.device("cpu"))
+    gpu_batch = batch_to_device(host, torch.device(device))
+    cpu, _ = create_train_state(cfg, 2, "cpu", seed=0)
+    scale_terminators(cpu)
+    gpu = copy.deepcopy(cpu).to(device)
+    g = torch.Generator().manual_seed(0)
+    n = len(dd._grid(cfg, host["data"].shape))
+    anchor_keys = (torch.rand((1, n), generator=g), torch.rand((1, n), generator=g))
+    t0 = time.perf_counter()
+    props = dd.train_proposals(cfg, cpu, cpu_batch)
+    cpu_s = time.perf_counter() - t0
+    roi_keys = tuple(torch.rand(tuple(props[1].shape), generator=g) for _ in range(2))
+    results = {}
+    for what, fn in (
+            ("anchor targets", lambda b, m: dd.anchor_target_boxes(cfg, b, keys=anchor_keys)),
+            ("proposal targets", lambda b, m: dd.proposal_target_boxes(
+                cfg, m, b, keys=roi_keys, proposals=props))):
+        want, got = fn(cpu_batch, cpu), fn(gpu_batch, gpu)
+        for group, (boxes, classes) in want.items():
+            if not (np.array_equal(got[group][0], boxes)
+                    and np.array_equal(got[group][1], classes)):
+                raise AssertionError(f"debug draws {what} {group}: card {got[group]} against "
+                                     f"CPU {(boxes, classes)}")
+        results[what] = {k: len(v[0]) for k, v in want.items()}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    _build.reset_launch_counts()
+    own = dd.train_proposals(cfg, gpu, gpu_batch)
+    sync()
+    launches = dict(_build.LAUNCH_COUNTS)
+    if device == "cuda" and launches["nms"] <= 0:
+        raise AssertionError(f"debug draws: the card's proposals launched no NMS: {launches}")
+    same = float((own[2].cpu() == props[2]).float().mean())
+    print(f"debug draws card vs CPU ({cfg.net_variant} {cfg.compute_dtype} batch {batch} "
+          f"{hw[0]}x{hw[1]}, {smi}): box lists and classes equal, frame 0's counts "
+          f"{results}; the CPU's proposals took {cpu_s} s; the card's own proposals: launches "
+          f"{launches}, {same} of their lanes equal to the CPU's")
+    return launches
 
 
 def main() -> int:
@@ -3908,6 +4079,12 @@ def main() -> int:
     phase("data parallel on one card")
     dp_paths = run_data_parallel(smi, {"image": one_image, "bev": one_bev})
 
+    phase("train step stage split (tools/profile_step_torch.py)")
+    profile_paths = run_profile(smi)
+
+    phase("debug draws: card vs CPU")
+    debug_proposals = check_debug_draws(image_cfg, smi)
+
     paths = {"serving": serving, "training": training, "bev_serving": bev_serving,
              "fpn_serving": fpn_serving, "fpn_training": fpn_training,
              "bev_training": bev_training, "bev_rotated_serving": bev_rotated,
@@ -3920,7 +4097,8 @@ def main() -> int:
              "mobile_serving": mobile_serving, "mobile_training": mobile_training,
              "fpn_uc_serving": fpn_uc_serving, "fpn_uc_training": fpn_uc_training,
              "fpn_bev_serving": fpn_bev_serving, "fpn_bev_rotated_serving": fpn_bev_rotated,
-             "fpn_bev_training": fpn_bev_training, **dp_paths}
+             "fpn_bev_training": fpn_bev_training, **dp_paths, **profile_paths,
+             "debug_draw_proposals": debug_proposals}
 
     def entry(name, source, replaces, path, measured):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",

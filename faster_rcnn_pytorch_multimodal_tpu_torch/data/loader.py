@@ -44,10 +44,15 @@ loader is one data-parallel rank's, as JAX's multi-host loader is
 (batch_size is the global batch) on every rank alike, and only the rank's
 rows are assembled, in the prefetch thread and in the worker processes
 too.  So `state_dict` is global and the same on every rank, and a resume
-is exact whatever the number of ranks.
+is exact whatever the number of ranks.  An image batch's rows are padded
+to their own largest frame's bucket there; with `dp` (the rank) next() then
+pads them, on the consumer's thread, to the largest bucket over the ranks:
+the global task's, which JAX pads the global batch to before it slices a
+process's rows (parallel/multihost.py:124-140).  So frames of mixed sizes
+give every rank one shape, without a rank reading another's frames.
 
-Not ported: the minibatch drawing; DEBUG.DRAW_MINIBATCH raises
-NotImplementedError (ROADMAP A7).
+DEBUG.DRAW_MINIBATCH draws each assembled frame with its GT boxes into
+debug/minibatch_draws/ (JAX :494-519), where the batch is finalized.
 """
 
 from __future__ import annotations
@@ -63,6 +68,8 @@ import torch
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.voxelize import raster_kwargs, voxelize_bev
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.mesh import DataParallel
 from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
 
 
@@ -140,19 +147,36 @@ def _assemble_batch(dataset, cfg: Config, augment: bool, task,
         w = _bucket(max(f["data"].shape[1] for f in frames))
         dtype = frames[0]["data"].dtype
         nch = frames[0]["data"].shape[2]
-        # uint8 frames pad with the mean pixel, which normalizes to zero
-        if np.issubdtype(dtype, np.integer) and nch == len(cfg.pixel_means):
-            fill = np.asarray(cfg.pixel_means, np.float32)
-            data = np.broadcast_to(
-                np.clip(np.round(fill), 0, 255).astype(dtype), (b, h, w, nch)
-            ).copy()
-        else:
-            data = np.zeros((b, h, w, nch), dtype)
+        data = np.empty((b, h, w, nch), dtype)
+        data[...] = pad_value(cfg, dtype, nch)
         for i, f in enumerate(frames):
             fh, fw = f["data"].shape[:2]
             data[i, :fh, :fw] = f["data"]
         batch["data"] = data
     return batch
+
+
+def pad_value(cfg: Config, dtype, nch: int) -> np.ndarray:
+    """What an image batch is padded with: the mean pixel for uint8 frames
+    (it normalizes to zero), else zero."""
+    if np.issubdtype(np.dtype(dtype), np.integer) and nch == len(cfg.pixel_means):
+        fill = np.asarray(cfg.pixel_means, np.float32)
+        return np.clip(np.round(fill), 0, 255).astype(dtype)
+    return np.zeros((nch,), dtype)
+
+
+def pad_frames(data, h: int, w: int, cfg: Config):
+    """A (B, H, W, C) image batch (numpy or a tensor on any device) padded at
+    the bottom and right to (B, h, w, C) with pad_value."""
+    b, fh, fw, nch = data.shape
+    if isinstance(data, torch.Tensor):
+        fill = torch.from_numpy(pad_value(cfg, np.dtype(str(data.dtype).split(".")[-1]), nch))
+        out = fill.to(data.device).expand(b, h, w, nch).clone()
+    else:
+        out = np.empty((b, h, w, nch), data.dtype)
+        out[...] = pad_value(cfg, data.dtype, nch)
+    out[:, :fh, :fw] = data
+    return out
 
 
 def _worker_loop(dataset, cfg: Config, augment: bool, rows, task_q, result_q) -> None:
@@ -198,7 +222,9 @@ class BatchLoader:
     background queue (`start`).  workers: the number of worker processes
     `start` assembles batches in (0: the prefetch thread assembles them).
     rows: a data-parallel rank's rows of each global batch of batch_size
-    frames (None: every row)."""
+    frames (None: every row).  dp: the rank (a parallel.DataParallel) whose
+    rows these are; `rows` defaults to its rows, and next() and peek() pad
+    an image batch to the global task's bucket (see the module docstring)."""
 
     def __init__(
         self,
@@ -214,13 +240,13 @@ class BatchLoader:
         rasterize: bool = True,
         workers: int = 0,
         rows: Optional[slice] = None,
+        dp: Optional[DataParallel] = None,
     ):
-        if cfg.debug.draw_minibatch:
-            raise NotImplementedError("BatchLoader: DEBUG.DRAW_MINIBATCH is not ported")
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
-        self.rows = rows
+        self.dp = dp
+        self.rows = dp.rows(batch_size) if dp is not None and rows is None else rows
         self.device = torch.device(device)
         self.augment = augment
         self.shuffle = shuffle
@@ -331,7 +357,7 @@ class BatchLoader:
 
     def peek(self) -> Dict[str, object]:
         if self._peeked is None:
-            self._peeked = self._build_batch(self._sample_task())
+            self._peeked = self._pad_to_ranks(self._build_batch(self._sample_task()))
         return self._peeked
 
     def next(self) -> Dict[str, object]:
@@ -339,7 +365,26 @@ class BatchLoader:
             b, self._peeked = self._peeked, None
             return b
         if self._thread is None:
-            return self._build_batch(self._sample_task())
+            return self._pad_to_ranks(self._build_batch(self._sample_task()))
+        return self._pad_to_ranks(self._next_prefetched())
+
+    def _pad_to_ranks(self, b: Dict[str, object]) -> Dict[str, object]:
+        """With dp: an image batch padded to the largest (height, width)
+        over the ranks, which is the bucket of the global task's largest
+        frame, as JAX pads the global batch before it slices a process's
+        rows.  A collective over dp.host_group, so on the consumer's thread
+        and in the same order on every rank; no rank reads another's
+        frames."""
+        if self.dp is None or self.cfg.net_type == "lidar" or "data" not in b:
+            return b
+        data = b["data"]
+        h, w = (int(v) for v in data.shape[1:3])
+        gh, gw = mesh.max_over_ranks((h, w), self.dp)
+        if (gh, gw) != (h, w):
+            b["data"] = pad_frames(data, gh, gw, self.cfg)
+        return b
+
+    def _next_prefetched(self) -> Dict[str, object]:
         b = self._q.get()
         if isinstance(b, _Failure):
             raise RuntimeError("BatchLoader: the prefetch thread or a worker failed") from b.error
@@ -516,9 +561,9 @@ class BatchLoader:
 
     def _finalize(self, batch: Dict[str, np.ndarray]) -> Dict[str, object]:
         """The device work on an assembled host batch, on the current
-        stream: the lidar raster (points up, raster stays there), then the
-        optional transfer."""
-        batch.pop("_indices", None)
+        stream: the lidar raster (points up, raster stays there), the
+        DEBUG.DRAW_MINIBATCH draws, then the optional transfer."""
+        indices = batch.pop("_indices", None)
         if self._grid is not None and "points" in batch:
             points = host_to_device(batch.pop("points"), self.device)
             valid = host_to_device(batch.pop("point_valid"), self.device)
@@ -526,6 +571,32 @@ class BatchLoader:
             batch["data"] = voxelize_bev(points, valid, **self._grid)
             self.last_raster_ms = self._timer.stop()
             self.last_raster_thread = threading.current_thread().name
+        if self.cfg.debug.draw_minibatch and indices is not None:
+            self._draw_minibatch(batch, indices)
         if self._transfer is not None:
             batch = self._transfer(batch)
         return batch
+
+    def _draw_minibatch(self, batch: Dict[str, object], indices: np.ndarray) -> None:
+        """DEBUG.DRAW_MINIBATCH: each frame of the batch with its GT boxes,
+        written to debug/minibatch_draws/mb_<epoch>_<cur>_<index>.png (ref
+        minibatch.py:35-107; JAX loader :494-519, whose drawing this is)."""
+        import os
+
+        from faster_rcnn_pytorch_multimodal_tpu_torch.utils import visualization as viz
+
+        out_dir = os.path.join("debug", "minibatch_draws")
+        data = batch["data"]
+        data = data.cpu().numpy() if isinstance(data, torch.Tensor) else np.asarray(data)
+        for i, idx in enumerate(indices):
+            gt = batch["gt_boxes"][i][batch["gt_mask"][i]]
+            if self.cfg.net_type == "lidar":
+                canvas = viz.draw_detections_bev(data[i], np.zeros((0, 8)), gt7=gt)
+            else:
+                img = data[i] * np.asarray(self.cfg.pixel_stddevs) + np.asarray(
+                    self.cfg.pixel_means)
+                canvas = img[:, :, ::-1]
+                if len(gt):
+                    canvas = viz.draw_bounding_boxes(canvas, gt)
+            viz.save_image(
+                canvas, os.path.join(out_dir, f"mb_{self._epoch}_{self._cur}_{int(idx)}.png"))

@@ -310,7 +310,7 @@ def check_supported(cfg: Config, training: bool = False) -> None:
         problems.append(f"COMPUTE_DTYPE {cfg.compute_dtype!r}")
     if cfg.mesh.model > 1 or cfg.mesh.spatial:
         problems.append(f"MESH.MODEL {cfg.mesh.model} / MESH.SPATIAL {cfg.mesh.spatial} "
-                        "(tensor and spatial parallelism: ROADMAP A5b)")
+                        "(tensor and spatial parallelism: ROADMAP A4)")
     if problems:
         raise NotImplementedError("not ported: " + ", ".join(problems))
 
@@ -778,16 +778,16 @@ class FasterRCNN(nn.Module):
             _rois, _scores, valid, src = self._propose_batch(rpn_out, anchors, window, "train")
         return src, valid
 
-    def second_stage_train(
-        self, feat, rpn_out, grids, window, proposal_src, proposal_valid,
+    def sample_rois(
+        self, rpn_out, grids, window, proposal_src, proposal_valid,
         gt_boxes, gt_mask, gt_boxes_dc, dc_mask, draws: TrainDraws,
-    ) -> Tuple[Dict[str, torch.Tensor], ProposalTargets]:
-        """Second stage on given proposal lanes: their boxes, rebuilt from
-        the RPN deltas (the gradient path of the JAX package's proposals),
-        plus the GT boxes with TRAIN.USE_GT; RoI sampling and targets; the
-        RoI head; the classification and box losses.  grids: the train-phase
-        (BEV, 3D) anchor grids; for lidar each proposal's 3D anchor is its
-        lane's, an appended GT box's its true 7-DoF box."""
+    ) -> ProposalTargets:
+        """The second stage's RoIs and targets on given proposal lanes:
+        their boxes, rebuilt from the RPN deltas (the gradient path of the
+        JAX package's proposals), plus the GT boxes with TRAIN.USE_GT; RoI
+        sampling and targets.  grids: the train-phase (BEV, 3D) anchor
+        grids; for lidar each proposal's 3D anchor is its lane's, an
+        appended GT box's its true 7-DoF box."""
         c = self.cfg
         lidar = c.net_type == "lidar"
         anchors, anchors_3d = grids
@@ -815,7 +815,7 @@ class FasterRCNN(nn.Module):
             )
         device = rois.device
         tc = c.train
-        pt = proposal_target(
+        return proposal_target(
             rois, valid, gt_bev, gt_mask, gt_boxes_dc, dc_mask, draws.roi_fg, draws.roi_bg,
             torch.tensor(tc.lidar_bbox_normalize_means if lidar else tc.image_bbox_normalize_means,
                          device=device),
@@ -828,6 +828,17 @@ class FasterRCNN(nn.Module):
             dc_thresh=tc.dc_thresh, anchors_3d=roi_a3d,
             true_gt_boxes=gt_boxes if lidar else None,
         )
+
+    def second_stage_train(
+        self, feat, rpn_out, grids, window, proposal_src, proposal_valid,
+        gt_boxes, gt_mask, gt_boxes_dc, dc_mask, draws: TrainDraws,
+    ) -> Tuple[Dict[str, torch.Tensor], ProposalTargets]:
+        """Second stage on given proposal lanes: sample_rois, the RoI head,
+        the classification and box losses."""
+        c = self.cfg
+        lidar = c.net_type == "lidar"
+        pt = self.sample_rois(rpn_out, grids, window, proposal_src, proposal_valid, gt_boxes,
+                              gt_mask, gt_boxes_dc, dc_mask, draws)
         det = self.roi_head(feat, pt.rois)
         b, s = pt.labels.shape
         uc = c.uc
@@ -899,9 +910,12 @@ class FasterRCNN(nn.Module):
         )
         return losses, TrainAux(at, src, valid, pt)
 
-    def forward(self, *args, method: str = "forward_train", **kwargs):
-        """`method` (forward_train or forward_test) on the arguments: the
-        entry torch.func.functional_call reaches (training.solver)."""
+    def forward(self, *args, method="forward_train", **kwargs):
+        """`method` (forward_train or forward_test, or a function of the
+        model) on the arguments: the entry torch.func.functional_call
+        reaches (training.solver)."""
+        if callable(method):
+            return method(self, *args, **kwargs)
         return getattr(self, method)(*args, **kwargs)
 
     def classify_rois(

@@ -8,7 +8,7 @@ place, and a rank's contiguous row block of the global batch takes
 NamedSharding's.  What the SPMD program made global is made global by hand
 (mesh.py): the live-BN statistics, the weighted losses' denominators, the
 random draws and the gradient sum.  The `model` axis (tensor and spatial
-parallelism) is not ported (ROADMAP A5b): MESH.MODEL > 1 and MESH.SPATIAL
+parallelism) is not ported (ROADMAP A4): MESH.MODEL > 1 and MESH.SPATIAL
 raise in models.detector.check_supported.
 """
 

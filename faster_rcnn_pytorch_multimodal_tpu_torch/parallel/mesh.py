@@ -43,7 +43,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
 
 NOT_PORTED = ("MESH.MODEL > 1 and MESH.SPATIAL (tensor and spatial parallelism) are not "
-              "ported: ROADMAP A5b")
+              "ported: ROADMAP A4")
 
 
 def local_batch_rows(process_index: int, process_count: int, batch_size: int) -> slice:
@@ -302,8 +302,8 @@ def any_rank(flag: bool, dp: Optional[DataParallel]) -> bool:
 
 def check_same_shape(shape: Sequence[int], dp: Optional[DataParallel], what: str) -> None:
     """Raise unless every rank holds `shape`: live BN's statistics and the
-    draws' row blocks assume shards of one shape (the loader pads an image
-    batch to its own rows' largest frame)."""
+    draws' row blocks assume shards of one shape (a rank's loader pads an
+    image batch to the largest frame over the ranks: max_over_ranks)."""
     if dp is None:
         return
     v = [int(s) for s in shape]
@@ -312,6 +312,16 @@ def check_same_shape(shape: Sequence[int], dp: Optional[DataParallel], what: str
     if t[: len(v)].tolist() != v or (-t[len(v):]).tolist() != v:
         raise RuntimeError(f"rank {dp.rank}: {what} {tuple(v)} differs between the ranks "
                            f"(largest {tuple(t[: len(v)].tolist())})")
+
+
+def max_over_ranks(values: Sequence[int], dp: Optional[DataParallel]) -> List[int]:
+    """Host integers, each the largest over the ranks (the values with one
+    process)."""
+    if dp is None:
+        return [int(v) for v in values]
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=dp.host_group)
+    return [int(v) for v in t.tolist()]
 
 
 def host_sum(values: Sequence[float], dp: Optional[DataParallel]) -> List[float]:

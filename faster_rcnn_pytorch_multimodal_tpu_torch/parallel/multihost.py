@@ -8,7 +8,7 @@ a process; the environment contract is torchrun's:
   MASTER_PORT for the default env:// rendezvous, or DP_INIT_METHOD naming
   another one (e.g. file:///path/to/a/new/file, tcp://host:port).
 A rank assembles only its rows of the global batch, which every rank's
-sampler draws alike (data.loader.BatchLoader(rows=local_batch_rows(...))),
+sampler draws alike (data.loader.BatchLoader(dp=...), its rows local_batch_rows),
 so no global array is ever stitched: JAX's `global_batch` has no
 counterpart.
 
@@ -201,7 +201,7 @@ def worker_main(argv=None) -> None:
         ref = copy.deepcopy(model)
         mesh.broadcast_parameters_(model, dp)
         local = batch_to_device(BatchLoader(ds, cfg, batch_size, device=dp.device, seed=0,
-                                            rows=dp.rows(batch_size)).next(), dp.device)
+                                            dp=dp).next(), dp.device)
         step = make_train_step(model, DetectorSGD(model, cfg, dp=dp), dp)
         losses, _ = step(local, draw_train_keys(model, local, step_generator(0, 0, dp.device), dp))
 

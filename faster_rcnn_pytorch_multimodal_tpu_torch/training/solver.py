@@ -57,6 +57,7 @@ import re
 import shutil
 import signal
 import time
+from functools import partial
 from typing import Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
@@ -110,11 +111,13 @@ def cast_for_compute(model: FasterRCNN) -> Dict[str, torch.Tensor]:
             for k, v in named}
 
 
-def compute_call(model: FasterRCNN, method: str, *args, **kwargs):
-    """model.<method>(*args, **kwargs) in cfg.compute_dtype: on the float32
-    model as it is, else through functional_call on cast_for_compute."""
+def compute_call(model: FasterRCNN, method, *args, **kwargs):
+    """model.<method>(*args, **kwargs) (or method(model, *args, **kwargs)
+    for a function) in cfg.compute_dtype: on the float32 model as it is,
+    else through functional_call on cast_for_compute."""
     if model.compute_dtype == torch.float32:
-        return getattr(model, method)(*args, **kwargs)
+        fn = getattr(model, method) if isinstance(method, str) else partial(method, model)
+        return fn(*args, **kwargs)
     return torch.func.functional_call(
         model, cast_for_compute(model), args, dict(kwargs, method=method))
 
@@ -224,6 +227,7 @@ def train(
     on_step: Optional[Callable[[int, Dict[str, float], float], Optional[bool]]] = None,
     first_step: int = 0,
     dp: Optional[DataParallel] = None,
+    first_batch: Optional[Callable[[Dict[str, object]], None]] = None,
 ) -> Dict[str, List]:
     """Run `iters` steps, numbered from first_step: loader batch -> H2D ->
     draws -> step.  `generator` gives the draws: one generator for every
@@ -233,8 +237,9 @@ def train(
     milliseconds, and with `dp` (a rank of a data-parallel run: the loader
     gives its rows, the optimizer sums over its ranks) each step's
     gradient all-reduce ms (`reduce_ms`); on_step(i, losses, ms) is called
-    after step i, and when it returns True the loop ends there.  The model
-    is put in train mode."""
+    after step i, and when it returns True the loop ends there;
+    first_batch(batch) is called with the first step's device batch before
+    that step (inside its timing).  The model is put in train mode."""
     device = model_device(model)
     model.train()
     step = make_train_step(model, optimizer, dp)
@@ -245,6 +250,8 @@ def train(
         timer.start()
         batch = batch_to_device(host, device)
         mesh.check_same_shape(batch["data"].shape, dp, "the batch's data shape")
+        if first_batch is not None and i == first_step:
+            first_batch(batch)
         gen = generator(i) if callable(generator) else generator
         losses, _ = step(batch, draw_train_keys(model, batch, gen, dp))
         ms = timer.stop()
@@ -408,6 +415,7 @@ class Solver:
         self.seed = cfg.rng_seed if seed is None else seed
         self.pretrained_path = pretrained_path
         self.dp = dp
+        self.debug_draws: Dict[str, str] = {}
         self.is_main = dp is None or dp.is_main
         self.device = model_device(model)
         out = os.path.abspath(output_dir)
@@ -501,10 +509,28 @@ class Solver:
         print(f"preloaded mode={mode} scopes={keep} from {path}")
         return keys
 
-    def _debug_draws(self) -> None:
-        raise NotImplementedError(
-            "Solver: DEBUG.DRAW_ANCHORS, DRAW_ANCHOR_T and DRAW_PROPOSAL_T are not ported "
-            "(utils/debug_draw.py)")
+    def _debug_draws(self, batch) -> Dict[str, str]:
+        """The DEBUG.DRAW_* switches on the first batch of train, with the
+        weights of its step (JAX solver.py:341-358), into
+        output_dir/debug_draws; data-parallel: rank 0 draws its rows.
+        Returns the PNGs written by switch."""
+        from faster_rcnn_pytorch_multimodal_tpu_torch.utils import debug_draw as dd
+
+        cfg = self.cfg
+        out_dir = os.path.join(self.output_dir, "debug_draws")
+        written = {}
+        if not self.is_main:
+            return written
+        if cfg.debug.draw_anchors:
+            written["DRAW_ANCHORS"] = dd.draw_anchors(cfg, batch, out_dir)
+        if cfg.debug.draw_anchor_t:
+            written["DRAW_ANCHOR_T"] = dd.draw_anchor_targets(cfg, batch, out_dir)
+        if cfg.debug.draw_proposal_t:
+            written["DRAW_PROPOSAL_T"] = dd.draw_proposal_targets(cfg, self.model, batch, out_dir)
+        for k, v in written.items():
+            print(f"DEBUG.{k} -> {v}")
+        self.debug_draws = written
+        return written
 
     # -- the val cycle --------------------------------------------------------
 
@@ -603,8 +629,6 @@ class Solver:
             print("WARNING: training from scratch with RESNET.FIXED_BLOCKS="
                   f"{cfg.resnet.fixed_blocks} >= 0: frozen random BN affines will not train. "
                   "Set FIXED_BLOCKS=-1 or preload weights.")
-        if cfg.debug.draw_anchors or cfg.debug.draw_anchor_t or cfg.debug.draw_proposal_t:
-            self._debug_draws()
         # one replica: rank 0's weights (a random init, a restore or a
         # preload are the same on every rank; this makes sure of it)
         mesh.broadcast_parameters_(self.model, dp)
@@ -643,8 +667,10 @@ class Solver:
 
         self.train_loader.start(transfer=lambda b: batch_to_device(b, self.device))
         try:
+            draws = cfg.debug.draw_anchors or cfg.debug.draw_anchor_t or cfg.debug.draw_proposal_t
             res = train(self.model, self.optimizer, self.train_loader, max(max_iters - start, 0),
-                        lambda i: step_generator(self.seed, i, self.device), on_step, start, dp)
+                        lambda i: step_generator(self.seed, i, self.device), on_step, start, dp,
+                        first_batch=self._debug_draws if draws else None)
         finally:
             self.train_loader.kill()
             killer.restore()

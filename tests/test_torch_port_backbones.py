@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_port_threads import two_threads  # noqa: E402, F401
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -77,16 +78,6 @@ HALF = ("MOBILENET.DEPTH_MULTIPLIER", "0.5")
 CASES = {"vgg16-image": IMAGE + VGG, "mobile-image": IMAGE + MOBILE,
          "vgg16-bev": BEV + VGG, "mobile-bev": BEV + MOBILE + HALF}
 PLAIN_BN = ("bn0", "dw_bn", "pw_bn")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads: beside the other test processes a thread pool
-    a process oversubscribes the cores (test_torch_port_solver.one_thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _clipped_normal(w, std, g):

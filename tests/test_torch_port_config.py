@@ -5,6 +5,7 @@ against the JAX original on the same inputs (CPU)."""
 from __future__ import annotations
 
 import dataclasses
+import os
 from functools import partial
 
 import numpy as np
@@ -66,18 +67,16 @@ def test_cli_builds_the_jax_cli_config():
         "DB_NAME", "synthetic", "TEST.RPN_POST_NMS_TOP_N", "300"))
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert args.device == "cuda"
-    # the real databases go to the registry: kitti, waymo and cadc need
-    # their tree under DATA_DIR (FileNotFoundError, as in JAX), the
-    # databases still to port raise, an unknown name is a KeyError
+    # the real databases go to the registry: each needs its tree under
+    # DATA_DIR (FileNotFoundError, as in JAX); an unknown name (JAX calls
+    # VOC `voc`) is a KeyError
     missing = t_config.cfg_from_list(got, ("DATA_DIR", "/nonexistent/data"))
-    for name in ("waymo", "kitti", "cadc"):
+    for name in ("waymo", "kitti", "cadc", "nuscenes", "voc_2007_trainval", "coco_2017"):
         with pytest.raises(FileNotFoundError):
             cli.build_dataset(missing, name, "val")
-    for name in ("nuscenes", "voc_2007_trainval", "pascal", "coco_2017"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    for name in ("imaginary", "pascal"):
+        with pytest.raises(KeyError, match="available"):
             cli.build_dataset(got, name, "val")
-    with pytest.raises(KeyError, match="available"):
-        cli.build_dataset(got, "imaginary", "val")
 
 
 @pytest.mark.parametrize("net_type", ["image", "lidar"])
@@ -146,13 +145,36 @@ def test_loader_batches_equal(net_type, augment):
                 np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_loader_refuses_what_is_not_ported():
-    cfg = t_config.cfg_from_list(t_config.default_config(), ("NET_TYPE", "image"))
-    db = t_synth.SyntheticDataset(cfg, num_frames=2, image_hw=(32, 32))
-    t_loader.BatchLoader(db, cfg, 2, device="cpu", workers=2)  # worker processes are ported
-    drawing = t_config.cfg_from_list(cfg, ("DEBUG.DRAW_MINIBATCH", "True"))
-    with pytest.raises(NotImplementedError):
-        t_loader.BatchLoader(db, drawing, 2, device="cpu")
+def test_loader_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Nothing of the loader is refused any more: worker processes are
+    ported, and DEBUG.DRAW_MINIBATCH draws each frame of a batch (image and
+    BEV) with its GT into debug/minibatch_draws, pixel for pixel as JAX's
+    loader does."""
+    from PIL import Image
+
+    for net_type in ("image", "lidar"):
+        over = ("NET_TYPE", net_type, "DEBUG.DRAW_MINIBATCH", "True", "TRAIN.SCALES",
+                "(0.25,)", "STATIC.MAX_POINTS", "4096")
+        cfg = t_config.cfg_from_list(t_config.default_config(), over)
+        jcfg = j_config.cfg_from_list(j_config.default_config(), over)
+        db = t_synth.SyntheticDataset(cfg, num_frames=2, image_hw=(32, 48))
+        t_loader.BatchLoader(db, cfg, 2, device="cpu", workers=2)  # workers are ported
+        out = {side: tmp_path / net_type / side for side in ("port", "jax")}
+        for side, d in out.items():
+            d.mkdir(parents=True)
+            monkeypatch.chdir(d)
+            if side == "port":
+                t_loader.BatchLoader(db, cfg, 2, device="cpu", seed=0).next()
+            else:
+                jdb = j_synth.SyntheticDataset(jcfg, num_frames=2, image_hw=(32, 48))
+                j_loader.BatchLoader(jdb, jcfg, 2, seed=0).next()
+        names = sorted(os.listdir(out["jax"] / "debug" / "minibatch_draws"))
+        assert len(names) == 2
+        assert sorted(os.listdir(out["port"] / "debug" / "minibatch_draws")) == names
+        for n in names:
+            got, want = (np.asarray(Image.open(d / "debug" / "minibatch_draws" / n))
+                         for d in (out["port"], out["jax"]))
+            np.testing.assert_array_equal(got, want, err_msg=f"{net_type} {n}")
 
 
 def _eval_case(eval_type, rng):
@@ -188,3 +210,38 @@ def test_evaluate_class_equals_the_jax_eval(eval_type):
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert 0 < want["tp"] < len(dets)
+
+
+def test_pad_frames_numpy_and_tensor_alike():
+    """loader.pad_frames (a rank's rows padded to the ranks' largest frame)
+    pads a numpy batch and a tensor batch alike, with the loader's own
+    fill: the mean pixel for uint8 frames, zero else; what the loader pads
+    a batch of mixed sizes to in one process."""
+    cfg = t_config.cfg_from_list(t_config.default_config(), ("NET_TYPE", "image"))
+    rng = np.random.RandomState(0)
+    for data in (rng.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8),
+                 rng.randn(2, 64, 96, 3).astype(np.float32)):
+        got = t_loader.pad_frames(data, 128, 192, cfg)
+        assert got.shape == (2, 128, 192, 3) and got.dtype == data.dtype
+        np.testing.assert_array_equal(got[:, :64, :96], data)
+        np.testing.assert_array_equal(got[:, 64:, :], t_loader.pad_value(cfg, data.dtype, 3)
+                                      * np.ones((2, 64, 192, 3), data.dtype))
+        np.testing.assert_array_equal(
+            t_loader.pad_frames(torch.from_numpy(data), 128, 192, cfg).numpy(), got)
+
+    class Mixed:  # a 64x96 and a 128x160 frame: the loader pads both to 128x192
+        def __init__(self, sizes):
+            self.parts = [t_synth.SyntheticDataset(cfg, num_frames=2, image_hw=hw, seed=i)
+                          for i, hw in enumerate(sizes)]
+
+        def __len__(self):
+            return 2
+
+        def frame(self, i, **kw):
+            return self.parts[i].frame(i, **kw)
+
+    batch = t_loader.BatchLoader(Mixed([(64, 96), (128, 160)]), cfg, 2, device="cpu",
+                                 shuffle=False).next()
+    assert batch["data"].shape == (2, 128, 192, 3)
+    np.testing.assert_array_equal(batch["data"][0, 64:], t_loader.pad_value(cfg, np.uint8, 3)
+                                  * np.ones((64, 192, 3), np.uint8))

@@ -1,7 +1,9 @@
-"""The port's KITTI, Waymo and CADC databases against the JAX package's, on
-the JAX tests' own fixture trees (tests/test_datasets.py `_make_kitti_tree`,
-`_make_waymo_tree`, tests/test_cadc.py `_make_cadc_tree`; image files and a
-val split added here where a test needs them).
+"""The port's KITTI, Waymo, CADC, Pascal VOC, COCO and nuScenes databases
+against the JAX package's, on the JAX tests' own fixture trees
+(tests/test_datasets.py `_make_kitti_tree`, `_make_waymo_tree`,
+tests/test_cadc.py `_make_cadc_tree`, tests/test_voc_coco.py's `voc_root`
+and `coco_root`, tests/test_nuscenes.py's `_make_nusc_tree`; image files
+and a val split added here where a test needs them).
 
 Each package gets its own CACHE_DIR: the roidb is pickled there on the
 first read, and a shared cache would hand JAX's roidb to the port.  Every
@@ -28,6 +30,8 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.config import default_config as t_
 from faster_rcnn_pytorch_multimodal_tpu_torch.data.datasets import get_db as t_get_db
 from tests.test_cadc import _make_cadc_tree
 from tests.test_datasets import _make_kitti_tree, _make_waymo_tree
+from tests.test_nuscenes import _ann, _make_nusc_tree
+from tests.test_voc_coco import _write_png, coco_root, voc_root
 
 SEEDS = (0, 1, 2, 3)
 
@@ -275,12 +279,126 @@ def test_kitti_and_cadc_utils_equal_jax(tmp_path):
 
 
 def test_registry_names():
+    """Every JAX database is registered: without its tree each raises
+    FileNotFoundError, as JAX's does; an unknown name (JAX registers VOC as
+    `voc`, not `pascal`) is a KeyError naming the choices."""
     cfg = t_cfg_from_list(t_default_config(), ("DATA_DIR", "/nonexistent"))
-    with pytest.raises(KeyError, match="available"):
-        t_get_db("imaginary", cfg, "train")
-    for name in ("nuscenes", "voc_2007_trainval", "pascal_voc", "coco"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    jcfg = j_cfg_from_list(j_default_config(), ("DATA_DIR", "/nonexistent"))
+    for name in ("imaginary", "pascal_voc"):
+        with pytest.raises(KeyError, match="available"):
             t_get_db(name, cfg, "train")
-    for name in ("kitti", "waymo", "cadc"):
-        with pytest.raises(FileNotFoundError, match=name):
+        with pytest.raises(KeyError, match="available"):
+            j_get_db(name, jcfg, "train")
+    for name, says in (("kitti", "kitti"), ("waymo", "waymo"), ("cadc", "cadc"),
+                       ("nuscenes", "nuscenes"), ("voc_2007_trainval", "VOC"),
+                       ("coco", "COCO")):
+        with pytest.raises(FileNotFoundError, match=says):
             t_get_db(name, cfg, "train")
+
+
+# -- Pascal VOC, COCO and nuScenes (tests/test_voc_coco.py, tests/test_nuscenes.py) --
+
+# the annotations of tests/test_nuscenes.py's cases, on one sample: the
+# projection, a subtype remap, a box behind the camera, the visibility and
+# lidar-point filters, a dontcare region, a sliver car, occlusion and a
+# yawed box
+_NUSC_ANNS = [
+    _ann("a1", "vehicle.car", [0.0, 0.0, 10.0], [2.0, 4.5, 1.6]),
+    _ann("a2", "human.pedestrian.adult", [6.0, 0.0, 12.0], [0.6, 0.6, 1.8]),
+    _ann("a3", "vehicle.car", [0.0, 0.0, -15.0], [2.0, 4.5, 1.6]),
+    _ann("a4", "vehicle.car", [3.0, 0.0, 10.0], [2.0, 4.5, 1.6], vis="1"),
+    _ann("a5", "vehicle.car", [-3.0, 0.0, 10.0], [2.0, 4.5, 1.6], pts=0),
+    _ann("a6", "movable_object.barrier", [1.0, 1.0, 8.0], [2.0, 2.0, 1.0]),
+    _ann("a7", "vehicle.car", [5.0, 0.0, 40.0], [0.5, 0.5, 8.0]),
+    _ann("a8", "vehicle.car", [0.0, 0.0, 30.0], [1.8, 4.0, 1.5]),
+    _ann("a9", "vehicle.car", [-6.0, 0.5, 30.0], [2.0, 4.5, 1.6],
+         rotation=[0.5 ** 0.5, 0.0, 0.5 ** 0.5, 0.0]),
+    _ann("a11", "vehicle.bicycle", [-4.0, 0.5, 12.0], [0.6, 1.8, 1.2]),
+    _ann("a10", "vehicle.emergency.police", [-8.0, 0.0, 20.0], [2.0, 4.5, 1.6]),
+]
+
+
+def _image_db_tree(name, tmp_path):
+    """The JAX tests' trees: test_voc_coco's VOC and COCO fixtures (64x96
+    frames), test_nuscenes's tree with _NUSC_ANNS (and a 90x160 image for
+    its one frame); VOC and COCO with a val split, a copy of the train one."""
+    if name == "voc_2007":
+        root = voc_root.__wrapped__(tmp_path)
+        main = os.path.join(root, "VOCdevkit2007", "VOC2007", "ImageSets", "Main")
+        shutil.copy(os.path.join(main, "trainval.txt"), os.path.join(main, "val.txt"))
+        return root
+    if name == "coco_2014":
+        root = coco_root.__wrapped__(tmp_path)
+        ann = os.path.join(root, "coco", "annotations")
+        shutil.copy(os.path.join(ann, "instances_train2014.json"),
+                    os.path.join(ann, "instances_val2014.json"))
+        return root
+    root = _make_nusc_tree(str(tmp_path), _NUSC_ANNS)
+    _write_png(os.path.join(root, "nuscenes", "samples", "CAM_FRONT", "f1.jpg"), 90, 160)
+    return root
+
+
+@pytest.mark.parametrize("name", ["voc_2007", "coco_2014", "nuscenes"])
+@pytest.mark.parametrize("mode", ["train", "val"])
+def test_image_db_roidb_equals_jax(tmp_path, name, mode):
+    """get_db builds each database on the JAX tests' seeded trees, and its
+    roidb equals JAX's field by field, bitwise."""
+    jdb, tdb = _dbs(name, _image_db_tree(name, tmp_path), mode, "NET_TYPE", "image")
+    _roidb_equal(jdb, tdb)
+    assert tdb.num_classes == {"voc_2007": 21, "coco_2014": 3, "nuscenes": 4}[name]
+
+
+@pytest.mark.parametrize("name", ["voc_2007", "coco_2014", "nuscenes"])
+def test_image_db_frames_equal_jax(tmp_path, name):
+    """The frames (cv2's decode, flips, the image augmentation, a scale)
+    equal JAX's bitwise for seeds 0-3."""
+    pytest.importorskip("cv2")
+    jdb, tdb = _dbs(name, _image_db_tree(name, tmp_path), "train", "NET_TYPE", "image")
+    for i in range(len(jdb)):
+        _frame_equal(tdb.frame(i, augment=False), jdb.frame(i, augment=False), f"{name} {i}")
+        _frame_equal(tdb.frame(i, augment=True, rng=np.random.RandomState(0), scale=0.5),
+                     jdb.frame(i, augment=True, rng=np.random.RandomState(0), scale=0.5),
+                     f"{name} {i} at scale 0.5")
+        for seed in SEEDS:
+            _frame_equal(tdb.frame(i, augment=True, rng=np.random.RandomState(seed)),
+                         jdb.frame(i, augment=True, rng=np.random.RandomState(seed)),
+                         f"{name} frame {i} seed {seed}")
+
+
+def _image_db_dets(db, rng):
+    """Per-class detections near, on and off each GT box of the roidb, with
+    a duplicate a box, and each class's GT by frame."""
+    dets = {j: [] for j in range(1, db.num_classes)}
+    gts = {}
+    for entry in db.roidb:
+        fid = entry["frame_id"]
+        for j in range(1, db.num_classes):
+            boxes = entry["boxes"][entry["gt_classes"] == j]
+            gts.setdefault(j, {})[fid] = {"boxes": boxes}
+            for b in boxes:
+                for shift in (0.0, 2.0, 9.0):
+                    dets[j].append({
+                        "frame_id": fid, "bbox": b + rng.uniform(-shift, shift, 4),
+                        "confidence": float(rng.uniform())})
+    return dets, gts
+
+
+@pytest.mark.parametrize("name", ["voc_2007", "coco_2014", "nuscenes"])
+def test_image_db_eval_equals_jax(tmp_path, name):
+    """evaluate_detections through the port's eval_utils gives JAX's APs:
+    VOC's 11-point 2007 metric (and voc_eval.txt byte for byte), COCO's AP50
+    and AP@[.5:.95] over ten IoU thresholds (and coco_eval.txt), nuScenes'
+    VOC-style AP a class."""
+    jdb, tdb = _dbs(name, _image_db_tree(name, tmp_path), "val", "NET_TYPE", "image")
+    dets, gts = _image_db_dets(jdb, np.random.RandomState(3))
+    if name == "nuscenes":
+        frames = {e["frame_id"]: {"boxes": e["boxes"]} for e in jdb.roidb}
+        want = jdb.evaluate_detections(dets, frames, str(tmp_path / "jax"))
+        got = tdb.evaluate_detections(dets, frames, str(tmp_path / "port"))
+    else:
+        want = jdb.evaluate_detections(dets, gts, str(tmp_path / "jax"))
+        got = tdb.evaluate_detections(dets, gts, str(tmp_path / "port"))
+        txt = "voc_eval.txt" if name == "voc_2007" else "coco_eval.txt"
+        with open(tmp_path / "jax" / txt) as f, open(tmp_path / "port" / txt) as g:
+            assert g.read() == f.read()
+    assert got == want and any(v for v in want.values()), (got, want)

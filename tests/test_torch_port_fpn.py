@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_port_threads import two_threads  # noqa: E402, F401
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 

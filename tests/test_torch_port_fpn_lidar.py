@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_port_threads import two_threads  # noqa: E402, F401
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -43,16 +44,6 @@ from tests.test_torch_port_uc import _cfgs, _shared_variables, _t  # noqa: E402
 
 B, K = 2, 2
 FPN_BEV = BEV + ("NET_VARIANT", "res18", "USE_FPN", "True", "POOLING_MODE", "multiscale")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads: beside the other test processes a thread pool
-    a process oversubscribes the cores (test_torch_port_solver.one_thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _variables(tcfg):

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_port_threads import two_threads  # noqa: E402, F401
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -80,16 +81,6 @@ FPN_UC = IMAGE + ("USE_FPN", "True", "POOLING_MODE", "multiscale",
                   "ANCHOR_SCALES", "[2,4]", "ANCHOR_RATIOS", "[0.5,1,2]")
 LOSSES = ("rpn_cross_entropy", "rpn_loss_box", "cross_entropy", "loss_box", "a_mutual_info")
 SERVING_TOL = 5e-5  # of max|x|; see the module docstring
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads: beside the other test processes a thread pool
-    a process oversubscribes the cores (test_torch_port_solver.one_thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _variables(tcfg):

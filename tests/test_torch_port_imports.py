@@ -69,7 +69,9 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 for path in ({tools!r} + "/test_net_torch.py", {tools!r} + "/trainval_net_torch.py",
              {tools!r} + "/demo_torch.py", {tools!r} + "/reval_torch.py",
              {tools!r} + "/quality_run_torch.py", {tools!r} + "/convert_from_tensorflow_torch.py",
-             {repo!r} + "/chip_smoke.py"):
+             {tools!r} + "/profile_step_torch.py", {tools!r} + "/diag_bev_overfit_torch.py",
+             {tools!r} + "/visualize_sample_torch.py", {tools!r} + "/cls_uncertainty_vis_torch.py",
+             {tools!r} + "/demo_all_bboxes_torch.py", {repo!r} + "/chip_smoke.py"):
     spec = importlib.util.spec_from_file_location("mod_" + str(len(names)), path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     names.append(path)

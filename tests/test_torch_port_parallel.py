@@ -11,9 +11,11 @@ rtol 1e-5 (atol 1e-6), tests/test_data_parallel.py's for JAX's 8-device
 mesh; the running statistics within rtol 1e-5 (atol 1e-7); the sampled
 labels and the replicas' checksums equal.
 
-Once against JAX: the 2-rank live-BN step (res18, every BN scale, bias and
+Twice against JAX: the 2-rank live-BN step (res18, every BN scale, bias and
 running statistic randomized as tests/test_torch_port_live_bn.py does; the
-"live" case's frames) against JAX's jitted step on a 2-device mesh of the 8
+"live" case's frames, then the "mixed" case's global batch of a 64x96 and
+a 128x160 frame, JAX's step on the globally padded batch, each rank's
+loader padding its row to it) against JAX's jitted step on a 2-device mesh of the 8
 virtual CPU devices (tests/conftest.py).  One jit on the mesh gives JAX's
 losses, gradients, the running statistics its forward_train leaves, its
 train-mode proposal lanes, the intermediates the ReLU ties are read from
@@ -118,15 +120,15 @@ def _save_whole(obj, path):
     os.replace(path + ".tmp", path)
 
 
-def _jax_side(path):
-    """JAX's mesh step on the "live" case with randomized BN, and the ranks'
+def _jax_side(path, case=CASE):
+    """JAX's mesh step on `case` (live BN) with randomized BN, and the ranks'
     inputs for it written to `path` (renamed into place: the ranks wait for
     it).  Returns what the test compares the ranks with."""
-    cfg, tcfg = j_cfg_from_list(j_default(), R.CASES[CASE]), R.config(CASE)
-    port = R.model_for(tcfg, CASE)
+    cfg, tcfg = j_cfg_from_list(j_default(), R.CASES[case]), R.config(case)
+    port = R.model_for(tcfg, case)
     variables = _randomize_bn(to_flax_variables(port.state_dict(), live_bn=True), seed=0)
     load_flax_variables(port, variables)
-    batch = {k: v for k, v in R.global_batch(tcfg, CASE).items() if not k.startswith("_")}
+    batch = {k: v for k, v in R.global_batch(tcfg, case).items() if not k.startswith("_")}
     step_rng = jax.random.fold_in(jax.random.PRNGKey(3), jnp.int32(0))
     losses, g, stats, inter, lanes, new_params = _jax_mesh_step(cfg, variables, batch, step_rng)
     _rois, _a3d, valid, src = (np.asarray(a) for a in lanes)
@@ -138,7 +140,7 @@ def _jax_side(path):
         jx = _jax_site(inter, site, residual)
         sites[(site, residual)] = np.ascontiguousarray(
             np.transpose(jx, (0, 3, 1, 2)) if jx.ndim == 4 else jx)  # the port's NCHW
-    _save_whole({"case": CASE, "state": port.state_dict(), "batch": batch,
+    _save_whole({"case": case, "state": port.state_dict(), "batch": batch,
                  "draws": tuple(draws), "lanes": pin, "sites": sites}, path)
     key = flax_path_to_torch_key
     return dict(
@@ -181,13 +183,19 @@ def runs(tmp_path_factory):
     them) and in this one the one-process steps, the unequal case's local
     means and the one-process Solver run."""
     out = str(tmp_path_factory.mktemp("dp_ranks"))
-    jax_path = os.path.join(out, R.JAX_INPUTS)
+    jax_paths = {c: os.path.join(out, name) for c, name in (
+        (CASE, R.JAX_INPUTS), ("mixed", R.JAX_MIXED_INPUTS))}
 
     def jax_side():
+        done = {}
         try:
-            return _jax_side(jax_path)
-        except BaseException:  # the ranks wait for the file: let them go on
-            _save_whole({"error": "the JAX side failed"}, jax_path)
+            for case, path in jax_paths.items():
+                done[case] = _jax_side(path, case)
+            return done
+        except BaseException:  # the ranks wait for the files: let them go on
+            for case, path in jax_paths.items():
+                if case not in done:
+                    _save_whole({"error": "the JAX side failed"}, path)
             raise
 
     ranks = _background(spawn_ranks, R.step_cases, 2, out, R.STEP_CASES + ("jax", "solver"),
@@ -213,9 +221,11 @@ def runs(tmp_path_factory):
                   for r in range(2)] for case in R.STEP_CASES}
     solver = [torch.load(os.path.join(out, f"solver_{r}.pt"), weights_only=False)
               for r in range(2)]
-    jax_run["ranks"] = [torch.load(f"{jax_path}.{r}", weights_only=False) for r in range(2)]
+    for case, path in jax_paths.items():
+        jax_run[case]["ranks"] = [torch.load(f"{path}.{r}", weights_only=False)
+                                  for r in range(2)]
     return dict(out=out, refs=refs, got=got, naive=naive, one=one["history"], one_val=one_val,
-                solver=solver, jax=jax_run)
+                solver=solver, jax=jax_run[CASE], jax_mixed=jax_run["mixed"])
 
 
 def _close_losses(got, want, what):
@@ -223,12 +233,15 @@ def _close_losses(got, want, what):
         np.testing.assert_allclose(got[k], v, **LOSS_TOL, err_msg=f"{what}: loss {k}")
 
 
-@pytest.mark.parametrize("case", ["frozen", "live", "uc", "bev", "fpn"])
+@pytest.mark.parametrize("case", ["frozen", "live", "uc", "bev", "fpn", "mixed"])
 def test_two_ranks_equal_one_process(runs, case):
     """(i) frozen C4, (ii) live-BN C4 with its running statistics, (iv)
     every UC flag with the dropout masks and normals split by rows, (v) BEV
-    (K3, K1, K2 through their twins), (vi) FPN: the 2-rank step equals the
-    one-process step on the same global batch."""
+    (K3, K1, K2 through their twins), (vi) FPN, (x) live BN on frames of
+    two sizes, each rank's own frames of another size (each rank's loader
+    pads to the global batch's bucket, serially, in its prefetch thread and
+    in a worker: torch_parallel_ranks.mixed_loaders): the 2-rank step
+    equals the one-process step on the same global batch."""
     want, (r0, r1) = runs["refs"][case], runs["got"][case]
     _close_losses(r0["losses"], want["losses"], case)
     assert r1["losses"] == r0["losses"], "every rank reports the same global losses"
@@ -236,7 +249,7 @@ def test_two_ranks_equal_one_process(runs, case):
         np.testing.assert_allclose(r0["params"][k].numpy(), v.numpy(), **PARAM_TOL,
                                    err_msg=f"{case}: updated {k}")
     assert want["stats"].keys() == r0["stats"].keys()
-    assert bool(want["stats"]) == (case in ("live", "uc", "bev"))
+    assert bool(want["stats"]) == (case in ("live", "uc", "bev", "mixed"))
     for k, v in want["stats"].items():
         np.testing.assert_allclose(r0["stats"][k].numpy(), v.numpy(), **STAT_TOL,
                                    err_msg=f"{case}: running statistic {k}")
@@ -293,7 +306,19 @@ def test_two_ranks_equal_jax_mesh_step(runs):
     """Losses, every trainable leaf's summed gradient, the running
     statistics and the update of the 2-rank live-BN step against JAX's
     step on its 2-device mesh."""
-    jax_run = runs["jax"]
+    _check_jax_mesh_step(runs["jax"])
+
+
+def test_mixed_frame_sizes_equal_jax_mesh_step(runs):
+    """The same on the mixed case's global batch of a 64x96 and a 128x160
+    frame: JAX's one-process 2-device mesh step on the globally padded
+    batch (128x192), the ranks each on their row, padded to it."""
+    assert runs["jax_mixed"]["ranks"][0]["shape"] == (1, 128, 192, 3)
+    _check_jax_mesh_step(runs["jax_mixed"])
+
+
+def _check_jax_mesh_step(jax_run):
+    """test_two_ranks_equal_jax_mesh_step's checks on one case's run."""
     r0, r1 = jax_run["ranks"]
     print(f"ReLU ties pinned by rank: {len(r0['ties'])}, {len(r1['ties'])}")
     for path, residual, at, jx, tx, scale in r0["ties"] + r1["ties"]:
@@ -394,9 +419,9 @@ def test_mesh_data_above_the_devices_shares_them():
 @pytest.mark.parametrize("over", [("MESH.MODEL", "2"), ("MESH.SPATIAL", "True")])
 def test_model_axis_raises(over):
     """(ix) Tensor and spatial parallelism are not ported: they raise,
-    naming ROADMAP A5b."""
+    naming ROADMAP A4."""
     cfg = cfg_from_list(default_config(), ("NET_VARIANT", "res18") + over)
-    with pytest.raises(NotImplementedError, match="A5b"):
+    with pytest.raises(NotImplementedError, match="A4"):
         FasterRCNN(cfg, 2)
-    with pytest.raises(NotImplementedError, match="A5b"):
+    with pytest.raises(NotImplementedError, match="A4"):
         mesh.data_world_size(cfg, 8, 1)

@@ -15,12 +15,14 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from tests.torch_port_threads import two_threads  # noqa: E402, F401
 pytest.importorskip("jax")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 import quality_run  # noqa: E402
 import quality_run_torch  # noqa: E402
+import quality_summary  # noqa: E402
 
 from tests.test_quality_tools import _iou2d  # noqa: E402
 
@@ -149,6 +151,27 @@ def test_two_iteration_leg_writes_the_quality_json(tmp_path, leg):
         assert 0.0 <= c["proposal_recall"] <= 1.0
         assert c["fp"] == sum(c["fp_taxonomy"].values())
     assert res["final"] == written["final"]
+    _renders(tmp_path, "bev_overfit" if bev else "image_overfit", written)
+
+
+def _renders(tmp_path, name, leg):
+    """tools/quality_summary.py (it imports neither package) renders the
+    port's --emit artifact: the summary row and the curve's rows, no dash
+    where the JAX artifact has a number (the schemas agree)."""
+    import contextlib
+    import io
+
+    path = tmp_path / "suite.json"
+    path.write_text(json.dumps({name: leg}))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        quality_summary.main(str(path))
+    text = out.getvalue()
+    row = next(ln for ln in text.splitlines() if ln.startswith(f"| {name} |"))
+    assert "(incomplete)" not in row and "—" not in row.split("|")[2]
+    assert sum(ln.startswith("| ") and ln.split("|")[1].strip().isdigit()
+               for ln in text.splitlines()) == len(leg["curve"])
+    return text
 
 
 def test_uc_leg_runs(tmp_path):
@@ -167,6 +190,10 @@ def test_uc_leg_runs(tmp_path):
         for key, st in c.get("uc_stats", {}).items():
             assert set(st) == set(ref["final"]["uc_stats"][key])
             assert 0.0 <= st["auc_fp_ranked_higher"] <= 1.0
+    with open(out) as f:
+        leg = json.load(f)
+    text = _renders(tmp_path, "image_uc_scratch", leg)
+    assert ("uc[" in text) == bool(leg["final"].get("uc_stats"))
 
 
 def test_uc_separation_is_the_mann_whitney_share():

@@ -14,7 +14,10 @@ as JAX's data-parallel test puts one frame on each of its 8 devices):
            chip_smoke.scale_rpn_heads does, else their exp overflows);
   bev      res18 live BN on 200 x 175 x 15 BEV rasters, voxelized by each
            rank for its rows (K3's twin), K1 and K2 through their twins;
-  fpn      frozen res18 FPN (K2-FPN's twin).
+  fpn      frozen res18 FPN (K2-FPN's twin);
+  mixed    live, on frames of two sizes (MIXED_HW: the global batch's first
+           row 64x96, its second 128x160), so each rank's own frames pad to
+           another bucket than the global batch's largest.
 """
 
 from __future__ import annotations
@@ -78,7 +81,9 @@ CASES = {
         "NET_TYPE", "lidar", "TRAIN.SCALES", "(0.25,)", "TEST.SCALES", "(0.25,)",
         "STATIC.MAX_POINTS", "9000", "TRAIN.USE_GT_NOISE", "True"),
     "fpn": BASE + ("USE_FPN", "True", "POOLING_MODE", "multiscale"),
+    "mixed": BASE + LIVE,
 }
+MIXED_HW = ((64, 96), (128, 160))  # chip_smoke.MixedSizes: even frames, odd frames
 STEP_CASES = tuple(CASES)
 
 
@@ -86,7 +91,10 @@ def config(case: str):
     return cfg_from_list(default_config(), CASES[case])
 
 
-def dataset(cfg, num_frames: int = 2 * B, mode: str = "train", seed: int = 0):
+def dataset(cfg, num_frames: int = 2 * B, mode: str = "train", seed: int = 0,
+            case: str = ""):
+    if case == "mixed":
+        return chip_smoke.MixedSizes(cfg, num_frames, MIXED_HW, seed, mode, K)
     if cfg.net_type == "lidar":
         return SyntheticDataset(cfg, num_frames=num_frames, num_classes=K, mode=mode, seed=seed)
     return SyntheticDataset(cfg, num_frames=num_frames, num_classes=K, image_hw=HW, mode=mode,
@@ -132,7 +140,7 @@ def unequal(batch: Dict) -> Dict:
 
 def global_batch(cfg, case: str) -> Dict:
     """The first batch of the case's loader, every row (on the CPU)."""
-    b = BatchLoader(dataset(cfg), cfg, B, device="cpu", seed=0).next()
+    b = BatchLoader(dataset(cfg, case=case), cfg, B, device="cpu", seed=0).next()
     return unequal(b) if case == "unequal" else b
 
 
@@ -202,7 +210,7 @@ def step_cases(rank: int, world: int, init_method: str, out: str, cases=STEP_CAS
     try:
         for case in (c for c in cases if c in CASES):
             cfg = config(case)
-            loader = BatchLoader(dataset(cfg), cfg, B, device="cpu", seed=0, rows=dp.rows(B))
+            loader = BatchLoader(dataset(cfg, case=case), cfg, B, device="cpu", seed=0, dp=dp)
             if case == "unequal":
                 local = mesh.shard_batch(global_batch(cfg, case), dp)
             else:
@@ -210,19 +218,44 @@ def step_cases(rank: int, world: int, init_method: str, out: str, cases=STEP_CAS
                 rows = mesh.shard_batch(global_batch(cfg, case), dp)
                 for k, v in rows.items():  # the loader's rows are the global batch's
                     assert torch.equal(torch.as_tensor(v), torch.as_tensor(local[k])), (case, k)
+                if case == "mixed":
+                    mixed_loaders(cfg, dp, rows)
             res = one_step(cfg, case, local, dp)
             if rank != 0:
                 res = {k: res[k] for k in ("losses", "anchor_labels", "roi_labels", "checksum")}
             torch.save(res, os.path.join(out, f"{case}_{rank}.pt"))
         if "jax" in cases:
-            path = os.path.join(out, JAX_INPUTS)
-            wait_for(path)
-            pinned_step(dp, path)
+            for name in (JAX_INPUTS, JAX_MIXED_INPUTS):
+                path = os.path.join(out, name)
+                wait_for(path)
+                pinned_step(dp, path)
         if "solver" in cases:
             solver_runs(dp, out)
     finally:
         mesh.shutdown(dp)
     return rank
+
+
+def mixed_loaders(cfg, dp: mesh.DataParallel, want: Dict) -> None:
+    """The mixed case's first batch from the rank's prefetch thread and from
+    a worker process: the global batch's rows, padded to its bucket, as the
+    serial loader gives them.  Before the pad the rank's own frames are of
+    another size than the other rank's."""
+    own = BatchLoader(dataset(cfg, case="mixed"), cfg, B, device="cpu", seed=0,
+                      rows=dp.rows(B)).next()["data"].shape
+    sizes = [None] * dp.world
+    torch.distributed.all_gather_object(sizes, tuple(own))
+    assert len(set(sizes)) == dp.world, f"the ranks' own frames are of one size: {sizes}"
+    for workers in (0, 1):
+        loader = BatchLoader(dataset(cfg, case="mixed"), cfg, B, device="cpu", seed=0, dp=dp,
+                             workers=workers)
+        loader.start()
+        try:
+            got = batch_to_device(loader.next(), dp.device)
+        finally:
+            loader.kill()
+        for k, v in want.items():
+            assert torch.equal(torch.as_tensor(v), torch.as_tensor(got[k])), (workers, k)
 
 
 # -- the Solver ----------------------------------------------------------------------
@@ -254,12 +287,10 @@ def make_solver(out_dir: str, dp: Optional[mesh.DataParallel], sigterm_at: int =
     """The Solver of the SOLVER config: train and val synthetic loaders (a
     rank's rows with `dp`), the weights of seed 0."""
     cfg = cfg_from_list(default_config(), SOLVER)
-    rows = dp.rows(B) if dp is not None else None
-    train = BatchLoader(dataset(cfg), cfg, B, device="cpu", seed=0, rows=rows)
+    train = BatchLoader(dataset(cfg), cfg, B, device="cpu", seed=0, dp=dp)
     if sigterm_at:
         train = _SigtermAt(train, sigterm_at)
-    val = BatchLoader(dataset(cfg, mode="val", seed=101), cfg, B, device="cpu", seed=1,
-                      rows=rows)
+    val = BatchLoader(dataset(cfg, mode="val", seed=101), cfg, B, device="cpu", seed=1, dp=dp)
     model = model_for(config("live"), "live", dp)  # SOLVER's net: the live case's
     return Solver(cfg, model, train, val_loader=val, output_dir=out_dir, dp=dp)
 
@@ -293,6 +324,7 @@ def solver_runs(dp: mesh.DataParallel, out: str) -> None:
 
 
 JAX_INPUTS = "jax_inputs.pt"  # written by the test's process while the ranks step
+JAX_MIXED_INPUTS = "jax_inputs_mixed.pt"  # the same for the mixed case
 
 
 def wait_for(path: str, timeout: float = 300.0) -> None:
@@ -357,7 +389,8 @@ def pinned_step(dp: mesh.DataParallel, path: str) -> None:
             p.grad = torch.zeros_like(p)
     mesh.all_reduce_grads_([p.grad for p in trained.values()], dp)
     reported = mesh.reduce_losses({k: v.detach() for k, v in losses.items()}, dp)
-    out = {"losses": {k: float(v) for k, v in reported.items()}, "ties": ties}
+    out = {"losses": {k: float(v) for k, v in reported.items()}, "ties": ties,
+           "shape": tuple(local["data"].shape)}
     if dp.rank == 0:
         out["grads"] = {k: p.grad.clone() for k, p in trained.items()}
         out["stats"] = {k: v.clone() for k, v in live_bn_stats(model).items()}

@@ -104,18 +104,17 @@ def train_rank(rank, world, init_method, args):
     dp = mesh.init_data_parallel(cfg, batch, rank=rank, world=world, init_method=init_method,
                                  device=args.device)
     device = torch.device(args.device) if dp is None else dp.device
-    rows = None if dp is None else dp.rows(batch)
     is_main = dp is None or dp.is_main
     try:
         db = build_dataset(cfg, args.db_name, "train")
         loader = BatchLoader(db, cfg, batch_size=batch, device=device,
-                             augment=cfg.train.augment_en, seed=cfg.rng_seed, rows=rows)
+                             augment=cfg.train.augment_en, seed=cfg.rng_seed, dp=dp)
         val_loader = None
         if args.dbval_name:
             val_db = build_dataset(cfg, args.dbval_name, "val")
             val_loader = BatchLoader(val_db, cfg, batch_size=batch, device=device,
                                      augment=cfg.train.val_augment_en, seed=cfg.rng_seed + 1,
-                                     rows=rows)
+                                     dp=dp)
         model, _ = create_train_state(cfg, len(db.classes), device, seed=cfg.rng_seed)
         if device.type == "cuda":
             # rank 0 builds (a spawning launcher built already), the others wait
