@@ -285,6 +285,24 @@ spawned child imports the main module again.
      card's own proposals (K1 launched) against the CPU's: the share of
      equal lanes, printed.  No PNG is written on the card (no PIL there);
      tests/test_torch_port_debug_draw.py holds the drawing to JAX's.
+ 35. model parallel on one card (run_model_parallel): four ranks (data 2 x
+     model 2) spawned once share cuda:0 over gloo.  (a) the 2 x 2 step
+     against the one-process step on the card, fp32, TF32 off, at 256x320
+     (BEV 400 x 350 x 15) and a global batch of 2, DP_CHECK_OVERRIDES, the
+     one-process step pinned to the ranks' proposal lanes (mp_check): res101
+     C4 tp+sp (the tail's channels sharded, the backbone's rows split),
+     res101 FPN tp, res101 BEV tp+sp (K3's 400 rows, 25 at stride 16 split
+     12 and 13): equal labels, losses within rtol 1e-4, each leaf's update
+     within 1e-3 of its max (phase 32's bars).  (b) the image config (res101
+     C4 bf16 512x960, terminators 0.25) at MESH.DATA 2 MESH.MODEL 2
+     MESH.SPATIAL True through Solver.train for 3 steps: each rank's K1, K2,
+     K2-bwd counted, its device ms a step, gradient all-reduce ms, wall ms,
+     peak memory and the tail's bytes it holds (half of one process's), then
+     one more step with every collective counted (mesh.STATS: the model
+     group's forward and backward collectives' calls, bytes and ms, the
+     data group's and the optimizer's), beside phase 23's one-process
+     Solver path (four ranks sharing one card over gloo measure the
+     collectives' cost, not a speed-up).  A failed rank fails the phase.
 
 Imports nothing of JAX; needs the repository checkout around it.
 """
@@ -3692,6 +3710,261 @@ def run_data_parallel(smi, one_process):
     return paths
 
 
+MP_WORLD = 4  # data 2 x model 2
+MP_TP = ("MESH.DATA", "2", "MESH.MODEL", "2")
+MP_TP_SP = MP_TP + ("MESH.SPATIAL", "True")
+MP_STEPS = 3
+MP_ROOT = REPO / "build" / "chip_smoke_mp"
+
+
+def mp_check(dp, name, cfg, init_model, batch):
+    """One (data 2 x model 2) step on the card against the one-process step
+    on the card on the same global batch of `batch` frames (rank 0 computes
+    it after), float32, TF32 off: each rank shards the tail
+    (parallel.tensor_parallel) and, with MESH.SPATIAL, splits the
+    backbone's rows; its step's proposal lanes and sampled labels are
+    saved, rank 0 pins the one-process step to the data ranks' lanes.
+    Equal labels; the losses within rtol DP_LOSS_RTOL, each leaf's update
+    within DP_UPDATE_TOL of its max (plus 1e-6 of the leaf's max), phase
+    32's bars.  Returns rank 0's measured errors (and raises on a miss)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import tensor_parallel as tp
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training import solver as S
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
+
+    dp = dataclasses.replace(dp, spatial=bool(cfg.mesh.spatial))
+    device = dp.device
+    hw = SLICE_HW if cfg.net_type == "image" else FRAME_HW
+    db = SyntheticDataset(cfg, num_frames=2 * batch, num_classes=2, image_hw=hw, seed=0)
+    local = S.batch_to_device(BatchLoader(db, cfg, batch, device=device, seed=0,
+                                          dp=dp).next(), device)
+    model = copy.deepcopy(init_model).to(device)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = DetectorSGD(model, cfg, dp=dp)
+    tp.shard_model_(model, dp, opt)  # every rank holds the same init
+    draws = S.draw_train_keys(model, local, S.step_generator(0, 0, device), dp)
+    losses, aux = S.make_train_step(model, opt, dp)(local, draws)
+    split = model.rows_split
+    tp.unshard_model_(model, dp, opt)
+    torch.save({"src": aux.proposal_src.cpu(), "valid": aux.proposal_valid.cpu(),
+                "anchor_labels": aux.anchor_targets.labels.cpu(),
+                "roi_labels": aux.proposal_targets.labels.cpu()}, MP_ROOT / f"{name}_{dp.rank}.pt")
+    mesh.barrier(dp)
+    out = {"losses": {k: float(v) for k, v in losses.items()}, "rows_split": split}
+    if dp.rank == 0:
+        parts = [torch.load(MP_ROOT / f"{name}_{r}.pt", weights_only=False)
+                 for r in range(0, dp.world, dp.model)]  # one rank of each data index
+        pin = tuple(torch.cat([p[k] for p in parts]).to(device) for k in ("src", "valid"))
+        full = S.batch_to_device(BatchLoader(db, cfg, batch, device=device, seed=0).next(), device)
+        ref = copy.deepcopy(init_model).to(device)
+        ref_losses, ref_aux = S.make_train_step(ref, DetectorSGD(ref, cfg))(
+            full, S.draw_train_keys(ref, full, S.step_generator(0, 0, device)), pin)
+        for key, t in (("anchor_labels", ref_aux.anchor_targets.labels),
+                       ("roi_labels", ref_aux.proposal_targets.labels)):
+            if not torch.equal(torch.cat([p[key] for p in parts]), t.cpu()):
+                raise AssertionError(f"model parallel {name}: {key} differ from one process's")
+        loss_err = max(abs(out["losses"][k] - float(v)) / max(abs(float(v)), 1e-30)
+                       for k, v in ref_losses.items())
+        upd_share, worst = 0.0, None
+        got_params = dict(model.named_parameters())
+        for k, p in ref.named_parameters():
+            want_u = (p.detach() - start[k]).double()
+            got_u = (got_params[k].detach() - start[k]).double()
+            limit = (DP_UPDATE_TOL * float(want_u.abs().max())
+                     + 1e-6 * float(start[k].abs().max()) + 1e-30)
+            share = float((got_u - want_u).abs().max()) / limit
+            if share > upd_share:
+                upd_share, worst = share, k
+        out.update(loss_err=loss_err, update_share=upd_share, worst_leaf=worst,
+                   fg_rois=int((ref_aux.proposal_targets.labels > 0).sum()),
+                   shape=tuple(full["data"].shape))
+        if loss_err > DP_LOSS_RTOL or upd_share > 1.0:
+            raise AssertionError(f"model parallel {name}: 2 x 2 vs one process {out}")
+    mesh.barrier(dp)
+    return out
+
+
+def mp_solver_path(dp, cfg, init_model, need):
+    """The image config's Solver.train for MP_STEPS steps at a global batch
+    of B on the (data 2 x model 2) mesh, this rank's B / 2 rows, counted:
+    its device ms a step, wall ms a step, its gradient all-reduce's ms a step
+    (over the data group; over every rank for the backbone's row-slab
+    leaves), peak memory, launches (the kernels in `need` must launch in
+    this rank), the tail's bytes it holds.  Then one more step of the
+    sharded model with every collective counted (mesh.STATS: each
+    synchronized and timed on the host clock): the model group's
+    collectives' ms and bytes, forward and backward, and the optimizer's."""
+    import copy
+    import shutil
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
+    from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import tensor_parallel as tp
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training import solver as S
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
+
+    out = MP_ROOT / "image"
+    if dp.rank == 0:
+        shutil.rmtree(out, ignore_errors=True)
+    mesh.barrier(dp)
+    db = SyntheticDataset(cfg, num_frames=4 * B, num_classes=2, image_hw=FRAME_HW, seed=0)
+    loader = BatchLoader(db, cfg, B, device=dp.device, seed=cfg.rng_seed, dp=dp)
+    model = copy.deepcopy(init_model).to(dp.device)
+    solver = S.Solver(cfg, model, loader, output_dir=str(out), dp=dp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = solver.train(MP_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(np.isfinite(v) for losses in res["history"] for v in losses.values())
+    if not finite or len(res["ms"]) != MP_STEPS:
+        raise AssertionError(f"model parallel image rank {dp.rank}: {res['history']}")
+    if not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"model parallel image rank {dp.rank}: a kernel never launched: "
+                             f"{launches}")
+    # one more step, every collective counted
+    opt = DetectorSGD(model, cfg, dp=dp)
+    mesh.broadcast_parameters_(model, dp, opt)
+    counted = BatchLoader(db, cfg, B, device=dp.device, seed=cfg.rng_seed + 1, dp=dp)
+    mesh.STATS.reset()
+    mesh.STATS.enabled = True
+    try:
+        step = S.train(model, opt, counted, 1, S.step_generator(0, MP_STEPS, dp.device), dp=dp)
+    finally:
+        mesh.STATS.enabled = False
+    table = {f"{axis} {phase}": {"calls": c, "bytes": b, "ms": ms}
+             for (axis, phase), (c, b, ms) in sorted(mesh.STATS.table.items())}
+    tp.unshard_model_(model, dp, opt)
+    return {"launches": launches, "ms": res["ms"], "reduce_ms": res["reduce_ms"],
+            "wall_ms": res["wall_s"] * 1e3 / MP_STEPS, "peak_gib": peak,
+            "tail_bytes": res["tail_bytes"], "whole_tail_bytes": tp.tail_bytes(model),
+            "last_loss": res["history"][-1]["total_loss"], "collectives": table,
+            "counted_step_ms": step["ms"][0]}
+
+
+def mp_rank(rank, world, init_method, smi):
+    """One rank of phase 35 (spawned by run_model_parallel): the checks
+    against one process, then the image config's Solver path, in one
+    process group of 2 data x 2 model ranks."""
+    import copy
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+    from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import create_train_state
+
+    _build.library()  # built by the parent before it spawned the ranks
+    image_cfg = make_config(IMAGE_OVERRIDES, MP_TP_SP)
+    dp = mesh.init_data_parallel(image_cfg, B, rank=rank, world=world, init_method=init_method,
+                                 device="cuda")
+    try:
+        res = {"backend": dp.backend, "device": str(dp.device)}
+        image_model, _ = create_train_state(image_cfg, 2, "cpu", seed=0)
+        scale_terminators(image_model)
+        checks = (("c4_tp_sp", (IMAGE_OVERRIDES, MP_TP_SP), image_model),
+                  ("fpn_tp", (IMAGE_OVERRIDES, FPN_OVERRIDES, MP_TP), None),
+                  ("bev_tp_sp", (BEV_OVERRIDES, MP_TP_SP), None))
+        for name, over, init in checks:
+            cfg = make_config(*over, DP_CHECK_OVERRIDES)
+            if init is None:
+                init, _ = create_train_state(cfg, 2, "cpu", seed=0)
+                scale_terminators(init)
+            check_model = copy.deepcopy(init)
+            check_model.cfg = cfg
+            res[name] = mp_check(dp, name, cfg, check_model, 2)
+        res["image"] = mp_solver_path(dp, image_cfg, image_model,
+                                      ("nms", "roi_align", "roi_align_bwd"))
+        return res
+    finally:
+        mesh.shutdown(dp)
+
+
+def run_model_parallel(smi, one_process):
+    """Phase 35: model parallel on one card.  Four ranks (data 2 x model 2)
+    share cuda:0 over gloo, spawned once after the kernels were built.  (a)
+    The 2 x 2 step against the one-process step on the card (mp_check,
+    fp32 at SLICE_HW, DP_CHECK_OVERRIDES, a global batch of 2): res101 C4
+    tp+sp, res101 FPN tp, res101 BEV tp+sp (K3 on 400 x 350, its 25 rows at
+    stride 16 split 12 and 13).  (b) the image config (res101 C4 bf16,
+    512x960, terminators 0.25) at MESH.DATA 2 MESH.MODEL 2 MESH.SPATIAL
+    True, a global batch of B, through Solver.train for MP_STEPS steps:
+    each rank's K1, K2, K2-bwd counted, its ms a step, the collectives'
+    cost, peak memory and the tail's bytes it holds, beside the
+    one-process Solver path of phase 23 (`one_process`).  Returns each
+    rank's launches by path."""
+    import shutil
+
+    import torch
+
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.multihost import spawn_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    shutil.rmtree(MP_ROOT, ignore_errors=True)
+    MP_ROOT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(mp_rank, MP_WORLD, smi, timeout=600)
+    finally:
+        shutil.rmtree(MP_ROOT, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"model parallel on one card ({smi}): {MP_WORLD} ranks = 2 data x 2 model on "
+          f"{r0['device']}, backend {r0['backend']}, one process group for every check and the "
+          f"path, {seconds} s with the ranks' start")
+    for name, what in (("c4_tp_sp", "res101 image C4 fp32 256x320 tp+sp"),
+                       ("fpn_tp", "res101 image FPN fp32 256x320 tp"),
+                       ("bev_tp_sp", "res101 BEV fp32 400 x 350 x 15 tp+sp")):
+        c = r0[name]
+        print(f"model parallel check {what}, global batch 2 (2 data x 2 model): against one "
+              f"process on the card: losses largest relative difference {c['loss_err']} (rtol "
+              f"{DP_LOSS_RTOL}), updates: largest share of a leaf's limit {c['update_share']} "
+              f"(limit {DP_UPDATE_TOL} of its max update + 1e-6 of its max; worst "
+              f"{c['worst_leaf']}), labels equal, {c['fg_rois']} foreground RoIs, rows split "
+              f"{c['rows_split']}, batch {c['shape']}; losses {c['losses']}")
+    paths = {}
+    one = one_process["image"]
+    for r, rank in enumerate(ranks):
+        p = rank["image"]
+        ms = np.asarray(p["ms"][1:])
+        paths[f"mp_image_rank{r}"] = p["launches"]
+        print(f"model parallel res101 image C4 bf16 512x960 tp+sp, global batch {B} = 2 data "
+              f"x {B // 2} frames, model axis 2, rank {r} ({smi}): {MP_STEPS} Solver steps; "
+              f"device ms/step after the first: median {float(np.median(ms))} (first "
+              f"{p['ms'][0]}); gradient all-reduce ms/step {p['reduce_ms']}; wall "
+              f"{p['wall_ms']} ms/step; peak memory {p['peak_gib']} GiB; tail bytes held "
+              f"{p['tail_bytes']} of one process's {p['whole_tail_bytes']}; launches "
+              f"{p['launches']}; last loss {p['last_loss']}")
+        print(f"  rank {r}'s collectives in one counted step ({p['counted_step_ms']} ms with "
+              f"each collective synchronized): {p['collectives']}")
+        if p["last_loss"] != r0["image"]["last_loss"]:
+            raise AssertionError("model parallel image: the ranks report different losses")
+        if 2 * p["tail_bytes"] != p["whole_tail_bytes"]:
+            raise AssertionError(f"model parallel image rank {r}: the tail is not halved")
+    print(f"  beside: the one-process Solver path at batch {B} (phase 23): device ms/step "
+          f"median {one['ms_median']}, wall {one['wall_ms']} ms/step, peak memory "
+          f"{one['peak_gib']} GiB.  Four ranks sharing one card over gloo, which carries every "
+          f"collective through the host, measure the collectives' cost, not a speed-up")
+    return paths
+
+
 PROFILE_NEED = {  # the kernels each section of the stage split must launch
     "image": ((), (), ("nms",), ("nms",), ("nms", "roi_align", "roi_align_bwd")),
     "bev": (("voxelize_bev",),) * 2 + (("voxelize_bev", "nms"),) * 2
@@ -4085,6 +4358,9 @@ def main() -> int:
     phase("debug draws: card vs CPU")
     debug_proposals = check_debug_draws(image_cfg, smi)
 
+    phase("model parallel on one card")
+    mp_paths = run_model_parallel(smi, {"image": one_image})
+
     paths = {"serving": serving, "training": training, "bev_serving": bev_serving,
              "fpn_serving": fpn_serving, "fpn_training": fpn_training,
              "bev_training": bev_training, "bev_rotated_serving": bev_rotated,
@@ -4097,7 +4373,7 @@ def main() -> int:
              "mobile_serving": mobile_serving, "mobile_training": mobile_training,
              "fpn_uc_serving": fpn_uc_serving, "fpn_uc_training": fpn_uc_training,
              "fpn_bev_serving": fpn_bev_serving, "fpn_bev_rotated_serving": fpn_bev_rotated,
-             "fpn_bev_training": fpn_bev_training, **dp_paths, **profile_paths,
+             "fpn_bev_training": fpn_bev_training, **dp_paths, **mp_paths, **profile_paths,
              "debug_draw_proposals": debug_proposals}
 
     def entry(name, source, replaces, path, measured):

@@ -59,6 +59,13 @@ features, per-anchor lanes (B, N, .) in (y, x, a) order.  Inside, the conv
 stacks run NCHW modules on channels_last tensors, so every NHWC <-> NCHW
 switch is a view.
 
+On a model axis (MESH.MODEL > 1, parallel/) the tail holds a rank's shard
+of its channels and the predictors the rows of their input
+(parallel.tensor_parallel); with MESH.SPATIAL the backbone runs on the
+rank's rows of the frames (parallel.spatial).  The RPN, the anchors, the
+proposals (K1), RoI align (K2, K2-FPN) and the targets run on the whole
+maps, replicated over the model group with the same draws.
+
 Dtypes follow cfg.compute_dtype as the JAX package's `cast_for_compute`
 does: with bfloat16 the conv and linear stack holds bf16 parameters and
 activations (the caller casts the module, see `build_detector`), frozen-BN
@@ -137,6 +144,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.targets import (
     gather_lanes,
     proposal_target,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh, spatial
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FPN_STRIDES = (4, 8, 16, 32)  # p2..p5
@@ -155,6 +163,8 @@ RESNET_DROP_RATE = 0.5  # the Bottlenecks' dropout under epistemic uncertainty
 MC_CHUNK = 10
 # NHWC features: the C4 map, or the FPN pyramid (p2, p3, p4, p5)
 Features = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+# (height, MESH.MODEL) pairs whose frames ran whole under MESH.SPATIAL, said once
+_WHOLE_SAID: set = set()
 
 
 def feat_stride(cfg: Config) -> int:
@@ -308,9 +318,6 @@ def check_supported(cfg: Config, training: bool = False) -> None:
         problems.append(f"UC.BAYES_VARIANT {cfg.uc.bayes_variant!r}")
     if cfg.compute_dtype not in _DTYPES:
         problems.append(f"COMPUTE_DTYPE {cfg.compute_dtype!r}")
-    if cfg.mesh.model > 1 or cfg.mesh.spatial:
-        problems.append(f"MESH.MODEL {cfg.mesh.model} / MESH.SPATIAL {cfg.mesh.spatial} "
-                        "(tensor and spatial parallelism: ROADMAP A4)")
     if problems:
         raise NotImplementedError("not ported: " + ", ".join(problems))
 
@@ -385,6 +392,7 @@ class FasterRCNN(nn.Module):
             if isinstance(m, CheapDropout):
                 m.path = name
         self._anchor_cache: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.rows_split = False  # whether the last `features` ran on row slabs
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -405,15 +413,42 @@ class FasterRCNN(nn.Module):
         eval mode uses them.
 
         Integer frames are raw pixels, normalized here on the device with
-        cfg.pixel_means/stddevs; float frames are taken as pre-normalized."""
+        cfg.pixel_means/stddevs; float frames are taken as pre-normalized.
+
+        On a model axis with MESH.SPATIAL (a rank of a data_parallel block)
+        each rank of the model group runs the backbone on its rows of the
+        normalized frames and the backbone's maps are gathered whole
+        (parallel.spatial), where H divides by the axis, as JAX's
+        shard_batch splits H only then; else the frames stay whole (said
+        once).  `rows_split` records which it was, for the optimizer.  The
+        FPN, the RPN and everything after run on the whole maps."""
         if not images.is_floating_point():
             means = torch.tensor(self.cfg.pixel_means, dtype=torch.float32, device=images.device)
             stds = torch.tensor(self.cfg.pixel_stddevs, dtype=torch.float32, device=images.device)
             images = (images.float() - means) / stds
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)  # channels_last view
+        dp = mesh.active()
+        self.rows_split = False
+        if dp is not None and dp.spatial:
+            h, m = x.shape[2], dp.model
+            if h % m == 0:
+                self.rows_split = True
+                with spatial.row_split(dp, h, x.shape[3]) as split:
+                    lo, hi = split.rows(h)
+                    out = self.backbone(x[:, :, lo:hi])
+                    out = (tuple(split.gather(o) for o in out) if isinstance(out, tuple)
+                           else split.gather(out))
+            else:
+                if (h, m) not in _WHOLE_SAID:
+                    _WHOLE_SAID.add((h, m))
+                    print(f"MESH.SPATIAL: {h} rows do not divide by MESH.MODEL {m}: the "
+                          "backbone runs on the whole frames", flush=True)
+                out = self.backbone(x)
+        else:
+            out = self.backbone(x)
         if self.cfg.use_fpn:
-            return tuple(p.permute(0, 2, 3, 1) for p in self.fpn(*self.backbone(x)))
-        return self.backbone(x).permute(0, 2, 3, 1)
+            return tuple(p.permute(0, 2, 3, 1) for p in self.fpn(*out))
+        return out.permute(0, 2, 3, 1)
 
     @staticmethod
     def rpn_map(feats: Features) -> torch.Tensor:
@@ -507,7 +542,10 @@ class FasterRCNN(nn.Module):
         """Tail and predictors over pooled RoIs -> float32 dict of (B, S, .):
         a conv tail (C4 layer4, MobileNet's layers 12-13) and the spatial
         mean, or a flat tail (the FPN's FCTail, VGG16's fc6/fc7) over each
-        RoI flattened in (y, x, c) order."""
+        RoI flattened in (y, x, c) order.  In a sharded tail (a model axis:
+        parallel.tensor_parallel) the pooled RoIs, whole on every rank, enter
+        it through copy_to_model, fc7 comes out as the rank's channels and
+        the predictors sum their partial products over the model group."""
         p, c = pooled.shape[-2], pooled.shape[-1]
         if self.flat_tail:
             fc7 = self.tail(pooled.reshape(b * s, p * p * c))

@@ -18,6 +18,12 @@ scale and bias, since its frozen mask does not match the `cls_bn1` /
 RPN's variance convs sit on the detector (models.detector).
 
 Init (ref imagenet.py:65-91) is done by models.detector.init_params.
+
+On a model axis (parallel.tensor_parallel) FCTail is column parallel (each
+rank computes its shard of every layer's outputs from the whole input) and
+the predictors' and stacks' dense layers are row parallel (`row_linear`:
+the rank's rows of the input, the products summed over the model group, the
+bias added once), so every output comes out whole on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +34,10 @@ import torch
 from torch import nn
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import AffineBatchNorm, CheapDropout
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.tensor_parallel import (
+    column_input,
+    row_linear,
+)
 
 CLS_DROP_RATE = 0.3
 BBOX_DROP_RATE = 0.1
@@ -59,9 +69,9 @@ class FCTail(nn.Module):
         self.t_fc3 = nn.Linear(fc7_channels, fc7_channels)
 
     def forward(self, flat: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.t_fc1(flat))
-        x = torch.relu(self.t_fc2(x))
-        return torch.relu(self.t_fc3(x))
+        x = torch.relu(self.t_fc1(column_input(flat, self.t_fc1)))
+        x = torch.relu(self.t_fc2(column_input(x, self.t_fc2)))
+        return torch.relu(self.t_fc3(column_input(x, self.t_fc3)))
 
 
 class EpistemicStack(nn.Module):
@@ -83,7 +93,7 @@ class EpistemicStack(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.prefix
         for i in (1, 2):
-            x = getattr(self, f"{p}_fc{i}")(x)
+            x = row_linear(getattr(self, f"{p}_fc{i}"), x)
             bn = getattr(self, f"{p}_bn{i}", None)
             if bn is not None:
                 x = bn(x)
@@ -124,9 +134,10 @@ class DetectionPredictors(nn.Module):
     def forward(self, fc7: torch.Tensor) -> Dict[str, torch.Tensor]:
         cls_in = fc7 if self.cls_stack is None else self.cls_stack(fc7)
         bbox_in = fc7 if self.bbox_stack is None else self.bbox_stack(fc7)
-        out = {"cls_score": self.cls_score_net(cls_in), "bbox_pred": self.bbox_pred_net(bbox_in)}
+        out = {"cls_score": row_linear(self.cls_score_net, cls_in),
+               "bbox_pred": row_linear(self.bbox_pred_net, bbox_in)}
         if self.cls_al_var_net is not None:
-            out["cls_al_var"] = self.cls_al_var_net(cls_in)
+            out["cls_al_var"] = row_linear(self.cls_al_var_net, cls_in)
         if self.bbox_al_var_net is not None:
-            out["bbox_al_var"] = self.bbox_al_var_net(bbox_in)
+            out["bbox_al_var"] = row_linear(self.bbox_al_var_net, bbox_in)
         return out

@@ -17,7 +17,12 @@ JAX package, whose scale and bias are parameters: training.optim's frozen
 mask holds them fixed unless FIXED_BLOCKS is -1, where they train and the
 statistics stay as they are (`AffineBatchNorm`).
 
-Modules are NCHW; the detector runs them on channels_last tensors.
+Modules are NCHW; the detector runs them on channels_last tensors.  On a
+model axis the head's convs split by rows inside a backbone pass
+(parallel.spatial), and the tail's layers hold a rank's shard of their
+channels (parallel.tensor_parallel): a depthwise conv its channels (it
+takes the rank's channels of its input, with no gather), a pointwise conv
+its output channels from the whole input.
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import AffineBatchNorm
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import spatial
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.tensor_parallel import (
+    column_input,
+    depthwise_input,
+)
 
 # (stride, channels) of layers 1-11, then of the tail's layers 12-13 as built
 HEAD_BLOCKS = ((1, 64), (2, 128), (1, 128), (2, 256), (1, 256), (2, 512),
@@ -42,14 +52,15 @@ def _depth(ch: int, mult: float) -> int:
 class SepConv(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
-        self.depthwise = nn.Conv2d(cin, cin, 3, stride=stride, padding=1, groups=cin, bias=False)
+        self.depthwise = spatial.Conv2d(cin, cin, 3, stride=stride, padding=1, groups=cin,
+                                        bias=False)
         self.dw_bn = AffineBatchNorm(cin)
-        self.pointwise = nn.Conv2d(cin, cout, 1, bias=False)
+        self.pointwise = spatial.Conv2d(cin, cout, 1, bias=False)
         self.pw_bn = AffineBatchNorm(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu6(self.dw_bn(self.depthwise(x)))
-        return F.relu6(self.pw_bn(self.pointwise(x)))
+        x = F.relu6(self.dw_bn(self.depthwise(depthwise_input(x, self.depthwise))))
+        return F.relu6(self.pw_bn(self.pointwise(column_input(x, self.pointwise))))
 
 
 class MobileNetV1Head(nn.Module):
@@ -57,7 +68,7 @@ class MobileNetV1Head(nn.Module):
         super().__init__()
         m = depth_multiplier
         cin = _depth(STEM_CHANNELS, m)
-        self.conv0 = nn.Conv2d(in_channels, cin, 3, stride=2, padding=1, bias=False)
+        self.conv0 = spatial.Conv2d(in_channels, cin, 3, stride=2, padding=1, bias=False)
         self.bn0 = AffineBatchNorm(cin)
         for i, (stride, ch) in enumerate(HEAD_BLOCKS):
             self.add_module(f"layer{i + 1}", SepConv(cin, _depth(ch, m), stride))

@@ -39,7 +39,11 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
-from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh, spatial
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.tensor_parallel import (
+    column_input,
+    own_channels,
+)
 
 # layers-per-stage per depth (ref resnet.py:242-295)
 STAGE_BLOCKS = {
@@ -138,8 +142,12 @@ class LiveBatchNorm(FrozenBatchNorm):
     reduces over the GLOBAL batch"): the mean from the all-reduced sum, then
     the variance from the all-reduced sum of squared deviations from it
     (the same two passes), both differentiable, over n = the rank's rows
-    times the ranks (the shards are of one shape); the running update's
-    n / (n - 1) takes that n."""
+    times the data ranks (the shards are of one shape); the running
+    update's n / (n - 1) takes that n.  The sums run over the data group:
+    a model group's ranks hold the same rows (or, in the tail, other
+    channels of them).  In a backbone pass split by rows (parallel.spatial)
+    they run over every rank, each slab counted once: n is the rank's
+    frames times the data ranks times the map's whole height and width."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(features, eps)
@@ -167,14 +175,18 @@ class LiveBatchNorm(FrozenBatchNorm):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         n = xf.numel() // xf.shape[1]
         world = mesh.world_size()
-        if world == 1:
+        split = spatial.active()
+        if world == 1 and split is None:
             mean = xf.mean(dims)
             # jnp.var: the mean of the squared deviations
             var = (xf - mean.reshape(shape)).square().mean(dims)
         else:
+            axis = "data" if split is None else "all"
             n *= world
-            mean = mesh.global_sum(xf.sum(dims)) / n
-            var = mesh.global_sum((xf - mean.reshape(shape)).square().sum(dims)) / n
+            if split is not None:  # the rank's slab of the map's rows
+                n = n // x.shape[2] * split.height(x)
+            mean = mesh.global_sum(xf.sum(dims), axis) / n
+            var = mesh.global_sum((xf - mean.reshape(shape)).square().sum(dims), axis) / n
         if not self.update_stats:
             return _bn_affine(x, mean, var, self.weight, self.bias, self.eps)
         with torch.no_grad():
@@ -202,7 +214,10 @@ class UCDraws:
     same generator on every rank) and the rank takes its row block, so the
     ranks together draw what one process draws for the global batch.  The
     frame axis is a mask's leading axis within a sample (frames, or a
-    frame's RoIs frame-major) and a normal's axis 1."""
+    frame's RoIs frame-major) and a normal's axis 1.  On a model axis a
+    layer's mask is the whole layer's, cut to the rank's channels (the
+    tail's shards: `keep`'s channels) or rows (a backbone slab: its
+    rows)."""
 
     def __init__(
         self,
@@ -237,11 +252,14 @@ class UCDraws:
     def keep(
         self, path: str, shape: tuple, keep_q: int, device: torch.device,
         memory_format: torch.memory_format = torch.contiguous_format,
+        channels: Optional[Tuple[int, int]] = None, rows: Optional[Tuple[int, int, int]] = None,
     ) -> torch.Tensor:
         """The keep mask of the layer at `path` for the stacked samples:
         given, or uint8 draws below keep_q (P(keep) = keep_q / 256) laid out
         in `memory_format` (the activation's, so that applying the mask is
-        one elementwise pass)."""
+        one elementwise pass).  channels (j, m): `shape` holds shard j of m
+        of the layer's channels; rows (lo, hi, h): rows lo..hi of a map of
+        h rows; the whole layer's mask is drawn and cut to them."""
         t0, t1 = self.samples.start, self.samples.stop
         given = self.masks.get(path)
         if given is not None and given.shape[0] >= t1:
@@ -249,14 +267,23 @@ class UCDraws:
         if self.generator is None:
             raise KeyError(f"UCDraws: no mask for {path} samples {t0}..{t1 - 1} and no generator")
         rank, world = self.shard
-        rows = shape[0] // (t1 - t0)  # frames (or RoIs) a sample
-        full = ((t1 - t0) * rows * world,) + tuple(shape[1:])
+        frames = shape[0] // (t1 - t0)  # frames (or RoIs) a sample
+        full = [(t1 - t0) * frames * world] + list(shape[1:])
+        if channels is not None:
+            full[1] *= channels[1]
+        if rows is not None:
+            full[2] = rows[2]
         bits = torch.empty(full, dtype=torch.uint8, device=device, memory_format=memory_format)
         keep = bits.random_(0, 256, generator=self.generator) < keep_q
         if world > 1:
-            keep = keep.reshape((t1 - t0, rows * world) + tuple(shape[1:]))[
-                :, rank * rows:(rank + 1) * rows].reshape(shape).contiguous(
-                    memory_format=memory_format)
+            keep = keep.reshape([t1 - t0, frames * world] + full[1:])[
+                :, rank * frames:(rank + 1) * frames].reshape([shape[0]] + full[1:])
+        if channels is not None:
+            keep = keep.narrow(1, channels[0] * shape[1], shape[1])
+        if rows is not None:
+            keep = keep.narrow(2, rows[0], rows[1] - rows[0])
+        if world > 1 or channels is not None or rows is not None:
+            keep = keep.contiguous(memory_format=memory_format)
         if self.record:
             per = keep.reshape((t1 - t0, shape[0] // (t1 - t0)) + tuple(shape[1:]))
             self.masks[path] = per if given is None else torch.cat([given, per])
@@ -272,7 +299,10 @@ class CheapDropout(nn.Module):
     channel) planes of an NCHW input (Dropout2d; the JAX mask (N, 1, 1, C)).
 
     The identity unless `draws` is set (live_dropout), and at rate 0; the
-    mask comes from draws.keep under this layer's `path` in the model."""
+    mask comes from draws.keep under this layer's `path` in the model.  In
+    a sharded tail `channel_shard` (j, m) says the input holds channel shard
+    j of m (parallel.tensor_parallel); in a backbone pass split by rows the
+    input is the rank's slab (parallel.spatial)."""
 
     def __init__(self, rate: float = 0.0, channelwise: bool = False):
         super().__init__()
@@ -281,6 +311,7 @@ class CheapDropout(nn.Module):
         self.keep_q = max(1, round((1.0 - rate) * 256.0))
         self.path = ""
         self.draws: Optional[UCDraws] = None
+        self.channel_shard: Optional[Tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.draws is None or self.rate == 0.0:
@@ -289,8 +320,14 @@ class CheapDropout(nn.Module):
         if self.channelwise:
             shape = shape[:2] + (1,) * (x.dim() - 2)
         channels_last = x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last)
+        split = spatial.active()
+        rows = None
+        if split is not None and not self.channelwise:
+            h = split.height(x)
+            rows = split.rows(h) + (h,)
         keep = self.draws.keep(self.path, shape, self.keep_q, x.device,
-                               torch.channels_last if channels_last else torch.contiguous_format)
+                               torch.channels_last if channels_last else torch.contiguous_format,
+                               channels=self.channel_shard, rows=rows)
         scale = torch.tensor(256.0 / self.keep_q, dtype=x.dtype, device=x.device)
         return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -314,7 +351,7 @@ def _norm(live_bn: bool):
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False)
+    return spatial.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False)
 
 
 class Bottleneck(nn.Module):
@@ -361,10 +398,15 @@ class Bottleneck(nn.Module):
         return self.bn3
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # in a sharded tail (parallel.tensor_parallel) each conv computes
+        # this rank's output channels from its whole input; the identity is
+        # the rank's channels of the block's input
+        x = column_input(x, self.conv1)
         identity = x if self.downsample is None else self.downsample(x)
+        identity = own_channels(identity, self.bn3.weight.shape[0])
         out = self.drop1(torch.relu(self.bn1(self.conv1(x))))
-        out = self.drop2d(torch.relu(self.bn2(self.conv2(out))))
-        out = self.bn3(self.conv3(out))
+        out = self.drop2d(torch.relu(self.bn2(self.conv2(column_input(out, self.conv2)))))
+        out = self.bn3(self.conv3(column_input(out, self.conv3)))
         return self.drop3(torch.relu(out + identity))
 
 
@@ -399,9 +441,11 @@ class BasicBlock(nn.Module):
         return self.bn2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = column_input(x, self.conv1)  # as Bottleneck's, in a sharded tail
         identity = x if self.downsample is None else self.downsample(x)
+        identity = own_channels(identity, self.bn2.weight.shape[0])
         out = torch.relu(self.bn1(self.conv1(x)))
-        return torch.relu(self.bn2(self.conv2(out)) + identity)
+        return torch.relu(self.bn2(self.conv2(column_input(out, self.conv2))) + identity)
 
 
 class ResStage(nn.Sequential):
@@ -436,7 +480,7 @@ class ResStage(nn.Sequential):
 
 def _stem_forward(conv1: nn.Conv2d, bn1: FrozenBatchNorm, x: torch.Tensor) -> torch.Tensor:
     x = torch.relu(bn1(conv1(x)))
-    return nn.functional.max_pool2d(x, 3, stride=2, padding=1)
+    return spatial.max_pool2d(x, 3, stride=2, padding=1)
 
 
 class ResNetStem(nn.Module):
@@ -444,7 +488,7 @@ class ResNetStem(nn.Module):
 
     def __init__(self, cin: int = 3, live_bn: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = spatial.Conv2d(cin, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _norm(live_bn)(64)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -461,7 +505,7 @@ class _Backbone(nn.Module):
         exp = _expansion(num_layers)
         self._stage_kw = dict(basic=exp == 1, live_bn=live_bn,
                               zero_init_residual=zero_init_residual, drop_rate=drop_rate)
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = spatial.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _norm(live_bn)(64)
         self.layer1 = ResStage(64, 64, blocks[0], 1, **self._stage_kw)
         self.layer2 = ResStage(64 * exp, 128, blocks[1], 2, caffe_stride=True, **self._stage_kw)

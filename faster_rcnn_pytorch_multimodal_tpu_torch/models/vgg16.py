@@ -14,6 +14,9 @@ Port of faster_rcnn_pytorch_multimodal_tpu/models/vgg16.py:
     training and in the Monte-Carlo samples, as the JAX package runs it.
 
 Modules are NCHW; the detector runs the head on channels_last tensors.
+The head's convs and pools split by rows inside a backbone pass on a model
+axis (parallel.spatial); fc6 and fc7 are column parallel there, each rank
+computing its shard of their 4096 outputs (parallel.tensor_parallel).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 from torch import nn
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import CheapDropout
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import spatial
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.tensor_parallel import column_input
 
 _CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
         512, 512, 512)
@@ -48,10 +53,10 @@ class VGG16Head(nn.Module):
         cin, pools = in_channels, 0
         for spec in _CFG:
             if spec == "M":
-                self.add_module(f"pool{pools}", nn.MaxPool2d(2, 2))
+                self.add_module(f"pool{pools}", spatial.MaxPool2d(2, 2))
                 pools += 1
             else:
-                self.add_module(next(names), nn.Conv2d(cin, spec, 3, padding=1))
+                self.add_module(next(names), spatial.Conv2d(cin, spec, 3, padding=1))
                 cin = spec
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,5 +79,5 @@ class VGG16Tail(nn.Module):
         self.drop7 = CheapDropout(DROP_RATE)
 
     def forward(self, flat: torch.Tensor) -> torch.Tensor:
-        x = self.drop6(torch.relu(self.fc6(flat)))
-        return self.drop7(torch.relu(self.fc7(x)))
+        x = self.drop6(torch.relu(self.fc6(column_input(flat, self.fc6))))
+        return self.drop7(torch.relu(self.fc7(column_input(x, self.fc7))))

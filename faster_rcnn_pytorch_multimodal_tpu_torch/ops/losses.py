@@ -13,10 +13,12 @@ from the caller, where the JAX package takes a key.
 Every mean over the batch goes through `batch_mean` or
 `weighted_batch_mean`.  Outside a data-parallel step they are the plain
 means.  Inside one (parallel.data_parallel) a rank returns its share of the
-global batch's loss, so that the global loss is the sum over the ranks, as
-JAX's SPMD step computes it over the global batch: a plain mean over equal
-shards is the rank's mean over the ranks, and a weighted mean divides the
-rank's weighted sum by max(the global sum of the weights, 1).
+global batch's loss, so that the global loss is the sum over the data
+group, as JAX's SPMD step computes it over the global batch: a plain mean
+over equal shards is the rank's mean over the data ranks, and a weighted
+mean divides the rank's weighted sum by max(the global sum of the weights,
+1).  The sums run over the data group only: a model group's ranks hold the
+same rows and the same losses.
 """
 
 from __future__ import annotations
@@ -30,15 +32,15 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
     """x.mean(); in a data-parallel step this rank's share of the global
-    batch's mean (the shards are of one shape)."""
+    batch's mean (the shards are of one shape) over the data group."""
     world = mesh.world_size()
     return x.mean() if world == 1 else x.mean() / world
 
 
 def weighted_batch_mean(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """sum(values * weights) / max(sum(weights), 1), the sum of the weights
-    taken over the global batch in a data-parallel step (without gradient:
-    the weights are masks)."""
+    taken over the global batch (the data group) in a data-parallel step
+    (without gradient: the weights are masks)."""
     w = weights.to(values.dtype)
     return (values * w).sum() / torch.clamp(mesh.reduce_sum(w.sum()), min=1.0)
 

@@ -1,15 +1,17 @@
-"""Data parallelism over torch.distributed process groups: the port of the
-JAX package's parallel/ (mesh.py's data axis and multihost.py).
+"""Data, tensor and spatial parallelism over torch.distributed process
+groups: the port of the JAX package's parallel/ (mesh.py's (data x model)
+mesh and multihost.py).
 
 JAX runs one SPMD program over a mesh of devices: the batch shards over
-the `data` axis, the parameters replicate, and XLA inserts the collectives.
-Here one process (a rank) runs a device, a process group takes the mesh's
-place, and a rank's contiguous row block of the global batch takes
-NamedSharding's.  What the SPMD program made global is made global by hand
-(mesh.py): the live-BN statistics, the weighted losses' denominators, the
-random draws and the gradient sum.  The `model` axis (tensor and spatial
-parallelism) is not ported (ROADMAP A4): MESH.MODEL > 1 and MESH.SPATIAL
-raise in models.detector.check_supported.
+the `data` axis, the RoI tail's channels (and with MESH.SPATIAL the
+backbone's rows) over the `model` axis, and XLA inserts the collectives.
+Here one process (a rank) runs a device, process groups take the mesh's
+place (mesh.py: rank r is (r // m, r % m)), a rank's contiguous row block
+of the global batch takes NamedSharding's, and what the SPMD program made
+global is made global by hand: the live-BN statistics, the weighted
+losses' denominators, the random draws and the gradient sum (mesh.py); the
+tail's column- and row-parallel layers (tensor_parallel.py); the
+backbone's row slabs and their halo exchange (spatial.py).
 """
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -20,5 +22,6 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.mesh import (  # noqa: F4
     data_world_size,
     init_data_parallel,
     local_batch_rows,
+    mesh_shape,
     shard_batch,
 )

@@ -26,7 +26,9 @@ sampler and holds the N-process step's loss and parameters to it:
         faster_rcnn_pytorch_multimodal_tpu_torch.parallel.multihost
 or `torchrun --nproc_per_node 2 -m faster_rcnn_pytorch_multimodal_tpu_torch.parallel.multihost`.
 The ranks run on the GPUs (`--device cuda`, the default); `--device cpu`
-puts them on the CPU.
+puts them on the CPU.  `--set MESH.MODEL 2 MESH.SPATIAL True` (config
+overrides) makes the WORLD_SIZE ranks a (WORLD_SIZE / 2) x 2 mesh whose
+model axis shards the RoI tail and splits the backbone's rows.
 """
 
 from __future__ import annotations
@@ -148,12 +150,14 @@ def spawn_ranks(target: Callable, world: int, *args, timeout: Optional[float] = 
 
 def worker_main(argv=None) -> None:
     """One rank of the dry run (the JAX test's res18 config at 64x96, float32
-    compute, a global batch of one frame a rank): the N-rank step against
-    the one-process step on the same global batch, computed in every rank;
-    the loss within 1e-3 relative and every parameter within 1e-3, JAX
-    worker_main's bars.  `--device cpu` puts the ranks on the CPU (cuda by
-    default: rank 0 builds the kernels, the others wait; TF32 off, as the
-    bars are float32's)."""
+    compute, a global batch of one frame a data rank): the N-rank step
+    against the one-process step on the same global batch, computed in
+    every rank; the loss within 1e-3 relative and every parameter within
+    1e-3, JAX worker_main's bars.  `--device cpu` puts the ranks on the CPU
+    (cuda by default: rank 0 builds the kernels, the others wait; TF32 off,
+    as the bars are float32's); `--set KEY VALUE ...` overrides the config
+    (MESH.MODEL, MESH.SPATIAL: the model axis, its parameters gathered
+    whole before the comparison)."""
     import argparse
     import copy
 
@@ -163,7 +167,7 @@ def worker_main(argv=None) -> None:
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.loader import BatchLoader
     from faster_rcnn_pytorch_multimodal_tpu_torch.data.synthetic import SyntheticDataset
     from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
-    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+    from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh, tensor_parallel
     from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
     from faster_rcnn_pytorch_multimodal_tpu_torch.training.solver import (
         batch_to_device,
@@ -175,6 +179,8 @@ def worker_main(argv=None) -> None:
 
     parser = argparse.ArgumentParser(description=worker_main.__doc__)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--set", dest="overrides", nargs="*", default=[],
+                        help="config overrides, e.g. MESH.MODEL 2 MESH.SPATIAL True")
     args = parser.parse_args(argv)
     torch.set_num_threads(1)
     rank, world, local_rank, local_world = env_ranks()
@@ -184,9 +190,10 @@ def worker_main(argv=None) -> None:
         "NET_TYPE", "image", "NET_VARIANT", "res18", "COMPUTE_DTYPE", "float32",
         "PIXEL_STDDEVS", "[60.,60.,60.]", "TRAIN.RPN_POST_NMS_TOP_N", "32",
         "TRAIN.ROI_BATCH_SIZE", "16", "STATIC.NMS_PRE_TRAIN", "128", "STATIC.MAX_GT", "8",
-        "ANCHOR_SCALES", "[4,8]", "ANCHOR_RATIOS", "[0.5,1,2]", "MESH.DATA", str(world),
+        "ANCHOR_SCALES", "[4,8]", "ANCHOR_RATIOS", "[0.5,1,2]", *args.overrides,
     ))
-    batch_size = world
+    batch_size = world // max(1, cfg.mesh.model)
+    cfg = cfg_from_list(cfg, ("MESH.DATA", str(batch_size)))
     dp = mesh.init_data_parallel(cfg, batch_size, rank=rank, world=world, local_rank=local_rank,
                                  local_world=local_world, device=args.device)
     try:
@@ -210,6 +217,8 @@ def worker_main(argv=None) -> None:
         ref_step = make_train_step(ref, DetectorSGD(ref, cfg))
         ref_losses, _ = ref_step(full, draw_train_keys(ref, full, step_generator(0, 0, dp.device)))
 
+        if tensor_parallel.is_sharded(model):
+            tensor_parallel.unshard_model_(model, dp)
         total, total_1 = float(losses["total_loss"]), float(ref_losses["total_loss"])
         assert total == total and abs(total) != float("inf"), f"rank {rank}: loss {total}"
         assert abs(total - total_1) < 1e-3 * max(1.0, abs(total_1)), (
@@ -219,7 +228,9 @@ def worker_main(argv=None) -> None:
                         for k, p in model.named_parameters())
         assert max_delta < 1e-3, f"rank {rank}: params diverge, max |dp - 1-process| {max_delta}"
         if rank == 0:
-            print(f"multihost dryrun ok: {world} ranks ({dp.backend}), total_loss={total:.4f}, "
+            axes = f" = {dp.data_world} data x {dp.model} model" if dp.model > 1 else ""
+            print(f"multihost dryrun ok: {world} ranks{axes} ({dp.backend}), "
+                  f"total_loss={total:.4f}, "
                   f"max param delta vs 1-process={max_delta:.3e}", flush=True)
     finally:
         mesh.shutdown(dp)

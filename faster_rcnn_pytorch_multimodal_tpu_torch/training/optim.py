@@ -23,10 +23,16 @@ buffer, since both are linear.  tests/test_torch_port_targets.py holds it
 against the optax chain.
 
 In a data-parallel run (`dp`) each rank's gradients are those of its share
-of the global loss; `step` sums them over the ranks
+of the global loss; `step` sums them over the data group
 (parallel.all_reduce_grads_, one flat bucket) before the clip, so the clip
 sees the global gradient's norm and every rank applies the same update, as
-JAX's SPMD step does.
+JAX's SPMD step does.  On a model axis a sharded leaf's gradient is its
+shard's and a replicated leaf's is the same on every rank of the model
+group: both sum over the data group; a backbone leaf whose step ran on row
+slabs (parallel.spatial) holds its slab's part and sums over every rank.
+The clip's norm counts a replicated leaf once and sums the sharded leaves'
+squares over the model group.  Momentum buffers live with their leaves'
+shards.
 """
 
 from __future__ import annotations
@@ -36,7 +42,10 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
 from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.mesh import DataParallel, all_reduce_grads_
 from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
 
@@ -99,7 +108,9 @@ def lr_schedule(cfg: Config) -> Callable[[int], float]:
     return lr
 
 
-def safe_clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def safe_clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                              sharded: Optional[List[bool]] = None,
+                              dp: Optional[DataParallel] = None) -> torch.Tensor:
     """Scale `grads` in place to a global L2 norm of at most max_norm;
     returns the norm before clipping.
 
@@ -108,11 +119,23 @@ def safe_clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> tor
     squares raw values).  A non-finite norm zeroes every gradient, so the
     step applies only weight decay and momentum, as in the JAX package.
     Deciding that reads the norm on the host: one synchronisation a step.
+    With `sharded` (a flag a leaf: a shard of a leaf split over `dp`'s model
+    group) m is the maximum over the model group and the sharded leaves'
+    squares sum over it, the others' count once: every rank gets the norm
+    of the whole gradient.
     """
     m = torch.stack(torch._foreach_norm(grads, float("inf"))).amax()
+    if sharded is not None:
+        m = mesh.all_reduce_(m.clone(), dp, "model", op=dist.ReduceOp.MAX)
     safe_m = torch.where(m > 0, m, torch.ones_like(m))
     scaled = torch._foreach_div(grads, safe_m)
-    sumsq = torch.stack(torch._foreach_norm(scaled, 2.0)).square().sum()
+    squares = torch.stack(torch._foreach_norm(scaled, 2.0)).square()
+    if sharded is None:
+        sumsq = squares.sum()
+    else:
+        split = torch.tensor(sharded, device=squares.device)
+        sumsq = (mesh.all_reduce_(squares[split].sum(), dp, "model")
+                 + squares[~split].sum())
     norm = safe_m * torch.sqrt(sumsq)
     if not torch.isfinite(norm):
         torch._foreach_zero_(grads)
@@ -131,6 +154,7 @@ class DetectorSGD:
     def __init__(self, model: torch.nn.Module, cfg: Config, dp: Optional[DataParallel] = None):
         self.cfg = cfg
         self.dp = dp
+        self.model = model
         self.last_reduce_ms: Optional[float] = None
         self.schedule = lr_schedule(cfg)
         self.step_count = 0
@@ -142,6 +166,8 @@ class DetectorSGD:
                 key = (wants_decay(name, cfg), cfg.train.double_bias and is_bias(name))
                 groups.setdefault(key, []).append(p)
         self.params = [p for ps in groups.values() for p in ps]
+        names = {p: k for k, p in model.named_parameters()}
+        self.names = [names[p] for p in self.params]
         self.sgd = torch.optim.SGD(
             [
                 {"params": ps, "weight_decay": cfg.train.weight_decay if decay else 0.0,
@@ -162,12 +188,23 @@ class DetectorSGD:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        sharded = None
         if self.dp is not None:
             timer = DeviceTimer(self.dp.device)
             timer.start()
-            all_reduce_grads_([p.grad for p in self.params], self.dp)
+            if self.dp.model == 1:
+                all_reduce_grads_(grads, self.dp)
+            else:
+                dims = getattr(self.model, "shard_dims", None) or {}
+                sharded = [k in dims for k in self.names]
+                # the backbone's leaves hold their row slab's part of the gradient
+                slabs = [getattr(self.model, "rows_split", False)
+                         and k.startswith("backbone.") for k in self.names]
+                all_reduce_grads_([g for g, s in zip(grads, slabs) if not s], self.dp, "data")
+                all_reduce_grads_([g for g, s in zip(grads, slabs) if s], self.dp, "all")
             self.last_reduce_ms = timer.stop()
-        norm = safe_clip_by_global_norm_([p.grad for p in self.params], self.cfg.grad_max_clip)
+        norm = safe_clip_by_global_norm_(grads, self.cfg.grad_max_clip, sharded, self.dp)
         lr = self.schedule(self.step_count)
         for group in self.sgd.param_groups:
             group["lr"] = lr * group["lr_scale"]

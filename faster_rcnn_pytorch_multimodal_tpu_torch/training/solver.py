@@ -47,6 +47,19 @@ all-reduced each step), and the val cycle's losses and activation
 statistics are global; val detections are drawn on rank 0, from its rows,
 and the RPN recall is summed over the ranks.  With one rank (dp None)
 nothing of this runs.
+
+On a model axis (MESH.MODEL > 1) the ranks of a model group hold the same
+rows: the draws are their data index's row block, the losses, statistics
+and activation summaries reduce over the data group, and each rank holds
+its shard of the tail (parallel.tensor_parallel).  `Solver.train` keeps the
+model whole until every rank holds rank 0's weights
+(mesh.broadcast_parameters_, which then shards them with the momentum
+buffers), so a restore or a preload always reads a whole state dict;
+snapshots gather the whole model and optimizer first (every rank takes
+part, rank 0 writes), so a snapshot written at 2 x 2 resumes in one
+process and the reverse; train() hands the model back whole.  The val
+detections run on the model group of data rank 0 (every rank of it takes
+part in the tail's collectives; rank 0 draws).
 """
 
 from __future__ import annotations
@@ -78,6 +91,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.models.detector import (
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.models.resnet import LiveBatchNorm
 from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import tensor_parallel as tp
 from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.mesh import DataParallel
 from faster_rcnn_pytorch_multimodal_tpu_torch.training.metrics import MetricsWriter, NullWriter
 from faster_rcnn_pytorch_multimodal_tpu_torch.training.optim import DetectorSGD
@@ -124,13 +138,15 @@ def compute_call(model: FasterRCNN, method, *args, **kwargs):
 
 def detect(
     model: FasterRCNN, images: torch.Tensor, window: torch.Tensor,
-    draws: Optional[UCDraws] = None,
+    draws: Optional[UCDraws] = None, dp: Optional[DataParallel] = None,
 ) -> Dict[str, torch.Tensor]:
     """One serving pass of a model in training (forward_test in the compute
     dtype, in eval mode, without gradients), as the JAX package's quality
     runs call forward_test on cast_for_compute(params); `draws` gives the
-    uncertainty's masks and normals (see FasterRCNN.forward_test)."""
-    with eval_mode(model), torch.no_grad():
+    uncertainty's masks and normals (see FasterRCNN.forward_test).  With a
+    model axis (`dp`) every rank of the model group calls it on the same
+    frames."""
+    with eval_mode(model), torch.no_grad(), mesh.data_parallel(dp):
         return compute_call(model, "forward_test", images, window, draws=draws)
 
 
@@ -164,7 +180,7 @@ def draw_train_keys(
     one key draws for the global batch."""
     data, gt = batch["data"], batch["gt_boxes"]
     b, g = gt.shape[:2]
-    rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+    rank, world = (dp.data_rank, dp.data_world) if dp is not None else (0, 1)
     n, r = model.train_lane_counts(tuple(data.shape[1:3]), g)
     kw = dict(generator=generator, device=data.device)
 
@@ -314,14 +330,15 @@ def act_summary(
     (running statistics), keyed act_conv0/mean|std|absmax as JAX's
     make_act_summary_step keys its one sown leaf.  With `dp` the images are
     a rank's rows and the statistics the global batch's (the std about the
-    global mean)."""
-    with eval_mode(model), torch.no_grad():
+    global mean), each element counted once: over the data group, since
+    `features` hands every rank of a model group the whole map."""
+    with eval_mode(model), torch.no_grad(), mesh.data_parallel(dp):
         feats = compute_call(model, "features", images)
     a = (feats[0] if isinstance(feats, tuple) else feats).float()
     if dp is None:
         return {"act_conv0/mean": a.mean(), "act_conv0/std": a.std(unbiased=False),
                 "act_conv0/absmax": a.abs().max()}
-    n = a.numel() * dp.world
+    n = a.numel() * dp.data_world
     mean = mesh.reduce_sum(a.sum(), dp) / n
     var = mesh.reduce_sum((a - mean).square().sum(), dp) / n
     return {"act_conv0/mean": mean, "act_conv0/std": var.sqrt(),
@@ -439,22 +456,27 @@ class Solver:
         train loader's sampler state and the step.  It is written under a
         temporary name and renamed, so a stop mid-write leaves nothing that
         find_previous would pick; then keep-last-N.  Data-parallel: rank 0
-        writes, every rank waits for it (the replicas are equal)."""
+        writes, every rank waits for it (the replicas are equal); a sharded
+        model and its momentum are gathered whole for it on every rank
+        first (a collective) and sharded again after."""
         path = os.path.join(self._ckpt_dir, f"iter_{step}")
-        if not self.is_main:
-            mesh.barrier(self.dp)
-            return path
-        os.makedirs(self._ckpt_dir, exist_ok=True)
-        state = {
-            "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-            "optimizer": self.optimizer.state_dict(),
-            "loader": _loader_state_to_tensors(self.train_loader.state_dict()),
-            "step": int(step),
-        }
-        tmp = os.path.join(self._ckpt_dir, f".iter_{step}.tmp")
-        torch.save(state, tmp)
-        os.replace(tmp, path)
-        self._gc_snapshots()
+        sharded = tp.is_sharded(self.model)
+        if sharded:
+            tp.unshard_model_(self.model, self.dp, self.optimizer)
+        if self.is_main:
+            os.makedirs(self._ckpt_dir, exist_ok=True)
+            state = {
+                "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+                "optimizer": self.optimizer.state_dict(),
+                "loader": _loader_state_to_tensors(self.train_loader.state_dict()),
+                "step": int(step),
+            }
+            tmp = os.path.join(self._ckpt_dir, f".iter_{step}.tmp")
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+            self._gc_snapshots()
+        if sharded:
+            tp.shard_model_(self.model, self.dp, self.optimizer)
         mesh.barrier(self.dp)
         return path
 
@@ -543,8 +565,9 @@ class Solver:
     def _val_detections(self, val_batch, step: int, max_draw: int = 4) -> Dict[str, float]:
         """Full inference on the val batch: draw detections (full net) or
         log proposal recall (RPN only).  Returns scalars for the val log.
-        Data-parallel: the recall is the global batch's; rank 0 draws its
-        rows' detections."""
+        Data-parallel: the recall is the global batch's (a model group's
+        ranks count once); rank 0 draws its rows' detections, which the
+        ranks of its model group compute with it."""
         from faster_rcnn_pytorch_multimodal_tpu_torch.evaluation.drawing import (
             draw_frame_detections,
             proposal_recall,
@@ -552,11 +575,15 @@ class Solver:
         from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import to_per_class_lists
 
         cfg = self.cfg
-        if cfg.enable_full_net and not self.is_main:
+        dp = self.dp
+        if cfg.enable_full_net and dp is not None and dp.data_rank != 0:
             return {}
         draws = (UCDraws(torch.Generator(device=self.device).manual_seed(self.seed))
                  if uses_uncertainty(cfg) else None)
-        out = detect(self.model, val_batch["data"], val_batch["window"], draws)
+        out = detect(self.model, val_batch["data"], val_batch["window"], draws,
+                     dp if dp is not None and dp.model > 1 else None)
+        if cfg.enable_full_net and not self.is_main:
+            return {}
         gt, gt_mask = val_batch["gt_boxes"], val_batch["gt_mask"].cpu().numpy()
         if not cfg.enable_full_net:
             if cfg.net_type == "lidar":
@@ -566,7 +593,9 @@ class Solver:
             covered, total = proposal_recall(out["rois"].cpu().numpy(),
                                              out["roi_valid"].cpu().numpy(),
                                              gt.cpu().numpy(), gt_mask)
-            covered, total = (int(v) for v in mesh.host_sum((covered, total), self.dp))
+            once = dp is None or dp.model_rank == 0  # a model group's ranks hold one count
+            covered, total = (int(v) for v in mesh.host_sum(
+                (covered, total) if once else (0, 0), self.dp))
             recall = covered / max(total, 1)
             if self.is_main:
                 print(f"val rpn recall@0.5: {recall:.4f} ({covered}/{total})")
@@ -608,8 +637,9 @@ class Solver:
         """Train to step max_iters.  Returns the last logged losses,
         frames/s over the run (wall clock, the global batch's frames), the
         step it ended at, every step's losses and device ms (from `train`),
-        the gradient all-reduce's ms a step (data-parallel) and the wall
-        seconds."""
+        the gradient all-reduce's ms a step (data-parallel), the tail's
+        bytes on this rank (its shards on a model axis) and the wall
+        seconds.  The model is whole when it returns."""
         cfg = self.cfg
         dp = self.dp
         log_every = log_every or cfg.train.display
@@ -630,8 +660,10 @@ class Solver:
                   f"{cfg.resnet.fixed_blocks} >= 0: frozen random BN affines will not train. "
                   "Set FIXED_BLOCKS=-1 or preload weights.")
         # one replica: rank 0's weights (a random init, a restore or a
-        # preload are the same on every rank; this makes sure of it)
-        mesh.broadcast_parameters_(self.model, dp)
+        # preload are the same on every rank; this makes sure of it), then
+        # each rank's shards on a model axis
+        mesh.broadcast_parameters_(self.model, dp, self.optimizer)
+        tail_bytes = tp.tail_bytes(self.model)
         self._eval_step = (make_eval_step(self.model, dp) if self.val_loader is not None
                            else None)
 
@@ -675,6 +707,9 @@ class Solver:
             self.train_loader.kill()
             killer.restore()
         wall = time.time() - t_start
+        if tp.is_sharded(self.model):
+            tp.unshard_model_(self.model, dp, self.optimizer)
         return {"losses": last, "frames_per_sec": len(res["ms"]) * self.train_loader.batch_size
                 / max(wall, 1e-9), "step": end["step"], "history": res["losses"],
-                "ms": res["ms"], "reduce_ms": res["reduce_ms"], "wall_s": wall}
+                "ms": res["ms"], "reduce_ms": res["reduce_ms"], "tail_bytes": tail_bytes,
+                "wall_s": wall}

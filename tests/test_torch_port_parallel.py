@@ -28,7 +28,7 @@ rtol 1e-4, each leaf's gradient and update within 1e-3 of its max, the
 running statistics within 1e-5 of max).
 
 Also the JAX package's rules: the row split and the world-size divisor
-rule, and MESH.MODEL raising.
+rule, and the model axis's settings accepted and planned.
 """
 
 from __future__ import annotations
@@ -418,10 +418,14 @@ def test_mesh_data_above_the_devices_shares_them():
 
 @pytest.mark.parametrize("over", [("MESH.MODEL", "2"), ("MESH.SPATIAL", "True")])
 def test_model_axis_raises(over):
-    """(ix) Tensor and spatial parallelism are not ported: they raise,
-    naming ROADMAP A4."""
+    """(ix) Tensor and spatial parallelism are ported (they raised before,
+    naming ROADMAP A4): the detector builds, and the grid plans the model
+    axis: MESH.MODEL 2 on one GPU is a 1 x 2 mesh (the ranks share it),
+    MESH.SPATIAL alone a no-op on a model axis of 1
+    (tests/test_torch_port_model_parallel.py holds the steps)."""
     cfg = cfg_from_list(default_config(), ("NET_VARIANT", "res18") + over)
-    with pytest.raises(NotImplementedError, match="A4"):
-        FasterRCNN(cfg, 2)
-    with pytest.raises(NotImplementedError, match="A4"):
-        mesh.data_world_size(cfg, 8, 1)
+    FasterRCNN(cfg, 2)
+    m = cfg.mesh.model
+    assert mesh.mesh_shape(cfg, 8, 1) == (1, m)
+    assert mesh.data_world_size(cfg, 8, 1) == m
+    assert mesh.data_world_size(cfg, 8, 4) == 4 // m * m

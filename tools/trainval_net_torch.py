@@ -35,6 +35,20 @@ torchrun every process is one rank:
 Rank 0 alone logs and snapshots; every rank resumes from rank 0's newest
 snapshot; a SIGINT or SIGTERM to the launcher (or to any rank) stops
 every rank after the same step.
+
+Tensor and spatial parallelism (the JAX mesh's `model` axis): `--set
+MESH.MODEL m` runs n x m ranks, n the data axis as above over the GPUs / m,
+each model group of m ranks holding a shard of the RoI tail's channels
+(`tp`); `MESH.SPATIAL True` also splits the backbone's rows over the group
+(`tp+sp`; where the frame's height divides by m, else the frame stays
+whole, said once).  On one GPU the n x m ranks share it over gloo (printed
+as such); `--device cpu` runs them as CPU ranks:
+
+    python tools/trainval_net_torch.py --db synthetic --net res18 --iters 4 --batch_size 2 --set MESH.DATA 2 MESH.MODEL 2 MESH.SPATIAL True
+    python tools/trainval_net_torch.py --device cpu --db synthetic --net res18 --iters 2 --batch_size 2 --set MESH.DATA 1 MESH.MODEL 2 MESH.SPATIAL True STATIC.NMS_PRE_TRAIN 256 TRAIN.RPN_POST_NMS_TOP_N 64 TRAIN.ROI_BATCH_SIZE 32
+
+Snapshots hold the whole model and optimizer, so a run resumes at another
+mesh shape (2 x 2 from one process, or the reverse).
 """
 
 from __future__ import annotations
@@ -82,7 +96,9 @@ def main(argv=None):
     if device.type == "cuda":
         _, seconds, _ = _build.build()
         print(f"kernels: {_build.library_path()} (built in {seconds:.1f} s)")
-    print(f"spawning {world} ranks for a global batch of {cfg.train.batch_size} on {gpus} "
+    n, m = mesh.mesh_shape(cfg, cfg.train.batch_size, gpus)
+    axes = f" ({n} data x {m} model)" if m > 1 else ""
+    print(f"spawning {world} ranks{axes} for a global batch of {cfg.train.batch_size} on {gpus} "
           f"{device.type} device(s)")
     return spawn_ranks(train_rank, world, args)[0]
 
@@ -126,7 +142,9 @@ def train_rank(rank, world, init_method, args):
         out_dir = os.path.join(args.out_dir, cfg.net_type, db.name)
         solver = Solver(cfg, model, loader, val_loader=val_loader, output_dir=out_dir,
                         pretrained_path=args.weights_file if cfg.preload else None, dp=dp)
-        on = device if dp is None else f"{dp.world} ranks ({dp.backend}), rank 0 on {device}"
+        on = device if dp is None else (
+            f"{dp.world} ranks = {dp.data_world} data x {dp.model} model ({dp.backend}), "
+            f"rank 0 on {device}")
         if is_main:
             print(f"training {cfg.net_variant} {cfg.net_type} {cfg.compute_dtype} on {db.name} "
                   f"({len(db)} frames, {len(db.classes)} classes, batch {batch}) for "
