@@ -36,7 +36,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.filter import (
     filter_detections,
     to_per_class_lists,
 )
-from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer, span
 
 
 def model_device(model: torch.nn.Module) -> torch.device:
@@ -48,11 +48,13 @@ def eval_mode(model: torch.nn.Module) -> Iterator[torch.nn.Module]:
     """Within the block the model is in eval mode (live BN normalizes with
     its running statistics); then it is back in the mode it was in."""
     was_training = model.training
-    model.eval()
+    with span("serve.eval_mode"):  # each switch walks every module
+        model.eval()
     try:
         yield model
     finally:
-        model.train(was_training)
+        with span("serve.eval_mode"):
+            model.train(was_training)
 
 
 def _on_device(a, device: torch.device) -> torch.Tensor:
@@ -68,11 +70,13 @@ def detect_batch(
     NHWC frames (numpy) or a BEV raster (a tensor, already on the model's
     device), and `window`; `draws` gives the uncertainty's masks and
     normals (see FasterRCNN.forward_test)."""
-    device = model_device(model)
-    images = _on_device(batch["data"], device)
-    window = _on_device(np.asarray(batch["window"], np.float32), device)
-    with eval_mode(model), torch.inference_mode():
-        return model.forward_test(images, window, draws)
+    with span("serve.detect"):
+        device = model_device(model)
+        with span("serve.h2d"):
+            images = _on_device(batch["data"], device)
+            window = _on_device(np.asarray(batch["window"], np.float32), device)
+        with eval_mode(model), torch.inference_mode():
+            return model.forward_test(images, window, draws)
 
 
 def all_finite(out: Dict) -> bool:
@@ -85,7 +89,7 @@ def all_finite(out: Dict) -> bool:
 def filter_batch(model: FasterRCNN, out: Dict[str, torch.Tensor], thresh: float) -> Dict[str, torch.Tensor]:
     """Final per-class detections of a batch: dict of (B, K, max_dets, .)."""
     cfg = model.cfg
-    with torch.inference_mode():
+    with span("serve.filter"), torch.inference_mode():
         return filter_detections(
             out["cls_prob"],
             out["bbox_pred"],

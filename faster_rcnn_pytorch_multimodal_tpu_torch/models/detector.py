@@ -145,6 +145,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.targets import (
     proposal_target,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh, spatial
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FPN_STRIDES = (4, 8, 16, 32)  # p2..p5
@@ -423,8 +424,11 @@ class FasterRCNN(nn.Module):
         once).  `rows_split` records which it was, for the optimizer.  The
         FPN, the RPN and everything after run on the whole maps."""
         if not images.is_floating_point():
-            means = torch.tensor(self.cfg.pixel_means, dtype=torch.float32, device=images.device)
-            stds = torch.tensor(self.cfg.pixel_stddevs, dtype=torch.float32, device=images.device)
+            with span("sync.pixel_norm"):  # blocking copies: the host waits for the device
+                means = torch.tensor(self.cfg.pixel_means, dtype=torch.float32,
+                                     device=images.device)
+                stds = torch.tensor(self.cfg.pixel_stddevs, dtype=torch.float32,
+                                    device=images.device)
             images = (images.float() - means) / stds
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)  # channels_last view
         dp = mesh.active()
@@ -512,16 +516,17 @@ class FasterRCNN(nn.Module):
         static = self.cfg.static
         pre_n = static.nms_pre_train if phase == "train" else static.nms_pre_test
         top_mode = phase == "test" and c.mode == "top"
-        return propose(
-            rpn_out["fg_prob"],
-            rpn_out["deltas"],
-            anchors,
-            window,
-            pre_nms_top_n=min(pre_n, c.rpn_pre_nms_top_n),
-            post_nms_top_n=c.rpn_top_n if top_mode else c.rpn_post_nms_top_n,
-            nms_thresh=c.rpn_nms_thresh,
-            use_nms=not top_mode,
-        )
+        with span("det.proposals"):  # `propose` looked up at each call: benchmarks rebind it
+            return propose(
+                rpn_out["fg_prob"],
+                rpn_out["deltas"],
+                anchors,
+                window,
+                pre_nms_top_n=min(pre_n, c.rpn_pre_nms_top_n),
+                post_nms_top_n=c.rpn_top_n if top_mode else c.rpn_post_nms_top_n,
+                nms_thresh=c.rpn_nms_thresh,
+                use_nms=not top_mode,
+            )
 
     # -- roi head ----------------------------------------------------------
 
@@ -683,20 +688,22 @@ class FasterRCNN(nn.Module):
         with_uc = uses_uncertainty(c)
         if with_uc and draws is None:
             draws = UCDraws(torch.Generator(device=images.device).manual_seed(0))
-        feat = self.features(images)
+        with span("det.backbone"):
+            feat = self.features(images)
         rpn_samples = None
-        if uc.rpn_epistemic:
-            # T samples of the backbone and RPN head with live dropout; the
-            # proposals come from the mean scores and deltas
-            rpn_samples = self._mc_samples(
-                draws, (self.backbone,), images, lambda x: self.rpn_scores(self.features(x)))
-            rpn_out = {"fg_prob": rpn_samples["fg_prob"].mean(dim=0),
-                       "deltas": rpn_samples["deltas"].mean(dim=0)}
-            for k in ("logits", "bbox_al_var", "cls_al_var"):
-                if k in rpn_samples:
-                    rpn_out[k] = rpn_samples[k][0]
-        else:
-            rpn_out = self.rpn_scores(feat)
+        with span("det.rpn"):
+            if uc.rpn_epistemic:
+                # T samples of the backbone and RPN head with live dropout; the
+                # proposals come from the mean scores and deltas
+                rpn_samples = self._mc_samples(
+                    draws, (self.backbone,), images, lambda x: self.rpn_scores(self.features(x)))
+                rpn_out = {"fg_prob": rpn_samples["fg_prob"].mean(dim=0),
+                           "deltas": rpn_samples["deltas"].mean(dim=0)}
+                for k in ("logits", "bbox_al_var", "cls_al_var"):
+                    if k in rpn_samples:
+                        rpn_out[k] = rpn_samples[k][0]
+            else:
+                rpn_out = self.rpn_scores(feat)
         m = self.rpn_map(feat)
         anchors, anchors_3d = self.anchor_grids(m.shape[1], m.shape[2], m.device)
         rois, roi_scores, roi_valid, src = self._propose_batch(rpn_out, anchors, window)
@@ -708,22 +715,25 @@ class FasterRCNN(nn.Module):
             out["rpn_uncertainties"] = self.rpn_uncertainties(rpn_out, rpn_samples, rois, src, draws)
         if not c.enable_full_net:
             return out
-        if not with_uc:
-            out["cls_prob"], out["bbox_pred"] = self.classify_rois(feat, rois, window, roi_a3d)
-            return out
+        with span("det.roi_head"):
+            if not with_uc:
+                out["cls_prob"], out["bbox_pred"] = self.classify_rois(feat, rois, window, roi_a3d)
+                return out
 
-        if uc.any_epistemic:
-            # RoIs pooled once (K2 launches once a batch); only the tail and
-            # the predictors run for each sample
-            s = rois.shape[1]
-            det = self._mc_samples(draws, (self.tail, self.predictors), self.pool_rois(feat, rois),
-                                   lambda x: self.pooled_head(x, x.shape[0], s))
-        else:
-            det = {k: v[None] for k, v in self.roi_head(feat, rois).items()}
-        out["cls_prob"] = torch.softmax(det["cls_score"], dim=-1).mean(dim=0)
-        out["bbox_pred"] = self.decode_boxes(det["bbox_pred"].mean(dim=0), rois, window, roi_a3d)
-        out["uncertainties"] = self.det_uncertainties(det, rois, roi_a3d, draws)
-        return out
+            if uc.any_epistemic:
+                # RoIs pooled once (K2 launches once a batch); only the tail and
+                # the predictors run for each sample
+                s = rois.shape[1]
+                det = self._mc_samples(draws, (self.tail, self.predictors),
+                                       self.pool_rois(feat, rois),
+                                       lambda x: self.pooled_head(x, x.shape[0], s))
+            else:
+                det = {k: v[None] for k, v in self.roi_head(feat, rois).items()}
+            out["cls_prob"] = torch.softmax(det["cls_score"], dim=-1).mean(dim=0)
+            out["bbox_pred"] = self.decode_boxes(det["bbox_pred"].mean(dim=0), rois, window,
+                                                 roi_a3d)
+            out["uncertainties"] = self.det_uncertainties(det, rois, roi_a3d, draws)
+            return out
 
     # -- training -------------------------------------------------------------
 
@@ -853,12 +863,16 @@ class FasterRCNN(nn.Module):
             )
         device = rois.device
         tc = c.train
+        with span("sync.roi_norm"):  # blocking copies: the host waits for the device
+            means = torch.tensor(
+                tc.lidar_bbox_normalize_means if lidar else tc.image_bbox_normalize_means,
+                device=device)
+            stds = torch.tensor(
+                tc.lidar_bbox_normalize_stds if lidar else tc.image_bbox_normalize_stds,
+                device=device)
         return proposal_target(
             rois, valid, gt_bev, gt_mask, gt_boxes_dc, dc_mask, draws.roi_fg, draws.roi_bg,
-            torch.tensor(tc.lidar_bbox_normalize_means if lidar else tc.image_bbox_normalize_means,
-                         device=device),
-            torch.tensor(tc.lidar_bbox_normalize_stds if lidar else tc.image_bbox_normalize_stds,
-                         device=device),
+            means, stds,
             num_classes=self.num_classes, num_bbox_elem=c.num_bbox_elem,
             roi_batch_size=tc.roi_batch_size, fg_fraction=tc.fg_fraction,
             fg_thresh=tc.fg_thresh, bg_thresh_hi=tc.bg_thresh_hi,
@@ -875,27 +889,29 @@ class FasterRCNN(nn.Module):
         the classification and box losses."""
         c = self.cfg
         lidar = c.net_type == "lidar"
-        pt = self.sample_rois(rpn_out, grids, window, proposal_src, proposal_valid, gt_boxes,
-                              gt_mask, gt_boxes_dc, dc_mask, draws)
-        det = self.roi_head(feat, pt.rois)
-        b, s = pt.labels.shape
-        uc = c.uc
-        cls_score, labels = det["cls_score"].reshape(b * s, -1), pt.labels.reshape(-1)
-        losses = {}
-        if uc.en_cls_aleatoric:
-            var = torch.exp(det["cls_al_var"].reshape(b * s, -1))
-            normals = self._uc_draws(draws).normal(
-                "ce", (uc.a_num_ce_sample,) + tuple(cls_score.shape), cls_score.device)
-            ce, a_mi = BAYES_VARIANTS[uc.bayes_variant](cls_score, var, labels, normals)
-            losses["cross_entropy"], losses["a_mutual_info"] = ce, batch_mean(a_mi)
-        else:
-            losses["cross_entropy"] = cross_entropy(cls_score, labels)
-        losses["loss_box"] = smooth_l1_loss(
-            det["bbox_pred"], pt.bbox_targets, pt.bbox_inside_weights,
-            pt.bbox_outside_weights, bbox_var=det.get("bbox_al_var") if uc.en_bbox_aleatoric else None,
-            lidar_det=lidar, en_ry_sin=c.lidar.en_ry_sin,
-            reg_loss_weight=c.lidar.reg_loss_weight, sum_axes=(2,),
-        )
+        with span("det.roi_targets"):
+            pt = self.sample_rois(rpn_out, grids, window, proposal_src, proposal_valid, gt_boxes,
+                                  gt_mask, gt_boxes_dc, dc_mask, draws)
+        with span("det.roi_head"):
+            det = self.roi_head(feat, pt.rois)
+            b, s = pt.labels.shape
+            uc = c.uc
+            cls_score, labels = det["cls_score"].reshape(b * s, -1), pt.labels.reshape(-1)
+            losses = {}
+            if uc.en_cls_aleatoric:
+                var = torch.exp(det["cls_al_var"].reshape(b * s, -1))
+                normals = self._uc_draws(draws).normal(
+                    "ce", (uc.a_num_ce_sample,) + tuple(cls_score.shape), cls_score.device)
+                ce, a_mi = BAYES_VARIANTS[uc.bayes_variant](cls_score, var, labels, normals)
+                losses["cross_entropy"], losses["a_mutual_info"] = ce, batch_mean(a_mi)
+            else:
+                losses["cross_entropy"] = cross_entropy(cls_score, labels)
+            losses["loss_box"] = smooth_l1_loss(
+                det["bbox_pred"], pt.bbox_targets, pt.bbox_inside_weights, pt.bbox_outside_weights,
+                bbox_var=det.get("bbox_al_var") if uc.en_bbox_aleatoric else None,
+                lidar_det=lidar, en_ry_sin=c.lidar.en_ry_sin,
+                reg_loss_weight=c.lidar.reg_loss_weight, sum_axes=(2,),
+            )
         return losses, pt
 
     def forward_train(
@@ -928,9 +944,11 @@ class FasterRCNN(nn.Module):
         live = (live_dropout(self._uc_draws(draws), self) if self.cfg.uc.any_epistemic
                 else contextlib.nullcontext())
         with live:
-            feat = self.features(images)
-            rpn_out, grids, at, losses = self.rpn_train(
-                feat, gt_boxes, gt_mask, window, draws, scale_idx)
+            with span("det.backbone"):
+                feat = self.features(images)
+            with span("det.rpn"):
+                rpn_out, grids, at, losses = self.rpn_train(
+                    feat, gt_boxes, gt_mask, window, draws, scale_idx)
             src = valid = pt = None
             if self.cfg.enable_full_net:
                 src, valid = proposals if proposals is not None else self.select_proposals(
@@ -986,12 +1004,13 @@ class FasterRCNN(nn.Module):
         k, e = self.num_classes, c.num_bbox_elem
         lidar = c.net_type == "lidar"
         tc = c.train
-        means = torch.tensor(
-            tc.lidar_bbox_normalize_means if lidar else tc.image_bbox_normalize_means,
-            device=rois.device)
-        stds = torch.tensor(
-            tc.lidar_bbox_normalize_stds if lidar else tc.image_bbox_normalize_stds,
-            device=rois.device)
+        with span("sync.box_norm"):  # blocking copies: the host waits for the device
+            means = torch.tensor(
+                tc.lidar_bbox_normalize_means if lidar else tc.image_bbox_normalize_means,
+                device=rois.device)
+            stds = torch.tensor(
+                tc.lidar_bbox_normalize_stds if lidar else tc.image_bbox_normalize_stds,
+                device=rois.device)
         deltas = (bbox_pred.reshape(b, s, k, e) * stds + means).reshape(b, s, k * e)
         if lidar:
             if anchors_3d is None:

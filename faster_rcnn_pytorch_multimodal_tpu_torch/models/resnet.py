@@ -44,6 +44,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.tensor_parallel import (
     column_input,
     own_channels,
 )
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import span
 
 # layers-per-stage per depth (ref resnet.py:242-295)
 STAGE_BLOCKS = {
@@ -401,13 +402,14 @@ class Bottleneck(nn.Module):
         # in a sharded tail (parallel.tensor_parallel) each conv computes
         # this rank's output channels from its whole input; the identity is
         # the rank's channels of the block's input
-        x = column_input(x, self.conv1)
-        identity = x if self.downsample is None else self.downsample(x)
-        identity = own_channels(identity, self.bn3.weight.shape[0])
-        out = self.drop1(torch.relu(self.bn1(self.conv1(x))))
-        out = self.drop2d(torch.relu(self.bn2(self.conv2(column_input(out, self.conv2)))))
-        out = self.bn3(self.conv3(column_input(out, self.conv3)))
-        return self.drop3(torch.relu(out + identity))
+        with span("det.block"):
+            x = column_input(x, self.conv1)
+            identity = x if self.downsample is None else self.downsample(x)
+            identity = own_channels(identity, self.bn3.weight.shape[0])
+            out = self.drop1(torch.relu(self.bn1(self.conv1(x))))
+            out = self.drop2d(torch.relu(self.bn2(self.conv2(column_input(out, self.conv2)))))
+            out = self.bn3(self.conv3(column_input(out, self.conv3)))
+            return self.drop3(torch.relu(out + identity))
 
 
 class BasicBlock(nn.Module):
@@ -441,11 +443,12 @@ class BasicBlock(nn.Module):
         return self.bn2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = column_input(x, self.conv1)  # as Bottleneck's, in a sharded tail
-        identity = x if self.downsample is None else self.downsample(x)
-        identity = own_channels(identity, self.bn2.weight.shape[0])
-        out = torch.relu(self.bn1(self.conv1(x)))
-        return torch.relu(self.bn2(self.conv2(column_input(out, self.conv2))) + identity)
+        with span("det.block"):
+            x = column_input(x, self.conv1)  # as Bottleneck's, in a sharded tail
+            identity = x if self.downsample is None else self.downsample(x)
+            identity = own_channels(identity, self.bn2.weight.shape[0])
+            out = torch.relu(self.bn1(self.conv1(x)))
+            return torch.relu(self.bn2(self.conv2(column_input(out, self.conv2))) + identity)
 
 
 class ResStage(nn.Sequential):

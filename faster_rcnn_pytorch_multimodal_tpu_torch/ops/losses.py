@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import span
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +88,8 @@ def smooth_l1_loss(
         p7, t7 = pred.reshape(-1, 7), targets.reshape(-1, 7)
         loss = torch.cat([huber_loss(p7[:, :6], t7[:, :6], 1.0),
                           huber_loss(p7[:, 6:7], t7[:, 6:7], 1.0, sin_en=en_ry_sin)], dim=1)
-        weight = torch.tensor(reg_loss_weight, dtype=loss.dtype, device=loss.device)
+        with span("sync.loss_weight"):  # a blocking copy: the host waits for the device
+            weight = torch.tensor(reg_loss_weight, dtype=loss.dtype, device=loss.device)
         in_loss = (loss * weight).reshape(pred.shape)
     else:
         in_loss = huber_loss(pred, targets, 1.0)

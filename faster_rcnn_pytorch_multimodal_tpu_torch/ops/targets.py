@@ -34,6 +34,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.ops.box_transform import (
     lidar_3d_bbox_transform,
 )
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops.iou import bbox_overlaps
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import span
 
 _EPS = 1.1920929e-07  # float32 machine epsilon, the reference's floor on per-GT best IoU
 
@@ -115,7 +116,8 @@ def anchor_target(
     argmax_overlaps = torch.argmax(overlaps, dim=2)  # first maximum, as jnp.argmax
     max_overlaps = torch.amax(overlaps, dim=2)
 
-    one, zero, minus = (torch.tensor(v, device=device) for v in (1.0, 0.0, -1.0))
+    with span("sync.anchor_target"):  # blocking copies: the host waits for the device
+        one, zero, minus = (torch.tensor(v, device=device) for v in (1.0, 0.0, -1.0))
     negative = inside & (max_overlaps < negative_overlap)
     labels = torch.full((b, n), -1.0, device=device)
     if not clobber_positives:
@@ -133,7 +135,8 @@ def anchor_target(
 
     num_fg = min(int(fg_fraction * rpn_batchsize), n)
     k_bg = min(rpn_batchsize, n)
-    two = torch.tensor(2.0, device=device)
+    with span("sync.anchor_target"):
+        two = torch.tensor(2.0, device=device)
     fg_vals, fg_sel = torch.sort(torch.where(labels == 1.0, fg_keys, two), dim=1, stable=True)
     fg_vals, fg_sel = fg_vals[:, :num_fg], fg_sel[:, :num_fg]
     fg_valid = fg_vals < 1.5  # real candidates (key < 1)

@@ -40,6 +40,7 @@ from typing import Tuple
 import torch
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.ops import _build
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import span
 
 _MAX_SLICES = 111  # csrc/voxelize.cu: a tile's 2 x 256 x S voxel words in shared memory
 
@@ -204,7 +205,8 @@ def voxelize_bev(
               num_x=num_x, num_y=num_y, num_slices=num_slices, num_meta=num_meta,
               max_pts_per_voxel=max_pts_per_voxel)
     if points.device.type == "cpu":
-        return voxelize_bev_plain(points, valid, voxel_len=voxel_len, **kw)
+        with span("ops.voxelize"):
+            return voxelize_bev_plain(points, valid, voxel_len=voxel_len, **kw)
     if points.device.type != "cuda":
         raise ValueError(f"voxelize_bev: unsupported device {points.device}")
     if not (points.is_contiguous() and valid.is_contiguous()):
@@ -213,7 +215,8 @@ def voxelize_bev(
         raise ValueError(f"voxelize_bev: the CUDA kernel takes at most {_MAX_SLICES} slices (a "
                          f"tile's voxels in shared memory) and fewer than 2^31 - 1 points, got "
                          f"{num_slices}, {tuple(points.shape)}")
-    return _voxelize_cuda(points, valid, **kw)
+    with span("ops.voxelize"):
+        return _voxelize_cuda(points, valid, **kw)
 
 
 def bev_grid_size(cfg, frame_scale: float = 1.0) -> Tuple[int, int, int]:

@@ -58,6 +58,7 @@ import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import span
 
 
 def local_batch_rows(process_index: int, process_count: int, batch_size: int) -> slice:
@@ -325,16 +326,17 @@ def all_reduce_(t: torch.Tensor, dp: DataParallel, axis: str, phase: str = "upda
     if dp.size(axis) == 1:
         return t
     dense = _dense(t)
-    if not STATS.enabled:
+    with span("dp.all_reduce"):
+        if not STATS.enabled:
+            dist.all_reduce(dense, op=op, group=dp.group(axis))
+            return t
+        cuda = t.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
         dist.all_reduce(dense, op=op, group=dp.group(axis))
-        return t
-    cuda = t.device.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(t.device)
-    t0 = time.perf_counter()
-    dist.all_reduce(dense, op=op, group=dp.group(axis))
-    if cuda:
-        torch.cuda.synchronize(t.device)
+        if cuda:
+            torch.cuda.synchronize(t.device)
     STATS.add((axis, phase), t.numel() * t.element_size(), (time.perf_counter() - t0) * 1e3)
     return t
 

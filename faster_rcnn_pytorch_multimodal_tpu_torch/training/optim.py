@@ -47,7 +47,7 @@ import torch.distributed as dist
 from faster_rcnn_pytorch_multimodal_tpu_torch.config import Config
 from faster_rcnn_pytorch_multimodal_tpu_torch.parallel import mesh
 from faster_rcnn_pytorch_multimodal_tpu_torch.parallel.mesh import DataParallel, all_reduce_grads_
-from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer, span
 
 _BN_STATS = ("running_mean", "running_var")
 _STEM = ("conv1", "bn1")
@@ -137,7 +137,9 @@ def safe_clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
         sumsq = (mesh.all_reduce_(squares[split].sum(), dp, "model")
                  + squares[~split].sum())
     norm = safe_m * torch.sqrt(sumsq)
-    if not torch.isfinite(norm):
+    with span("sync.clip_norm"):
+        finite = bool(torch.isfinite(norm))
+    if not finite:
         torch._foreach_zero_(grads)
     else:
         torch._foreach_mul_(grads, max_norm / torch.clamp(norm, min=max_norm))

@@ -99,7 +99,7 @@ from faster_rcnn_pytorch_multimodal_tpu_torch.utils.convert import (
     replicate_conv1_for_lidar,
     torch_key_to_flax_path,
 )
-from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer
+from faster_rcnn_pytorch_multimodal_tpu_torch.utils.timer import DeviceTimer, span
 
 
 def create_train_state(
@@ -132,8 +132,10 @@ def compute_call(model: FasterRCNN, method, *args, **kwargs):
     if model.compute_dtype == torch.float32:
         fn = getattr(model, method) if isinstance(method, str) else partial(method, model)
         return fn(*args, **kwargs)
-    return torch.func.functional_call(
-        model, cast_for_compute(model), args, dict(kwargs, method=method))
+    with span("train.cast"):
+        params = cast_for_compute(model)
+    with span("train.functional_call"):  # its own time: binding the copies and back
+        return torch.func.functional_call(model, params, args, dict(kwargs, method=method))
 
 
 def detect(
@@ -216,10 +218,12 @@ def make_train_step(
             gt_boxes_dc=batch.get("gt_boxes_dc"), dc_mask=batch.get("dc_mask"),
             scale_idx=batch.get("scale_idx"), proposals=proposals,
         )
-        with mesh.data_parallel(dp):
+        with mesh.data_parallel(dp), span("train.forward"):
             losses, aux = compute_call(model, "forward_train", *args, **kwargs)
-        losses["total_loss"].backward()
-        optimizer.step()
+        with span("train.backward"):
+            losses["total_loss"].backward()
+        with span("train.optimizer"):
+            optimizer.step()
         return mesh.reduce_losses({k: v.detach() for k, v in losses.items()}, dp), aux
 
     return step
@@ -255,23 +259,31 @@ def train(
     gradient all-reduce ms (`reduce_ms`); on_step(i, losses, ms) is called
     after step i, and when it returns True the loop ends there;
     first_batch(batch) is called with the first step's device batch before
-    that step (inside its timing).  The model is put in train mode."""
+    that step (inside its timing).  The model is put in train mode.  Under a
+    running torch profiler each step is a `train.step` span
+    (utils.timer.span), closed before on_step."""
     device = model_device(model)
     model.train()
     step = make_train_step(model, optimizer, dp)
     timer = DeviceTimer(device)
     all_losses, all_ms, reduce_ms = [], [], []
     for i in range(first_step, first_step + iters):
-        host = loader.next()
-        timer.start()
-        batch = batch_to_device(host, device)
-        mesh.check_same_shape(batch["data"].shape, dp, "the batch's data shape")
-        if first_batch is not None and i == first_step:
-            first_batch(batch)
-        gen = generator(i) if callable(generator) else generator
-        losses, _ = step(batch, draw_train_keys(model, batch, gen, dp))
-        ms = timer.stop()
-        losses = {k: float(v) for k, v in losses.items()}
+        with span("train.step"):
+            with span("train.data"):
+                host = loader.next()
+            timer.start()
+            with span("train.h2d"):
+                batch = batch_to_device(host, device)
+            mesh.check_same_shape(batch["data"].shape, dp, "the batch's data shape")
+            if first_batch is not None and i == first_step:
+                first_batch(batch)
+            gen = generator(i) if callable(generator) else generator
+            with span("train.draws"):
+                draws = draw_train_keys(model, batch, gen, dp)
+            losses, _ = step(batch, draws)
+            ms = timer.stop()
+            with span("sync.losses"):
+                losses = {k: float(v) for k, v in losses.items()}
         all_losses.append(losses)
         all_ms.append(ms)
         if optimizer.last_reduce_ms is not None:
